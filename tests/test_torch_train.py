@@ -1,0 +1,229 @@
+"""The port's optimiser, configs, shrink and KA-distillation step against
+the JAX package (CPU, float32, inputs made with numpy from a seed)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cat_tpu.compress.shrink import PruneBounds as JBounds
+from cat_tpu.compress.shrink import shrink_generator as jax_shrink
+from cat_tpu.core import config as jcfg
+from cat_tpu.distill.inception_distiller import DistillHParams as JHP
+from cat_tpu.distill.inception_distiller import InceptionDistiller as JDistiller
+from cat_tpu.train.optim import adam_tx, apply_updates
+from cat_tpu.utils.torch_import import import_inception_generator
+from cat_tpu_torch.compress.profiling import profile_generator
+from cat_tpu_torch.compress.shrink import PruneBounds, shrink_generator
+from cat_tpu_torch.core import config as tcfg
+from cat_tpu_torch.distill.inception_distiller import DistillHParams, InceptionDistiller
+from cat_tpu_torch.models.generator import InceptionGenerator
+from cat_tpu_torch.train.optim import Adam
+from cat_tpu_torch.utils import jax_import
+from tests.conftest import fast_init
+
+torch.set_num_threads(1)
+
+SIZE = 32
+LR = 2e-4
+
+
+def to_port(cfg):
+    return tcfg.config_from_json(jcfg.config_to_json(cfg))
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Adam
+# ---------------------------------------------------------------------------
+
+
+def test_adam_matches_optax_over_five_steps(rng):
+    shapes = [(3, 4), (5,), (2, 2, 3)]
+    params = [rng.randn(*s).astype(np.float32) for s in shapes]
+    grads = [[(rng.randn(*s) * 10 ** rng.uniform(-6, 0)).astype(np.float32) for s in shapes]
+             for _ in range(5)]
+    lrs = [2e-4, 2e-4, 1e-3, 5e-4, 2e-4]
+
+    tx = adam_tx(0.5)
+    jp = [jnp.asarray(p) for p in params]
+    state = tx.init(jp)
+    tp = [torch.from_numpy(p.copy()) for p in params]
+    opt = Adam(tp, beta1=0.5)
+    for g, lr in zip(grads, lrs):
+        jp, state = apply_updates(tx, jp, [jnp.asarray(x) for x in g], state,
+                                  jnp.asarray(lr, jnp.float32))
+        opt.step([torch.from_numpy(x) for x in g], lr)
+    for a, b in zip(tp, jp):
+        # float32 rounding of the same formula: far under one lr step
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# Configs
+# ---------------------------------------------------------------------------
+
+
+def _configs(mod):
+    teacher = mod.InceptionGeneratorConfig.make(ngf=64, channels_reduction_factor=6,
+                                                kernel_sizes=(1, 3, 5), n_blocks=9)
+    pruned = dataclasses.replace(
+        teacher, ds_channels=(16, 40, 96), us_channels=(30, 16),
+        blocks=(mod.InceptionBlockConfig(dim=96, res_channels=(3, 0, 7),
+                                         dw_channels=(0, 5, 2), res_kernels=(1, 3, 5),
+                                         dw_kernels=(1, 3, 5)),) * 2,
+        norm=mod.NormConfig(kind="none", affine=False), padding_type="zero",
+        dropout_rate=0.5,
+    )
+    disc = mod.NLayerDiscriminatorConfig(input_nc=6, ndf=32, n_layers=2)
+    return [teacher, pruned, disc, mod.NormConfig(eps=1e-3)]
+
+
+def test_config_json_round_trips_both_ways():
+    for jc, tc in zip(_configs(jcfg), _configs(tcfg)):
+        assert tcfg.config_from_json(jcfg.config_to_json(jc)) == tc
+        assert jcfg.config_from_json(tcfg.config_to_json(tc)) == jc
+        assert tcfg.config_to_json(tc) == jcfg.config_to_json(jc)
+
+
+# ---------------------------------------------------------------------------
+# Shrink (numpy: flagship widths)
+# ---------------------------------------------------------------------------
+
+
+def test_shrink_picks_the_jax_config_macs_and_weights():
+    jt = jcfg.InceptionGeneratorConfig.make(ngf=64, channels_reduction_factor=6,
+                                            kernel_sizes=(1, 3, 5), n_blocks=9)
+    teacher = InceptionGenerator(to_port(jt), generator=torch.Generator().manual_seed(0))
+    rs = np.random.RandomState(0)
+    sd = {k: (torch.from_numpy(rs.uniform(0.05, 2.0, v.shape).astype(np.float32))
+              if v.dim() == 1 and k.endswith(".weight") else v)
+          for k, v in teacher.state_dict().items()}
+    _, jvars = import_inception_generator({k: v.numpy() for k, v in sd.items()}, jt)
+
+    jres = jax_shrink(jt, jvars, 2.6e9, 256, 256, JBounds(cin_lb=16))
+    tres = shrink_generator(to_port(jt), sd, 2.6e9, 256, 256, PruneBounds(cin_lb=16))
+    assert tres.config == to_port(jres.config)
+    assert tres.searched_macs == jres.searched_macs
+    assert tres.searched_macs == profile_generator(tres.config, 256, 256).macs
+    assert tres.threshold == jres.threshold
+    # the sliced weights are the same tensors in either layout
+    _, back = import_inception_generator({k: v.numpy() for k, v in tres.state_dict.items()},
+                                         jres.config)
+    flat_t, flat_j = _flatten(back["params"]), _flatten(jres.variables["params"])
+    assert flat_t.keys() == flat_j.keys()
+    for k in flat_j:
+        np.testing.assert_array_equal(flat_t[k], flat_j[k], err_msg=k)
+    # and they load into the student
+    InceptionGenerator(tres.config).load_state_dict(tres.state_dict)
+
+
+# ---------------------------------------------------------------------------
+# The KA-distillation step
+# ---------------------------------------------------------------------------
+
+
+def _gen_cfg(ngf):
+    return jcfg.InceptionGeneratorConfig.make(ngf=ngf, channels_reduction_factor=2,
+                                              kernel_sizes=(1, 3, 5), n_blocks=2)
+
+
+def _hp(cls, **kw):
+    return cls(dataset_mode="unaligned", gan_mode="lsgan", distill_loss_type="ka",
+               lambda_recon=5.0, mapping_layers=("encode", "block1"), **kw)
+
+
+def test_train_step_matches_jax_after_one_and_three_steps(rng):
+    """The flagship step (unaligned, lsgan, KA over two taps, packed blocks)
+    at tiny size in float32, from the same weights and batch."""
+    teacher_cfg, student_cfg = _gen_cfg(8), _gen_cfg(4)
+    disc_cfg = jcfg.NLayerDiscriminatorConfig(input_nc=3, ndf=8)
+    batch = {"A": rng.randn(2, SIZE, SIZE, 3).astype(np.float32),
+             "B": rng.randn(2, SIZE, SIZE, 3).astype(np.float32)}
+
+    jd = JDistiller(teacher_cfg, student_cfg, disc_cfg, hp=_hp(JHP))
+    tv = fast_init(jd.netG_teacher, jnp.zeros((1, SIZE, SIZE, 3)), seed=7)
+    sv = fast_init(jd.netG_student, jnp.zeros((1, SIZE, SIZE, 3)), seed=8)
+    jstate, tv = jd.init_state(jax.random.PRNGKey(0), SIZE, SIZE, tv, sv)
+
+    td = InceptionDistiller(to_port(teacher_cfg), to_port(student_cfg), to_port(disc_cfg),
+                            hp=_hp(DistillHParams), device="cpu")
+    tstate, tparams = td.init_state(
+        jax_import.generator_state_dict(tv["params"], teacher_cfg),
+        jax_import.generator_state_dict(jstate.g.params["G"], student_cfg),
+        jax_import.nlayer_discriminator_state_dict(jstate.d.params, disc_cfg),
+    )
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    tbatch = {k: torch.from_numpy(v.transpose(0, 3, 1, 2).copy()) for k, v in batch.items()}
+
+    for step in (1, 2, 3):
+        jstate, jm = jd.train_step(jstate, tv, jbatch, LR)
+        tstate, tm = td.train_step(tstate, tparams, tbatch, LR)
+        if step == 2:
+            continue
+        assert tm.keys() == jm.keys()
+        for k in jm:
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4, atol=1e-6,
+                                       err_msg=f"step {step} {k}")
+        for name, ref, got in (
+            ("G", jax_import.generator_state_dict(jstate.g.params["G"], student_cfg),
+             td.netG_student.state_dict()),
+            ("D", jax_import.nlayer_discriminator_state_dict(jstate.d.params, disc_cfg),
+             td.netD.state_dict()),
+        ):
+            assert ref.keys() == got.keys()
+            diff = {k: (got[k] - ref[k]).abs() for k in ref}
+            # Adam moves a parameter by about lr per step whatever the size of
+            # its gradient, so where the two runs disagree on the sign of a
+            # gradient that is zero up to float32 noise (the bias of a conv
+            # that feeds an instance norm) they part by up to ~2·lr per step ...
+            assert max(float(d.max()) for d in diff.values()) <= 2.5 * LR * step, name
+            # ... while the conv weights, whose gradients are not zero, agree
+            # far closer: all but a sliver of their entries within lr/10
+            w = torch.cat([d.flatten() for k, d in diff.items() if d.dim() > 1])
+            assert float((w > 0.1 * LR).float().mean()) < 1e-3, name
+    assert tstate.step == 3
+    out = td.generate_student(tstate, tbatch["A"])
+    assert out.shape == tbatch["A"].shape
+
+
+def test_bf16_step_keeps_float32_masters(rng):
+    hp = DistillHParams(dataset_mode="aligned", gan_mode="hinge", lambda_recon=5.0,
+                        mapping_layers=("encode", "block1"), compute_dtype="bfloat16",
+                        fused_norms=True, packed_blocks=False)
+    td = InceptionDistiller(to_port(_gen_cfg(8)), to_port(_gen_cfg(4)), hp=hp, device="cpu")
+    teacher = InceptionGenerator(to_port(_gen_cfg(8)), generator=torch.Generator().manual_seed(1))
+    state, tparams = td.init_state(teacher.state_dict())
+    x = torch.from_numpy(rng.randn(2, 3, SIZE, SIZE).astype(np.float32))
+    state, m = td.train_step(state, tparams, {"A": x, "B": x.flip(0)}, LR)
+    assert all(bool(torch.isfinite(v)) for v in m.values())
+    assert all(p.dtype == torch.float32 for p in state.g.params.values())
+    assert all(p.dtype == torch.float32 for p in state.d.params.values())
+
+
+@pytest.mark.parametrize("kw", [{"teacher_compute_dtype": "int8"}, {"remat": True},
+                                {"ema_decay": 0.999}, {"distill_loss_type": "mse"},
+                                {"gan_mode": "wgangp"}])
+def test_unported_hyperparameters_raise(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        InceptionDistiller(to_port(_gen_cfg(8)), to_port(_gen_cfg(4)),
+                           hp=DistillHParams(**kw), device="cpu")
+
+
+def test_entry_point_needs_cuda_unless_cpu_is_asked_for():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InceptionDistiller(to_port(_gen_cfg(8)), to_port(_gen_cfg(4)))

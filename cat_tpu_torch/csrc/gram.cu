@@ -5,40 +5,50 @@
 // (the TPU Pallas kernel).  The TPU version walks F in 2048-wide tiles on a
 // sequential grid and carries one (B, B) accumulator in VMEM from step to
 // step.  On Hopper blocks run in no order and nothing carries over between
-// them, so the work is split in two kernels launched back to back on the
-// caller's stream by one C entry point:
+// them, so each C entry point launches two kernels back to back on the
+// caller's stream: a partial-Gram kernel, in which each CTA sums the
+// products of its own range of F into a float32 (Bp, Bp) partial, and
+// gram_reduce, which sums the partials of every entry in a fixed order
+// (eight interleaved runs, then the eight run sums in order).  No atomics,
+// so a run is bit-reproducible.  B is padded to Bp = 16, 32, 64 or 128 rows
+// (zero rows add nothing), one kernel instance each.
 //
-//   1. gram_partial_*: F is cut into equal chunks, one CTA per chunk.  A CTA
-//      stages (rows, KT) tiles of its chunk in shared memory (zero rows past
-//      B, zero columns past F: zeros add nothing) and accumulates a float32
-//      partial Gram in registers.  bf16 inputs go through tensor cores with
-//      mma.sync m16n8k16 (bf16 x bf16 -> f32; a product of two bf16 values
-//      is exact in f32, as on the TPU's MXU); their tiles arrive by cp.async
-//      in two buffers, so the next tile's copy overlaps this tile's
-//      products, and each warp reuses one 16-row A fragment across its
-//      8-column tiles.  B is padded to 16, 32, 64 or 128 rows, one kernel
-//      instance each, so the tile offsets are compile-time constants.  float32 inputs use CUDA-core FMAs, each thread an
+// Bound on an H100: bytes.  The work is B·F reads of X and 2·B²·F flops; at
+// B = 128 that is 128 flops per bf16 byte, under the ~295 the card needs to
+// be compute-bound, so a kernel can at best stream X once at the memory
+// rate (B·F·2 bytes / 3.35 TB/s).  To stream at that rate an SM needs about
+// 48 KiB of loads in flight, and the partials (written and read once more)
+// must stay a small share of the traffic.
+//
+// Three partial-Gram kernels; the Python wrapper (distill/ka.py::_gram_path)
+// picks one by dtype and shape:
+//
+//   gram_partial_tma (bf16, F % 8 == 0, 16-byte-aligned X: TMA's rules for
+//      the row stride and the base address).  One persistent CTA per SM owns
+//      a contiguous range of F in 64-column tiles (128 bytes of each row: one
+//      128-byte swizzle row), balanced to within one tile.  One producer lane
+//      keeps a ring of 128 KiB of tiles in flight with TMA (one tensor map
+//      over X; rows past B and columns past F arrive as zeros), each stage
+//      with a "full" and an "empty" mbarrier.  Consumer warpgroups multiply
+//      with wgmma: G = X·Xᵀ is a product of two K-major operands read from
+//      the same swizzled tile, warpgroup w taking rows [64w, 64w + 64) as A
+//      and all Bp rows as B (m64nBpk16, 4 per tile, 32 bytes apart inside
+//      the swizzle row).  A stage returns to the producer once wgmma.wait_group
+//      shows its reads are done.  The tensor cores' running sum drops low
+//      bits with a bias, so wgmma sums runs of 4 tiles and ordinary float32
+//      adds sum the runs.  132 partials of Bp² floats (8.65 MB at Bp = 128).
+//   gram_partial_bf16 (every other bf16 operand).  ~4 CTAs per SM, each
+//      staging (Bp, 64) tiles by cp.async in two buffers and multiplying with
+//      mma.sync m16n8k16 from fragments loaded out of shared memory.
+//   gram_partial_f32 (float32 operands): CUDA-core FMAs, each thread an
 //      8 x 8 register block of entries.
-//      Each CTA writes its partial to a scratch buffer the caller allocates.
-//   2. gram_reduce: each output entry sums the partials over the chunks in a
-//      fixed order (eight interleaved runs, then the eight run sums in
-//      order).  No atomics, so a run is bit-reproducible.
 //
 // One entry point call computes one operand's Gram; KA launches it once per
 // operand (the teacher's and the student's F differ), two per tap.
 //
-// Bound on an H100: bytes.  The work is B·F reads of X and 2·B²·F flops; at
-// B = 128 that is 128 flops per bf16 byte, under the ~295 the card needs to
-// be compute-bound, so the kernel can at best stream X once at the memory
-// rate (B·F·2 bytes / 3.35 TB/s).  The design reads X exactly once with
-// 16-byte asynchronous copies when F allows, keeps a tile per CTA in flight
-// while the previous one is multiplied, and sizes the chunks so that the
-// partials (chunks·Bp²·4 bytes, written and read once more) stay a small
-// share of the traffic.  This version has no TMA, no wgmma and only two
-// buffers: deeper pipelines are later work.
-//
 // Limits (checked by the Python wrapper): 1 <= B <= 128, X contiguous.
 
+#include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's types (no -lcuda: see tma_encoder)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -246,6 +256,297 @@ gram_reduce(const float* __restrict__ partial, int nchunks, int B, int Bp,
   }
 }
 
+// ---------------------------------------------------------------------------
+// TMA ring + wgmma (bf16)
+// ---------------------------------------------------------------------------
+
+constexpr int kTmaKT = 64;               // columns per tile: 128 bytes of a row
+constexpr int kRingBytes = 128 * 1024;   // tiles in flight per CTA
+constexpr int kRun = 4;                  // tiles wgmma sums before a float32 add
+constexpr unsigned long long kHangNs = 2000000000ull;  // a 2 s wait is a fault: trap
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  The loop is in PTX,
+// so the compiler sees no divergent branch around the wgmma code.  A phase
+// that has not completed after 2 s is a fault in the ring's bookkeeping:
+// trap rather than hang.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t0, %%globaltimer;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "mov.u64 t1, %%globaltimer;\n"
+      "sub.u64 t1, t1, t0;\n"
+      "setp.gt.u64 p, t1, %2;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(bar),
+      "r"(parity), "l"(kHangNs)
+      : "memory");
+}
+
+// Copy the (64 columns, rows) box at column c0, row 0 of the tensor map into
+// shared memory; completion counts the box's bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(0), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major operand in the 128-byte swizzle
+// written by TMA: start address >> 4, leading byte offset unused (1), stride
+// byte offset 1024 >> 4 (8 rows of 128 bytes), base offset 0 (the tile is
+// 1024-byte aligned), layout 1 = 128-byte swizzle.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// D (64 x N, float32, in registers) = A (64 x 16) · B (N x 16)ᵀ + (scale_d ? D : 0),
+// A and B bf16, K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8], uint64_t a, uint64_t b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t a, uint64_t b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], uint64_t a, uint64_t b,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// Keep the compiler from moving accumulator accesses across the asynchronous
+// wgmma instructions (no code is emitted).
+template <int K>
+__device__ __forceinline__ void fence_acc(float (&d)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Persistent CTA `blockIdx.x` of gridDim.x: partial[cta] = the Gram of its
+// tiles [t0, t1) of the ntiles 64-column tiles of X.  Threads: kWG consumer
+// warpgroups (warps 0 .. 4·kWG-1, warpgroup-aligned), then one producer warp.
+template <int N>
+__global__ void __launch_bounds__(128 * (N == 128 ? 2 : 1) + 32, 1)
+gram_partial_tma(const __grid_constant__ CUtensorMap xmap, long long ntiles,
+                 float* __restrict__ partial) {
+  constexpr int kWG = N == 128 ? 2 : 1;  // consumer warpgroups, 64 rows each
+  constexpr int kTileBytes = 64 * kWG * kTmaKT * 2;
+  constexpr int kStages = kRingBytes / kTileBytes;
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  extern __shared__ uint8_t dyn[];  // kRingBytes + 1024, aligned below
+  const uint32_t ring = (smem_u32(dyn) + 1023u) & ~1023u;
+  const long long t0 = blockIdx.x * ntiles / gridDim.x;
+  const int n = static_cast<int>((blockIdx.x + 1) * ntiles / gridDim.x - t0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);            // the producer's expect_tx
+      mbar_init(smem_u32(&empty[s]), 4 * kWG);     // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // warpgroup index, from lane 0 so that the compiler knows it is uniform
+  // across the warp (else it serialises the wgmma instructions)
+  const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
+  if (wg == kWG) {
+    // producer: one lane keeps the ring full.  Round r of stage s waits for
+    // the consumers' r-th release (parity (r & 1) ^ 1 passes at once for r = 0).
+    if (threadIdx.x == 128 * kWG) {
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kStages;
+        mbar_wait(smem_u32(&empty[s]), ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(smem_u32(&full[s]), kTileBytes);  // the whole box, even at edges
+        tma_load_2d(ring + s * kTileBytes, &xmap, smem_u32(&full[s]),
+                    static_cast<int>((t0 + i) * kTmaKT));
+      }
+    }
+    return;
+  }
+
+  // wgmma sums a run of kRun tiles in acc; sum adds the runs with ordinary
+  // (round-to-nearest) float32 adds.  The tensor cores' own running sum
+  // loses low bits with a bias; over a CTA's whole range (~8k columns on the
+  // teacher) that bias exceeds 1e-5 of the largest entry.
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  float acc[N / 2], sum[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = sum[i] = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const int s = i % kStages;
+    mbar_wait(smem_u32(&full[s]), (i / kStages) & 1);
+    const uint32_t tile = ring + s * kTileBytes;
+    const uint64_t da = sw128_desc(tile + wg * 64 * 128), db = sw128_desc(tile);
+    fence_acc(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < kTmaKT / 16; ++kk)  // 16 columns = 32 bytes = 2 units of 16
+      wgmma_bf16<N>(acc, da + 2 * kk, db + 2 * kk, kk > 0 || i % kRun != 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if (i % kRun == kRun - 1 || i == n - 1) {  // the run ends: fold it into sum
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_acc(acc);
+#pragma unroll
+      for (int j = 0; j < N / 2; ++j) sum[j] += acc[j];
+    } else {
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // tile i-1 is read
+      fence_acc(acc);
+    }
+    if (i > 0 && lane == 0) mbar_arrive(smem_u32(&empty[(i - 1) % kStages]));
+  }
+
+  // accumulator layout of m64nN: sum[4j + 2h + e] is entry (row, 8j + 2·(lane % 4) + e),
+  // row = 64·wg + 16·warp + lane / 4 + 8h.  Rows past Bp (N < 64) are zeros.
+  float* out = partial + static_cast<long long>(blockIdx.x) * N * N;
+  const int r = 64 * wg + 16 * warp + lane / 4;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int c = 8 * j + 2 * (lane % 4);
+    if (r < N) *reinterpret_cast<float2*>(out + r * N + c) = make_float2(sum[4 * j], sum[4 * j + 1]);
+    if (r + 8 < N)
+      *reinterpret_cast<float2*>(out + (r + 8) * N + c) =
+          make_float2(sum[4 * j + 2], sum[4 * j + 3]);
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query so that the library needs no -lcuda.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tma_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+constexpr int kEncodeError = 10000;  // + the CUresult of a failed encode
+
+template <int N>
+int launch_tma(const void* x, int B, long long F, int ctas, float* partial, cudaStream_t s) {
+  constexpr int kWG = N == 128 ? 2 : 1;
+  constexpr int kSmem = kRingBytes + 1024;  // + room to align the ring to 1024 bytes
+  cudaError_t err = cudaFuncSetAttribute(gram_partial_tma<N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const EncodeTiled encode = tma_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(F), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(F) * 2};  // bytes, a multiple of 16
+  const cuuint32_t box[2] = {kTmaKT, 64u * kWG};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // out of bounds: zeros
+  if (r != CUDA_SUCCESS) return kEncodeError + static_cast<int>(r);
+  const long long ntiles = (F + kTmaKT - 1) / kTmaKT;
+  gram_partial_tma<N><<<ctas, 128 * kWG + 32, kSmem, s>>>(map, ntiles, partial);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -268,6 +569,27 @@ int cat_gram_bf16(const void* x, int B, long long F, long long chunk, int nchunk
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   gram_reduce<<<(B * B + 31) / 32, kThreads, 0, s>>>(p, nchunks, B, Bp, static_cast<float*>(g));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (B, F) bf16, contiguous, F % 8 == 0, 16-byte aligned.  partial: ctas *
+// Bp * Bp floats (ctas: one per SM), Bp as for cat_gram_bf16.  g: (B, B)
+// floats.  Returns a CUDA error code, or 10000 + the CUresult of a failed
+// tensor-map encode.
+int cat_gram_bf16_tma(const void* x, int B, long long F, int ctas, void* partial, void* g,
+                      void* stream) {
+  const int Bp = B <= 16 ? 16 : B <= 32 ? 32 : B <= 64 ? 64 : 128;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(partial);
+  int rc;
+  switch (Bp) {
+    case 16: rc = launch_tma<16>(x, B, F, ctas, p, s); break;
+    case 32: rc = launch_tma<32>(x, B, F, ctas, p, s); break;
+    case 64: rc = launch_tma<64>(x, B, F, ctas, p, s); break;
+    default: rc = launch_tma<128>(x, B, F, ctas, p, s); break;
+  }
+  if (rc != 0) return rc;
+  gram_reduce<<<(B * B + 31) / 32, kThreads, 0, s>>>(p, ctas, B, Bp, static_cast<float*>(g));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,11 +6,15 @@
 on batch-flattened activations.  The distiller maximises KA between student
 and teacher activations at mapped layers (loss = -KA).
 
-``gram`` launches the hand-written CUDA kernel (``cat_tpu_torch/csrc/gram.cu``)
-for a CUDA tensor and the plain twin ``gram_plain`` for a CPU tensor.  The
-backward needs only the saved Grams plus one more read of X and Y:
+``gram`` launches a hand-written CUDA kernel (``cat_tpu_torch/csrc/gram.cu``)
+for a CUDA tensor and the plain twin ``gram_plain`` for a CPU tensor.
+``_gram_path`` picks the kernel: TMA + wgmma for bf16 operands that meet
+TMA's rules, mma.sync for other bf16 shapes, CUDA-core FMAs for float32.
+The backward needs only the saved Grams plus one more read of X or Y:
 dKA/dX = 2 (G_Y - (s/n_x) G_X) X / sqrt(n_x n_y), a (B x B)(B x F) product
 left to ``torch.matmul`` in float32, as the JAX package leaves it to XLA.
+It computes only the gradients autograd asks for: in the distillation step
+Y is the teacher's activation, whose gradient nobody reads.
 
 KA is invariant to the order of the feature axis, so flattening NCHW
 activations gives the same value as the JAX package's NHWC flatten.
@@ -27,8 +31,9 @@ from cat_tpu_torch.utils import cuda_build
 _MAX_BATCH = 128
 _CTAS_PER_SM = 4
 
-# launches of the CUDA kernel since the last reset
+# launches of the CUDA kernels since the last reset: in all, and by path
 launches = 0
+path_launches = {"tma": 0, "mma": 0, "f32": 0}
 
 
 def gram_plain(x: torch.Tensor) -> torch.Tensor:
@@ -47,49 +52,77 @@ def _lib():
         lib.cat_gram_f32.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
                                      ctypes.c_void_p, ctypes.c_void_p]
+        lib.cat_gram_bf16_tma.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                                          ctypes.c_void_p]
         lib.cat_gram_bf16.restype = lib.cat_gram_f32.restype = ctypes.c_int
+        lib.cat_gram_bf16_tma.restype = ctypes.c_int
         lib._typed = True
     return lib
 
 
+def _gram_path(b: int, f: int, dtype: torch.dtype, aligned: bool) -> str:
+    """The kernel that takes a (b, f) operand of ``dtype`` (``aligned``: its
+    address is a multiple of 16 bytes): "tma" (TMA ring + wgmma) for bf16
+    when TMA can map it (a row stride of f·2 bytes must be a multiple of 16,
+    so f % 8 == 0, and the base address 16-byte aligned), "mma" (cp.async +
+    mma.sync) for other bf16 operands, "f32" for float32.  Raises on what no
+    kernel takes."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"gram_cuda takes bf16 or f32, got {dtype}")
+    if not 1 <= b <= _MAX_BATCH or f < 1:
+        raise ValueError(f"gram_cuda takes 1 <= B <= {_MAX_BATCH} and F >= 1, got {(b, f)}")
+    if dtype == torch.float32:
+        return "f32"
+    return "tma" if f % 8 == 0 and aligned else "mma"
+
+
 def gram_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA Gram kernel on a (B, F) CUDA tensor; raises on
-    anything it does not take."""
-    global launches
+    """Launch the CUDA Gram kernel that ``_gram_path`` picks on a (B, F)
+    CUDA tensor; raises on anything no kernel takes."""
     if x.device.type != "cuda":
         raise ValueError(f"gram_cuda needs a CUDA tensor, got {x.device}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("gram_cuda needs a contiguous (B, F) tensor")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"gram_cuda takes bf16 or f32, got {x.dtype}")
+    return _gram_launch(x, _gram_path(*x.shape, x.dtype, x.data_ptr() % 16 == 0))
+
+
+def _gram_launch(x: torch.Tensor, path: str) -> torch.Tensor:
+    """Launch kernel ``path`` on an operand ``gram_cuda`` has checked.  The
+    comparisons of the two bf16 designs (chip_smoke.py, the card tests) also
+    call it with "mma", which takes any bf16 operand."""
+    global launches
     b, f = x.shape
-    if not 1 <= b <= _MAX_BATCH or f < 1:
-        raise ValueError(f"gram_cuda takes 1 <= B <= {_MAX_BATCH} and F >= 1, "
-                         f"got {tuple(x.shape)}")
-    bf16 = x.dtype == torch.bfloat16
-    kt = 64 if bf16 else 32  # columns a CTA stages per step (gram.cu)
-    # the bf16 kernel pads B to 16, 32, 64 or 128 rows (gram.cu)
-    bp = next(r for r in (16, 32, 64, 128) if r >= b) if bf16 else b
-    # ~4 CTAs per SM, but no chunk under 8·bp columns: a CTA's (bp, bp)
-    # float32 partial then stays at most 1/4 of the bf16 bytes it reads
+    # the bf16 kernels pad B to 16, 32, 64 or 128 rows (gram.cu)
+    bp = b if path == "f32" else next(r for r in (16, 32, 64, 128) if r >= b)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    chunk = max(-(-f // (_CTAS_PER_SM * sms)), 8 * bp)
-    chunk = -(-chunk // kt) * kt
-    nchunks = -(-f // chunk)
-    partial = torch.empty((nchunks, bp, bp), dtype=torch.float32, device=x.device)
     g = torch.empty((b, b), dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if bf16:
-            vec = int(f % 8 == 0 and x.data_ptr() % 16 == 0)
-            rc = lib.cat_gram_bf16(x.data_ptr(), b, f, chunk, nchunks, vec,
-                                   partial.data_ptr(), g.data_ptr(), stream)
+        if path == "tma":
+            # one persistent CTA per SM, one partial each
+            partial = torch.empty((sms, bp, bp), dtype=torch.float32, device=x.device)
+            rc = lib.cat_gram_bf16_tma(x.data_ptr(), b, f, sms, partial.data_ptr(),
+                                       g.data_ptr(), stream)
         else:
-            rc = lib.cat_gram_f32(x.data_ptr(), b, f, chunk, nchunks,
-                                  partial.data_ptr(), g.data_ptr(), stream)
+            kt = 64 if path == "mma" else 32  # columns a CTA stages per step (gram.cu)
+            # ~4 CTAs per SM, but no chunk under 8·bp columns: a CTA's (bp, bp)
+            # float32 partial then stays at most 1/4 of the bf16 bytes it reads
+            chunk = max(-(-f // (_CTAS_PER_SM * sms)), 8 * bp)
+            chunk = -(-chunk // kt) * kt
+            nchunks = -(-f // chunk)
+            partial = torch.empty((nchunks, bp, bp), dtype=torch.float32, device=x.device)
+            if path == "mma":
+                vec = int(f % 8 == 0 and x.data_ptr() % 16 == 0)
+                rc = lib.cat_gram_bf16(x.data_ptr(), b, f, chunk, nchunks, vec,
+                                       partial.data_ptr(), g.data_ptr(), stream)
+            else:
+                rc = lib.cat_gram_f32(x.data_ptr(), b, f, chunk, nchunks,
+                                      partial.data_ptr(), g.data_ptr(), stream)
     cuda_build.check(rc, "gram")
     launches += 1
+    path_launches[path] += 1
     return g
 
 
@@ -124,7 +157,9 @@ class _KA(torch.autograd.Function):
         s = (gx * gy).sum()
         nx = (gx * gx).sum()
         ny = (gy * gy).sum()
-        ctx.save_for_backward(x, y, gx, gy, s, nx, ny)
+        # an operand is kept only if its own gradient is wanted
+        need_x, need_y = ctx.needs_input_grad
+        ctx.save_for_backward(x if need_x else None, y if need_y else None, gx, gy, s, nx, ny)
         return s * torch.rsqrt(nx * ny)
 
     @staticmethod
@@ -132,11 +167,14 @@ class _KA(torch.autograd.Function):
         x, y, gx, gy, s, nx, ny = ctx.saved_tensors
         inv = torch.rsqrt(nx * ny)
         # dKA/dG_X = (G_Y - (s/n_x) G_X) / sqrt(n_x n_y); dG_X/dX pulls back as 2 M X
-        mx = (gy - (s / nx) * gx) * inv
-        my = (gx - (s / ny) * gy) * inv
-        dx = (2.0 * g) * (mx @ _flatten(x).float())
-        dy = (2.0 * g) * (my @ _flatten(y).float())
-        return dx.reshape(x.shape).to(x.dtype), dy.reshape(y.shape).to(y.dtype)
+        dx = dy = None
+        if ctx.needs_input_grad[0]:
+            mx = (gy - (s / nx) * gx) * inv
+            dx = ((2.0 * g) * (mx @ _flatten(x).float())).reshape(x.shape).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            my = (gx - (s / ny) * gy) * inv
+            dy = ((2.0 * g) * (my @ _flatten(y).float())).reshape(y.shape).to(y.dtype)
+        return dx, dy
 
 
 def ka(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -92,6 +92,9 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check(rc: int, what: str) -> None:
-    """Raise when a C entry point returned a CUDA error code."""
+    """Raise when a C entry point returned a CUDA error code, or 10000 plus
+    the CUresult of a failed tensor-map encode."""
+    if rc >= 10000:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed, CUresult {rc - 10000}")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")

@@ -9,14 +9,17 @@ Phases, in order; any failure exits non-zero before the result line:
   2. kernels: builds the hand-written CUDA kernels from ``cat_tpu_torch/csrc``
      (one nvcc per source, in parallel), then holds each against its plain
      PyTorch version in bf16 and f32 at the flagship step's shapes, and times
-     kernel, plain version, one-call PyTorch yardstick and the bytes bound;
+     kernel, plain version, one-call PyTorch yardstick and the bytes bound.
+     The bf16 Gram: the TMA + wgmma kernel the main path takes (also called
+     twice for bit-identity) and the mma.sync kernel, both at the step's
+     shapes and the latter also at an F % 8 != 0 shape;
   3. reference: one float32 KA-distillation step at a tiny size on the card
      (kernels) and on the CPU (plain versions), losses compared;
   4. flagship: the horse2zebra KA-distillation step of ``bench.py`` (teacher
      ngf 64 / r6 / kernels 1,3,5; student shrunk to 2.6e9 MACs; 256 px;
      unaligned lsgan + KA over encode, block2, block5, block8; bf16 compute,
      float32 masters; packed blocks) at full width: 1 warm-up + 3 timed steps,
-     the Gram kernel launched 8 times per step;
+     the Gram's TMA kernel launched 8 times per step;
   5. fused norms: the same step with ``fused_norms=True`` for 2 steps, the
      norm kernel launched once per ConvNormAct (6 per step).
 
@@ -79,6 +82,19 @@ def timed(fn, flush, iters: int = 20) -> float:
 # ---------------------------------------------------------------------------
 
 
+def _check_gram(got, ref, what: str) -> float:
+    """Max |got - ref|; fails beyond 1e-5 of the largest entry (float32
+    sums in another order)."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    tol = 1e-5 * float(ref.abs().max())
+    if not err <= tol or not torch.isfinite(got).all():
+        fail(f"gram {what} {tuple(ref.shape)}: max |err| {err:g} > {tol:g}")
+    return err
+
+
 def check_kernels(dev, t_channels, s_channels, card):
     """Each kernel against its plain version in bf16 and f32 at the step's
     shapes; returns the per-step numbers of each kernel at the main path's
@@ -95,36 +111,66 @@ def check_kernels(dev, t_channels, s_channels, card):
         l2.zero_()
 
     out = {}
-    # --- Gram: one operand per launch; per tap a teacher and a student one
+    # --- Gram: one operand per launch; per tap a teacher and a student one.
+    # bf16: the main path's kernel (TMA + wgmma), held against the plain
+    # version, called twice for bit-reproducibility, and timed beside the
+    # mma.sync kernel on the same operand; the yardstick is one cuBLAS call
+    # with bf16 operands and float32 output.  f32: the FMA kernel.
     bc = t_channels[-1], s_channels[-1]
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
-               "bytes_ms": 0.0, "ops_ms": 0.0}
+               "bytes_ms": 0.0, "ops_ms": 0.0, "mma_sync_ms": 0.0}
         for who, c in zip(("teacher", "student"), bc):
             f = 64 * 64 * c
             x = torch.relu(torch.randn(BATCH, f, generator=gen, device=dev)).to(dtype)
-            got, ref = ka.gram_cuda(x), ka.gram_plain(x)
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            tol = 1e-5 * float(ref.abs().max())  # f32 sums in another order
-            if not err <= tol or not torch.isfinite(got).all():
-                fail(f"gram {who} {dname} {tuple(x.shape)}: max |err| {err:g} > {tol:g}")
-            xf = x.float()
+            path = ka._gram_path(BATCH, f, dtype, x.data_ptr() % 16 == 0)
+            ref = ka.gram_plain(x)
+            err = _check_gram(ka.gram_cuda(x), ref, f"{who} {dname} {path}")
+            if dtype == torch.bfloat16:
+                if path != "tma":
+                    fail(f"gram {who}: the bf16 operand {tuple(x.shape)} took path {path!r}")
+                if not torch.equal(ka.gram_cuda(x), ka.gram_cuda(x)):
+                    fail(f"gram {who}: two calls of the TMA kernel differ")
+                mma_out = ka._gram_launch(x, "mma")
+                _check_gram(mma_out, ref, f"{who} {dname} mma")
+                # which of the three float32 results is nearest the exact Gram
+                r64 = x.double() @ x.double().T
+                e64 = {k: float((v.double() - r64).abs().max()) for k, v in
+                       (("kernel", ka.gram_cuda(x)), ("mma.sync", mma_out), ("plain", ref))}
+                del r64
+                log(f"gram {who} bf16: max |err| against float64: {e64}")
+                lib = timed(lambda: torch.mm(x, x.T, out_dtype=torch.float32), flush=flush)
+                lib_name = "torch.mm(x, x.T, out_dtype=float32)"
+            else:
+                xf = x.float()
+                lib = timed(lambda: torch.matmul(xf, xf.T), flush=flush)
+                lib_name = "torch.matmul(xf, xf.T)"
             ms = timed(lambda: ka.gram_cuda(x), flush=flush)
             plain = timed(lambda: ka.gram_plain(x), flush=flush)
-            lib = timed(lambda: torch.matmul(xf, xf.T), flush=flush)
+            mma_ms = (timed(lambda: ka._gram_launch(x, "mma"), flush=flush)
+                      if dtype == torch.bfloat16 else None)
             bytes_ms = 1e3 * (BATCH * f * x.element_size() + BATCH * BATCH * 4) / HBM_BYTES_PER_S
             ops_ms = 1e3 * 2 * BATCH * BATCH * f / PEAK_FLOPS[dname]
             bound = max(bytes_ms, ops_ms)
-            log(f"gram {who:7s} {dname:8s} B={BATCH} F={f}: kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, torch.matmul(f32) {lib:.4f} ms, bound {bound:.4f} ms, "
-                f"max|err| {err:.3g} (tol {tol:.3g}) [{card}]")
+            old = f", mma.sync kernel {mma_ms:.4f} ms" if mma_ms is not None else ""
+            log(f"gram {who:7s} {dname:8s} B={BATCH} F={f}: kernel ({path}) {ms:.4f} ms "
+                f"({100 * bound / ms:.1f}% of bound){old}, plain {plain:.4f} ms, {lib_name} "
+                f"{lib:.4f} ms, bound {bound:.4f} ms, max|err| {err:.3g} (tol "
+                f"{1e-5 * float(ref.abs().max()):.3g}) [{card}]")
             for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                         ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+                         ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
+                         ("mma_sync_ms", mma_ms or 0.0)):
                 tot[k] += 4 * v  # four taps per step
             tot["err"] = max(tot["err"], err)
         out[("gram", dname)] = tot
+    # the mma.sync kernel is also the main path's for bf16 operands TMA
+    # cannot map: F % 8 != 0
+    x = torch.relu(torch.randn(BATCH, 4096 * 3 + 4, generator=gen, device=dev)).to(torch.bfloat16)
+    if ka._gram_path(*x.shape, x.dtype, True) != "mma":
+        fail("gram: F % 8 != 0 did not select the mma.sync kernel")
+    err = _check_gram(ka.gram_cuda(x), ka.gram_plain(x), "bf16 mma F % 8 != 0")
+    log(f"gram mma.sync kernel on {tuple(x.shape)} bf16: max|err| {err:.3g}")
 
     # --- instance norm + affine + relu at stem / down0 / down1, both nets
     planes = [(c, SIZE >> j) for channels in (t_channels, s_channels)
@@ -251,7 +297,9 @@ def run_steps(dev, teacher_cfg, teacher_sd, student_cfg, fused, n_steps, card,
     batch = {k: torch.randn(BATCH, 3, SIZE, SIZE, generator=gen, device=dev) for k in "AB"}
     torch.cuda.synchronize()
 
+    torch.cuda.reset_peak_memory_stats()
     ka.launches = 0
+    ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
     inorm.launches = 0
     times = []
     for _ in range(n_steps):
@@ -259,7 +307,8 @@ def run_steps(dev, teacher_cfg, teacher_sd, student_cfg, fused, n_steps, card,
         state, metrics = dist.train_step(state, tparams, batch, LR)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    counts = {"gram": ka.launches, "instance_norm_act": inorm.launches}
+    counts = {"gram": ka.launches, "gram_tma": ka.path_launches["tma"],
+              "instance_norm_act": inorm.launches}
 
     vals = {k: float(v) for k, v in metrics.items()}
     if not all(math.isfinite(v) for v in vals.values()):
@@ -384,13 +433,13 @@ def main() -> None:
     times, counts, vals, mem, busy_ms = run_steps(dev, teacher_cfg, teacher_sd, res.config,
                                                   False, 1 + TIMED_STEPS, card,
                                                   profile_steps=2)
-    if counts["gram"] != 8 * (1 + TIMED_STEPS):
-        fail(f"Gram kernel launched {counts['gram']} times in {1 + TIMED_STEPS} steps, "
-             "expected 8 per step")
+    if counts["gram"] != 8 * (1 + TIMED_STEPS) or counts["gram_tma"] != counts["gram"]:
+        fail(f"Gram kernels launched {counts['gram']} times in {1 + TIMED_STEPS} steps, "
+             f"{counts['gram_tma']} of them the TMA kernel; expected 8 per step, all TMA")
     step_s = sum(times[1:]) / TIMED_STEPS
     log(f"flagship: {step_s * 1e3:.1f} ms/step, {BATCH / step_s:.1f} images/s "
         f"(warm-up step {times[0] * 1e3:.0f} ms), student {res.searched_macs} MACs, "
-        f"peak memory {mem / 2**30:.1f} GiB, launches {counts}, losses {vals} [{card}]")
+        f"peak memory {mem / 2**30:.2f} GiB, launches {counts}, losses {vals} [{card}]")
     if busy_ms is not None:
         log(f"flagship: device idle {100 * max(0.0, 1 - busy_ms / (step_s * 1e3)):.1f}% "
             "(profiled device-busy time per step against the unprofiled step time)")
@@ -399,8 +448,9 @@ def main() -> None:
     # --- 5. the fused-norm step
     times_f, counts_f, vals_f, _, _ = run_steps(dev, teacher_cfg, teacher_sd, res.config,
                                                 True, FUSED_STEPS, card)
-    if counts_f["instance_norm_act"] != 6 * FUSED_STEPS or counts_f["gram"] != 8 * FUSED_STEPS:
-        fail(f"fused step: launches {counts_f}, expected 6 norm and 8 Gram per step")
+    if (counts_f["instance_norm_act"] != 6 * FUSED_STEPS or counts_f["gram"] != 8 * FUSED_STEPS
+            or counts_f["gram_tma"] != counts_f["gram"]):
+        fail(f"fused step: launches {counts_f}, expected 6 norm and 8 Gram (TMA) per step")
     log(f"fused-norm step: {sum(times_f) / FUSED_STEPS * 1e3:.1f} ms/step (first step "
         f"included), launches {counts_f}, losses {vals_f} [{card}]")
 
@@ -420,6 +470,8 @@ def main() -> None:
             "library_ms": k["library_ms"],
             "per": f"one training step's launches at batch {BATCH}, bf16",
         })
+        if name == "gram":
+            rows[-1]["mma_sync_ms"] = k["mma_sync_ms"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

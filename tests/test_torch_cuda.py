@@ -46,6 +46,53 @@ def test_gram_kernel_matches_plain(cuda, rng, dtype, shape):
     assert float((got - ref).abs().max()) <= tol
 
 
+def _bf16_operand(cuda, b, f, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(b, f, generator=gen, device=cuda).to(torch.bfloat16)
+
+
+def _assert_gram_close(got, x):
+    ref = tka.gram_plain(x)
+    # f32 sums in another order: 1e-5 of the largest entry
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [64 * 64 * 40, 64 * 64 * 256, 4096 * 3 + 8,  # ragged last tile
+                               64 * 50])  # fewer tiles than SMs: some CTAs get none
+@pytest.mark.parametrize("b", [1, 16, 33, 64, 100, 128])
+def test_gram_tma_kernel_matches_plain(cuda, b, f):
+    x = _bf16_operand(cuda, b, f, seed=b * 7 + f)
+    before = tka.path_launches["tma"]
+    got = tka.gram_cuda(x)
+    torch.cuda.synchronize()
+    assert tka.path_launches["tma"] == before + 1
+    _assert_gram_close(got, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [16, 128])
+def test_gram_tma_kernel_is_bit_reproducible(cuda, b):
+    x = _bf16_operand(cuda, b, 64 * 64 * 256, seed=b)
+    first = tka.gram_cuda(x)
+    second = tka.gram_cuda(x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, f", [(128, 64 * 64 * 58), (100, 4096 * 3 + 4)])
+def test_gram_mma_kernel_matches_plain(cuda, b, f):
+    """The mma.sync kernel: the main path's for F % 8 != 0, and reached
+    directly on a shape the TMA kernel takes (to compare the two designs)."""
+    x = _bf16_operand(cuda, b, f, seed=3)
+    before = tka.path_launches["mma"]
+    got = tka._gram_launch(x, "mma")
+    torch.cuda.synchronize()
+    assert tka.path_launches["mma"] == before + 1
+    _assert_gram_close(got, x)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["relu", "leaky_relu"])

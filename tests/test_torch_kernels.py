@@ -69,6 +69,60 @@ def test_ka_value_and_gradients_match_jax(rng):
     np.testing.assert_allclose(nhwc(gy_t), np.asarray(gy_j), rtol=1e-4, atol=1e-6)
 
 
+def test_ka_backward_skips_the_gradient_nobody_asks_for(rng):
+    """With Y fixed (the teacher's tap), the backward gives the same dX as
+    the JAX package and runs one (B x B)(B x F) product, not two."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    x = rng.randn(4, 6, 6, 3).astype(np.float32)  # NHWC, as in the test above
+    y = rng.randn(4, 6, 6, 2).astype(np.float32)
+    gx_j = jax.grad(lambda a: -jax_ka(a, jnp.asarray(y), use_pallas="no"))(jnp.asarray(x))
+
+    class Ops(TorchDispatchMode):
+        @classmethod
+        def _should_skip_dynamo(cls):
+            # else the hook is wrapped in a dynamo guard, and importing dynamo
+            # from the repository root picks up the root's profile.py
+            return False
+
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(func.overloadpacket)
+            return func(*args, **(kwargs or {}))
+
+    xt, yt = nchw(x).requires_grad_(True), nchw(y)
+    loss = -tka.ka(xt, yt)
+    with Ops() as ops:
+        loss.backward()
+    np.testing.assert_allclose(nhwc(xt.grad), np.asarray(gx_j), rtol=1e-4, atol=1e-6)
+    assert ops.seen.count(torch.ops.aten.mm) == 1
+
+
+_BF16, _F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("b, f, dtype, aligned, path", [
+    (128, 64 * 64 * 256, _BF16, True, "tma"),   # the teacher's tap
+    (128, 64 * 64 * 58, _BF16, True, "tma"),    # the student's tap
+    (1, 8, _BF16, True, "tma"),                 # smallest B and F TMA takes
+    (128, 4096 * 3 + 4, _BF16, True, "mma"),    # row stride not a multiple of 16 bytes
+    (33, 4096, _BF16, False, "mma"),            # base address not 16-byte aligned
+    (128, 4096, _F32, True, "f32"),
+    (129, 4096, _BF16, True, ValueError),       # B past 128
+    (0, 4096, _BF16, True, ValueError),
+    (16, 4096, torch.float16, True, ValueError),
+])
+def test_gram_path_rules(b, f, dtype, aligned, path):
+    if path is ValueError:
+        with pytest.raises(ValueError):
+            tka._gram_path(b, f, dtype, aligned)
+    else:
+        assert tka._gram_path(b, f, dtype, aligned) == path
+
+
 def test_ka_backward_matches_autograd_of_formula(rng):
     x = torch.from_numpy(rng.randn(4, 50).astype(np.float32)).requires_grad_(True)
     y = torch.from_numpy(rng.randn(4, 30).astype(np.float32)).requires_grad_(True)

@@ -10,6 +10,9 @@ only for tensors on the CPU.
 
 from __future__ import annotations
 
+import os
+import sys
+
 import torch
 
 
@@ -23,3 +26,23 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def import_stdlib_profile() -> None:
+    """Import the standard library's ``profile`` module, which TorchDynamo
+    reaches through ``cProfile`` (``torch.utils.checkpoint``,
+    ``torch.profiler``).  A ``profile.py`` in a directory on ``sys.path``
+    (this repository's root holds the JAX package's profile verb) would be
+    imported in its place."""
+    if "profile" in sys.modules:
+        return
+    stdlib = os.path.dirname(os.__file__)
+    saved = sys.path[:]
+    sys.path[:] = [p for p in sys.path
+                   if os.path.abspath(p or ".") == stdlib
+                   or not os.path.isfile(os.path.join(p or ".", "profile.py"))]
+    try:
+        import cProfile  # noqa: F401
+        import profile  # noqa: F401
+    finally:
+        sys.path[:] = saved

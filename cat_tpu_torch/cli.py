@@ -1,0 +1,362 @@
+"""Command-line interface of the port's distill verb (port of
+``cat_tpu/cli.py``): every flag of the JAX package's distill parser, with
+the same name, type, choices and default, so the reference recipes run as
+they are; and the configs built from them.
+
+Flags whose code path is not ported yet raise ``NotImplementedError``
+naming the ROADMAP.md item that brings it, when set away from their default
+(``check_ported``).  Flags the JAX package accepts and leaves inert on this
+verb (--netG/--teacher_netG/--student_netG/--pretrained_netG,
+--pretrained_ngf/--teacher_ngf, --prune_continue, --prune_logging_verbose,
+--restore_O_path; and the SPADE, evaluation-only and teacher-training flags
+the inception distiller does not read) are inert here too.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import pickle
+import random
+
+import numpy as np
+
+from cat_tpu_torch.core.config import (
+    InceptionGeneratorConfig,
+    NLayerDiscriminatorConfig,
+    NormConfig,
+)
+
+# ---------------------------------------------------------------------------
+# argument groups
+# ---------------------------------------------------------------------------
+
+
+def base_arguments(parser: argparse.ArgumentParser):
+    p = parser
+    p.add_argument("--dataroot", required=True,
+                   help="path to images (trainA/trainB/valA/valB or train/val)")
+    p.add_argument("--seed", type=int, default=233)
+    p.add_argument("--input_nc", type=int, default=3)
+    p.add_argument("--output_nc", type=int, default=3)
+    p.add_argument("--norm", type=str, default="instance",
+                   choices=["instance", "batch", "syncbatch", "none"])
+    p.add_argument("--remat", type=int, default=0, choices=[0, 1],
+                   help="rematerialise the student forward inside the distill step "
+                        "(torch.utils.checkpoint): more generator FLOPs for less activation "
+                        "memory")
+    p.add_argument("--remat_policy", type=str, default="",
+                   help="selective remat of the SPADE distiller (not ported yet); the "
+                        "inception distiller does not read it")
+    p.add_argument("--packed_blocks", type=int, default=None, choices=[0, 1],
+                   help="evaluate multi-branch blocks with branch-packed convs (identical "
+                        "math and parameter tree); default ON for inception")
+    p.add_argument("--init_type", type=str, default="normal",
+                   choices=["normal", "xavier", "kaiming", "orthogonal"])
+    p.add_argument("--init_gain", type=float, default=0.02)
+    p.add_argument("--dataset_mode", type=str, default="aligned",
+                   choices=["aligned", "unaligned", "single", "cityscapes"])
+    p.add_argument("--direction", type=str, default="AtoB")
+    p.add_argument("--serial_batches", action="store_true")
+    p.add_argument("--num_threads", type=int, default=4)
+    p.add_argument("--data_backend", type=str, default="thread",
+                   choices=["thread", "process", "native"],
+                   help="decode workers: Python thread pool or worker processes; 'native' "
+                        "(the JAX package's C++ image pipeline) is not ported yet")
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--load_size", type=int, default=286)
+    p.add_argument("--crop_size", type=int, default=256)
+    p.add_argument("--aspect_ratio", type=float, default=1.0)
+    p.add_argument("--max_dataset_size", type=int, default=-1)
+    p.add_argument("--preprocess", type=str, default="resize_and_crop")
+    p.add_argument("--no_flip", action="store_true")
+    p.add_argument("--on_device_data", type=int, default=0, choices=[0, 1],
+                   help="keep the (resized, uint8) training images on the GPU and cut "
+                        "crop/flip batches there: no host work or copy per step (unaligned "
+                        "mode; small datasets)")
+    p.add_argument("--load_in_memory", action="store_true",
+                   help="cache decoded images to bypass IO")
+    p.add_argument("--phase", type=str, default="train")
+    p.add_argument("--drn_path", type=str, default="drn-d-105_ms_cityscapes.pth")
+    p.add_argument("--cityscapes_path", type=str, default="database/cityscapes-origin")
+    p.add_argument("--table_path", type=str, default="datasets/table.txt")
+    p.add_argument("--inception_path", type=str,
+                   default="pt_inception-2015-12-05.pth",
+                   help="FID InceptionV3 torch checkpoint (judge weights)")
+    p.add_argument("--n_devices", type=int, default=1,
+                   help='data-parallel devices; only 1 is ported yet')
+    p.add_argument("--n_spatial", type=int, default=1,
+                   help='spatial-parallel devices (image height sharded); not ported yet')
+    p.add_argument("--multihost", type=int, default=0, choices=[0, 1],
+                   help='span several hosts; not ported yet')
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help='host:port of process 0 (multi-host; not ported yet)')
+    p.add_argument("--num_processes", type=int, default=-1,
+                   help='total process count (multi-host; not ported yet)')
+    p.add_argument("--process_id", type=int, default=-1,
+                   help="this process's rank (multi-host; not ported yet)")
+    return p
+
+
+def train_arguments(parser: argparse.ArgumentParser):
+    p = parser
+    p.add_argument("--log_dir", type=str, default="logs")
+    p.add_argument("--tensorboard_dir", type=str, default=None)
+    p.add_argument("--print_freq", type=int, default=100)
+    p.add_argument("--save_latest_freq", type=int, default=20000)
+    p.add_argument("--save_epoch_freq", type=int, default=5)
+    p.add_argument("--save_full_state", type=int, default=1,
+                   help="also write <tag>_state.pth (parameters, optimiser moments, step, "
+                        "RNG) for an exact resume; per-net checkpoints are always written")
+    p.add_argument("--epoch_base", type=int, default=1)
+    p.add_argument("--iter_base", type=int, default=1)
+    p.add_argument("--model", type=str, default="pix2pix",
+                   choices=["pix2pix", "cycle_gan", "spade"])
+    p.add_argument("--netD", type=str, default="n_layers",
+                   choices=["n_layers", "pixel", "multi_scale"])
+    p.add_argument("--netG", type=str, default="inception_9blocks")
+    p.add_argument("--ngf", type=int, default=64)
+    p.add_argument("--ndf", type=int, default=128)
+    p.add_argument("--n_layers_D", type=int, default=3)
+    p.add_argument("--dropout_rate", type=float, default=0)
+    p.add_argument("--channels", nargs="*", type=int, default=None)
+    p.add_argument("--n_blocks", type=int, default=9,
+                   help="inception blocks in the generator (reference fixes 9)")
+    p.add_argument("--channels_reduction_factor", type=int, default=1)
+    p.add_argument("--kernel_sizes", nargs="+", type=int, default=[3, 5, 7])
+    p.add_argument("--norm_affine", action="store_true")
+    p.add_argument("--norm_affine_D", action="store_true")
+    p.add_argument("--norm_momentum", type=float, default=0.1)
+    p.add_argument("--norm_epsilon", type=float, default=1e-5)
+    p.add_argument("--norm_track_running_stats", action="store_true")
+    p.add_argument("--active_fn", type=str, default="nn.ReLU")
+    p.add_argument("--active_fn_D", type=str, default="nn.LeakyReLU")
+    p.add_argument("--moving_average_decay", type=float, default=0.0)
+    p.add_argument("--moving_average_decay_adjust", action="store_true")
+    p.add_argument("--moving_average_decay_base_batch", type=int, default=32)
+    p.add_argument("--nepochs", type=int, default=5)
+    p.add_argument("--nepochs_decay", type=int, default=15)
+    p.add_argument("--beta1", type=float, default=0.5)
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help='distill-step compute dtype (float32 master weights)')
+    p.add_argument("--teacher_compute_dtype", type=str, default="",
+                   choices=["", "int8", "int8_static"],
+                   help="frozen-teacher compute override; '' follows --compute_dtype (the "
+                        "int8 teachers are not ported yet)")
+    p.add_argument("--vgg_compute_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"],
+                   help='dtype of the VGG19 perceptual sweep (SPADE family, not ported yet)')
+    p.add_argument("--gan_mode", type=str, default="hinge",
+                   choices=["vanilla", "lsgan", "wgangp", "hinge"])
+    p.add_argument("--pool_size", type=int, default=50)
+    p.add_argument("--lr_policy", type=str, default="linear")
+    p.add_argument("--lr_decay_iters", type=int, default=50)
+    p.add_argument("--eval_batch_size", type=int, default=1)
+    p.add_argument("--restore_G_path", type=str, default=None)
+    p.add_argument("--restore_D_path", type=str, default=None)
+    p.add_argument("--restore_state_path", type=str, default=None,
+                   help="resume the full train state (params+optimizers)")
+    # pix2pix
+    p.add_argument("--recon_loss_type", type=str, default="l1",
+                   choices=["l1", "l2", "smooth_l1"])
+    p.add_argument("--lambda_recon", type=float, default=100.0)
+    p.add_argument("--lambda_gan", type=float, default=1.0)
+    p.add_argument("--real_stat_path", type=str, default=None)
+    # cyclegan
+    p.add_argument("--lambda_A", type=float, default=10.0)
+    p.add_argument("--lambda_B", type=float, default=10.0)
+    p.add_argument("--lambda_identity", type=float, default=0.5)
+    p.add_argument("--real_stat_A_path", type=str, default=None)
+    p.add_argument("--real_stat_B_path", type=str, default=None)
+    return p
+
+
+def spade_arguments(parser: argparse.ArgumentParser):
+    """GauGAN/SPADE flags (reference spade_model.py:23-94 defaults +
+    data/cityscapes_dataset.py:21-47)."""
+    p = parser
+    p.add_argument("--norm_G", type=str, default="spadesyncbatch3x3")
+    p.add_argument("--teacher_norm_G", type=str, default="spadesyncbatch3x3")
+    p.add_argument("--student_norm_G", type=str, default="spadesyncbatch3x3")
+    p.add_argument("--num_upsampling_layers", type=str, default="more",
+                   choices=["normal", "more", "most"])
+    p.add_argument("--lambda_feat", type=float, default=10.0)
+    p.add_argument("--lambda_vgg", type=float, default=10.0)
+    p.add_argument("--no_TTUR", action="store_true")
+    p.add_argument("--beta2", type=float, default=0.999)
+    p.add_argument("--num_D", type=int, default=2)
+    p.add_argument("--norm_D", type=str, default="spectralinstance")
+    p.add_argument("--no_instance", action="store_true")
+    p.add_argument("--contain_dontcare_label", action="store_true")
+    p.add_argument("--no_pairing_check", action="store_true")
+    p.add_argument("--vgg_path", type=str, default="vgg19.pth",
+                   help="torchvision VGG19 weights for the perceptual loss")
+    p.add_argument("--no_fid", action="store_true")
+    return p
+
+
+def distill_arguments(parser: argparse.ArgumentParser):
+    p = train_arguments(parser)
+    spade_arguments(p)
+    p.add_argument("--fused_norms", action="store_true",
+                   help="route affine instance-norm+relu through the fused CUDA kernel")
+    p.add_argument("--distiller", type=str, default="inception",
+                   choices=["inception", "spade"])
+    p.add_argument("--teacher_netG", type=str, default="inception_9blocks")
+    p.add_argument("--student_netG", type=str, default="inception_9blocks")
+    p.add_argument("--teacher_ngf", type=int, default=64)
+    p.add_argument("--student_ngf", type=int, default=48)
+    p.add_argument("--pretrained_netG", type=str, default="inception_9blocks")
+    p.add_argument("--pretrained_ngf", type=int, default=64)
+    p.add_argument("--restore_teacher_G_path", type=str, required=True)
+    p.add_argument("--restore_pretrained_G_path", type=str, default=None)
+    p.add_argument("--restore_student_G_path", type=str, default=None)
+    p.add_argument("--restore_A_path", type=str, default=None)
+    p.add_argument("--restore_O_path", type=str, default=None)
+    p.add_argument("--distill_G_loss_type", type=str, default="mse",
+                   choices=["mse", "ka"])
+    p.add_argument("--lambda_distill", type=float, default=1.0)
+    p.add_argument("--target_flops", type=float, default=0.0)
+    p.add_argument("--prune_cin_lb", type=int, default=0)
+    p.add_argument("--prune_ft_cin_lb", type=int, default=0)
+    p.add_argument("--prune_cin_ub", type=int, default=0)
+    p.add_argument("--pretrained_student_G_path", type=str, default=None)
+    p.add_argument("--prune_only", action="store_true")
+    p.add_argument("--prune_continue", action="store_true")
+    p.add_argument("--prune_logging_verbose", action="store_true")
+    p.add_argument("--prune_init", type=str, default="reinit",
+                   choices=["reinit", "sliced"],
+                   help="student weights after shrink: fresh re-init "
+                        "(reference semantics, trainer.py:107-109) or the "
+                        "threshold-sliced teacher weights")
+    p.set_defaults(norm="instance", dataset_mode="aligned", log_dir="logs/distill",
+                   lambda_recon=100.0)
+    return p
+
+
+def distill_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    base_arguments(parser)
+    distill_arguments(parser)
+    return parser
+
+
+def check_ported(opt) -> None:
+    """Raise for a flag whose code path is not ported yet, set away from
+    its default, naming the ROADMAP.md item (queue 1) that brings it.  The
+    other unported paths raise where they would run: the int8 teacher and
+    wgangp in the distiller, batch norm in ``Norm2d``, the native loader and
+    Cityscapes in the data path, the pixel D in ``discriminator_config``."""
+    for what, asked, item in (
+        ("--distiller spade", opt.distiller == "spade", "15, SPADE family"),
+        ("--n_devices != 1", opt.n_devices != 1, "16, Multi-GPU"),
+        ("--n_spatial != 1", opt.n_spatial != 1, "16, Multi-GPU"),
+        ("--multihost / --num_processes > 1", bool(opt.multihost) or opt.num_processes > 1,
+         "16, Multi-GPU"),
+    ):
+        if asked:
+            raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1, item {item}")
+
+
+# ---------------------------------------------------------------------------
+# config construction
+# ---------------------------------------------------------------------------
+
+
+def norm_config(opt, affine: bool) -> NormConfig:
+    return NormConfig(kind=opt.norm, affine=affine,
+                      track_running_stats=opt.norm_track_running_stats,
+                      momentum=opt.norm_momentum, eps=opt.norm_epsilon)
+
+
+def generator_config(opt, ngf: int) -> InceptionGeneratorConfig:
+    return InceptionGeneratorConfig.make(
+        input_nc=opt.input_nc,
+        output_nc=opt.output_nc,
+        ngf=ngf,
+        channels=tuple(opt.channels) if opt.channels else None,
+        channels_reduction_factor=opt.channels_reduction_factor,
+        kernel_sizes=tuple(opt.kernel_sizes),
+        n_blocks=opt.n_blocks,
+        norm=norm_config(opt, opt.norm_affine),
+        active_fn=opt.active_fn,
+        dropout_rate=opt.dropout_rate,
+    )
+
+
+def discriminator_config(opt, input_nc: int) -> NLayerDiscriminatorConfig:
+    if opt.netD == "n_layers":
+        return NLayerDiscriminatorConfig(input_nc=input_nc, ndf=opt.ndf, n_layers=opt.n_layers_D,
+                                         norm=norm_config(opt, opt.norm_affine_D),
+                                         active_fn=opt.active_fn_D)
+    if opt.netD == "pixel":
+        raise NotImplementedError("--netD pixel is not ported yet: ROADMAP.md queue 1, "
+                                  "item 14, Teacher training")
+    raise NotImplementedError(f"netD [{opt.netD}] for this task")
+
+
+def transform_spec(opt):
+    from cat_tpu_torch.data.transforms import TransformSpec
+
+    return TransformSpec(preprocess=opt.preprocess, load_size=opt.load_size,
+                         crop_size=opt.crop_size, aspect_ratio=opt.aspect_ratio,
+                         no_flip=opt.no_flip, grayscale=(opt.input_nc == 1))
+
+
+def print_options(opt, parser: argparse.ArgumentParser):
+    """Print the options and write them to ``opt.txt`` / ``opt.pkl`` in the
+    log dir, as the JAX package does."""
+    lines = ["----------------- Options ---------------"]
+    for k, v in sorted(vars(opt).items()):
+        default = parser.get_default(k)
+        comment = f"\t[default: {default}]" if v != default else ""
+        lines.append(f"{str(k):>25}: {str(v):<30}{comment}")
+    lines.append("----------------- End -------------------")
+    message = "\n".join(lines)
+    print(message)
+    if opt.log_dir:
+        os.makedirs(opt.log_dir, exist_ok=True)
+        with open(os.path.join(opt.log_dir, "opt.txt"), "a") as f:
+            f.write(message + "\n")
+        with open(os.path.join(opt.log_dir, "opt.pkl"), "wb") as f:
+            pickle.dump(vars(opt), f)
+
+
+def set_seed(seed: int):
+    np.random.seed(seed)
+    random.seed(seed)
+
+
+def load_generator_checkpoint(path: str, norm: NormConfig):
+    """(config, state_dict) of a generator checkpoint: a ``.pth`` (its
+    ``.json`` config sidecar when there is one, else the architecture
+    recovered from its shapes with ``norm``, as the JAX package reads a
+    reference checkpoint), or a JAX package ``.msgpack`` with its sidecar."""
+    from cat_tpu_torch.utils import checkpoint as ckpt
+
+    if path.endswith(".pth"):
+        cfg = ckpt.read_config(path)
+        if cfg is not None:
+            return cfg, ckpt.load_pytree(path)
+        from cat_tpu_torch.utils.torch_import import load_torch_generator
+
+        return load_torch_generator(path, norm=norm)
+    from cat_tpu_torch.utils.jax_import import generator_state_dict
+
+    cfg = ckpt.read_config(path)
+    if cfg is None:
+        raise FileNotFoundError(f"{path}: no .json config beside it")
+    return cfg, generator_state_dict(ckpt.load_pytree(path)["params"], cfg)
+
+
+def trainer_config(opt):
+    from cat_tpu_torch.train.trainer import TrainerConfig
+
+    return TrainerConfig(
+        log_dir=opt.log_dir, nepochs=opt.nepochs, nepochs_decay=opt.nepochs_decay,
+        epoch_base=opt.epoch_base, iter_base=opt.iter_base, print_freq=opt.print_freq,
+        save_latest_freq=opt.save_latest_freq, save_epoch_freq=opt.save_epoch_freq,
+        lr=opt.lr, lr_policy=opt.lr_policy, lr_decay_iters=opt.lr_decay_iters, seed=opt.seed,
+    )

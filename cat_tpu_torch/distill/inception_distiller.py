@@ -1,34 +1,45 @@
-"""Inception (ResNet-generator) distiller: the CAT KA-distillation step
-(port of ``cat_tpu/distill/inception_distiller.py``).
+"""Inception (ResNet-generator) distiller: the CAT distillation step (port
+of ``cat_tpu/distill/inception_distiller.py``).
 
 One ``train_step`` does what the JAX package's ``_step`` does:
 
   * the frozen teacher runs in eval mode and returns its taps;
-  * the student runs forward once and its graph is kept;
+  * the student runs forward once and its graph is kept (with ``remat``,
+    only its inputs are kept and ``torch.utils.checkpoint`` recomputes the
+    forward in the backward);
   * D updates first, on the detached fake (0.5·(fake + real) GAN loss);
   * the G loss goes through the *updated* D, and only the student's
-    parameters take its gradient;
+    parameters and the adaptors take its gradient;
   * G loss = GAN + λ_recon · recon (target: the teacher's output when
-    unaligned) + λ_distill · Σ_taps -KA(student tap, teacher tap).
+    unaligned) + λ_distill · Σ_taps d(student tap, teacher tap), with
+    d = -KA (``ka``) or the mean squared error of a 1x1-conv adaptor of the
+    student tap against the teacher tap (``mse``; one adaptor per tap,
+    trained with the student by one Adam, as in the JAX package's {G, A}
+    parameter group);
+  * with ``ema_decay`` > 0, an exponential moving average of the student's
+    weights follows every G step and is what evaluation and deployment use.
 
 Mixed precision follows the JAX placement, not ``torch.autocast``: float32
 masters; parameters and inputs cast to the compute dtype inside the forward
 (``down``), so autograd brings float32 gradients back; norm statistics in
 float32; network outputs cast to float32 for the losses (``up``).  KA takes
-the taps in the compute dtype.
+the taps in the compute dtype; the mse path takes them in float32.
 
 Entry points run on CUDA unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 from torch.func import functional_call
 
-from cat_tpu_torch import resolve_device
+from cat_tpu_torch import import_stdlib_profile, resolve_device
 from cat_tpu_torch.core.config import InceptionGeneratorConfig, NLayerDiscriminatorConfig
 from cat_tpu_torch.distill.ka import ka
 from cat_tpu_torch.models.discriminators import NLayerDiscriminator
@@ -45,7 +56,7 @@ class DistillHParams:
     dataset_mode: str = "aligned"  # aligned | unaligned
     gan_mode: str = "hinge"
     recon_loss_type: str = "l1"
-    distill_loss_type: str = "ka"  # ka (mse is not ported yet)
+    distill_loss_type: str = "ka"  # ka | mse
     lambda_gan: float = 1.0
     lambda_recon: float = 100.0
     lambda_distill: float = 1.0
@@ -57,26 +68,38 @@ class DistillHParams:
     teacher_compute_dtype: str = ""  # '' follows compute_dtype (int8 not ported yet)
     fused_norms: bool = False  # affine instance norm + relu through the fused kernel
     packed_blocks: bool = True  # branch-packed inception blocks (same math)
-    remat: bool = False  # not ported yet
-    ema_decay: float = 0.0  # not ported yet
+    remat: bool = False  # recompute the student forward in the backward
+    ema_decay: float = 0.0  # student-weight EMA (--moving_average_decay); 0 = off
 
 
 def _check_ported(hp: DistillHParams) -> None:
     """Raise for the hyperparameters whose code paths are not ported yet,
     naming the ROADMAP.md item that brings them."""
     for what, asked, item in (
-        ("teacher_compute_dtype=int8", hp.teacher_compute_dtype.startswith("int8"), "Extras"),
-        ("remat", hp.remat, "Distill verb end to end"),
-        ("ema_decay>0", hp.ema_decay > 0, "Distill verb end to end"),
-        ("distill_loss_type='mse'", hp.distill_loss_type == "mse", "Distill verb end to end"),
-        ("gan_mode='wgangp' (gradient penalty)", hp.gan_mode == "wgangp", "Teacher training"),
+        ("teacher_compute_dtype=int8", hp.teacher_compute_dtype.startswith("int8"), "18, Extras"),
+        ("gan_mode='wgangp' (gradient penalty)", hp.gan_mode == "wgangp",
+         "14, Teacher training"),
     ):
         if asked:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1, '{item}'")
-    if hp.distill_loss_type != "ka":
+            raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1, item {item}")
+    if hp.distill_loss_type not in ("ka", "mse"):
         raise NotImplementedError(hp.distill_loss_type)
     if hp.compute_dtype not in _DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
+
+
+class Adaptor(nn.Conv2d):
+    """1x1 conv with bias from the student's bottleneck width to the
+    teacher's.  Initialised as flax's ``nn.Conv`` default: LeCun normal
+    (truncated at two standard deviations) kernel, zero bias."""
+
+    def __init__(self, cin: int, cout: int, generator: Optional[torch.Generator] = None):
+        super().__init__(cin, cout, 1)
+        # a unit normal truncated to [-2, 2] has std 0.8796
+        std = math.sqrt(1.0 / cin) / 0.87962566103423978
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+            self.bias.zero_()
 
 
 class InceptionDistiller:
@@ -106,6 +129,7 @@ class InceptionDistiller:
         self.netG_teacher: Optional[InceptionGenerator] = None
         self.netG_student: Optional[InceptionGenerator] = None
         self.netD: Optional[NLayerDiscriminator] = None
+        self.netA: Optional[nn.ModuleDict] = None  # adaptors, mse only
 
     # ------------------------------------------------------------------ state
 
@@ -122,9 +146,9 @@ class InceptionDistiller:
         seed: int = 0,
     ) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
         """Build the networks on the device and the train state.  The teacher
-        comes from ``teacher_state_dict``; the student and D are freshly
-        initialised from ``seed`` unless their state_dicts are given.
-        Returns (state, teacher parameters)."""
+        comes from ``teacher_state_dict``; the student, D and (mse) the
+        adaptors are freshly initialised from ``seed`` unless their
+        state_dicts are given.  Returns (state, teacher parameters)."""
         gen = torch.Generator().manual_seed(seed)
         teacher = self._generator(self.teacher_cfg, gen)
         teacher.load_state_dict(teacher_state_dict)
@@ -141,23 +165,42 @@ class InceptionDistiller:
             netD.load_state_dict(disc_state_dict)
         self.netD = netD.to(self.device)
 
+        a_params: Dict[str, torch.Tensor] = {}
+        if self.hp.distill_loss_type == "mse":
+            sb, tb = self.student_cfg.bottleneck, self.teacher_cfg.bottleneck
+            self.netA = nn.ModuleDict({
+                f"A{i}": Adaptor(sb, tb, gen) for i in range(len(self.hp.mapping_layers))
+            }).to(self.device)
+            a_params = dict(self.netA.named_parameters())
+
         g_params = dict(self.netG_student.named_parameters())
         d_params = dict(self.netD.named_parameters())
+        extra = {}
+        if self.hp.ema_decay > 0:
+            extra["ema_G"] = {k: v.detach().clone() for k, v in g_params.items()}
         state = GANTrainState(
             step=0,
-            g=NetState(g_params, Adam(g_params.values(), self.hp.beta1)),
+            # one Adam over {G, A}, as the JAX package's G parameter group
+            g=NetState(g_params, Adam([*g_params.values(), *a_params.values()], self.hp.beta1)),
             d=NetState(d_params, Adam(d_params.values(), self.hp.beta1)),
             rng=torch.Generator(device=self.device).manual_seed(seed),
+            adaptors=a_params,
+            extra=extra,
         )
         return state, dict(self.netG_teacher.named_parameters())
 
     # ------------------------------------------------------------------- step
 
-    def _distill_loss(self, s_acts, t_acts):
+    def _distill_loss(self, a_params, s_acts, t_acts):
         losses = {}
         total = torch.zeros((), device=self.device)
         for i, name in enumerate(self.hp.mapping_layers):
-            li = -ka(s_acts[name], t_acts[name])
+            s, t = s_acts[name], t_acts[name]
+            if self.hp.distill_loss_type == "ka":
+                li = -ka(s, t)
+            else:
+                mapped = F.conv2d(s, a_params[f"A{i}.weight"], a_params[f"A{i}.bias"])
+                li = (mapped - t).square().mean()
             losses[f"Specific_loss/distill{i}"] = li
             total = total + li
         return total, losses
@@ -180,6 +223,9 @@ class InceptionDistiller:
         def up(t):  # network outputs -> float32 for the losses
             return cast_floats(t, torch.float32) if mixed else t
 
+        # KA takes the taps in the compute dtype; the adaptors in float32
+        up_acts = (lambda t: t) if hp.distill_loss_type == "ka" else up
+
         real_A = down(batch["A"])
         real_B = batch.get("B", batch["A"])
         taps = hp.mapping_layers
@@ -191,15 +237,29 @@ class InceptionDistiller:
                 self.netG_teacher, down(teacher_params), (real_A,),
                 {"train": False, "taps": taps},
             )
-        t_fake = up(t_fake)
+        t_fake, t_acts = up(t_fake), up_acts(t_acts)
 
         # --- student forward once, graph kept ---
         s_params = state.g.params
-        s_fake, s_acts = functional_call(
-            self.netG_student, down(s_params), (real_A,),
-            {"train": True, "taps": taps, "generator": state.rng},
-        )
-        s_fake = up(s_fake)
+        rng_start = state.rng.get_state() if hp.remat else None
+
+        def s_forward():
+            if rng_start is not None:  # the recompute draws the same dropout masks
+                state.rng.set_state(rng_start)
+            fake, acts = functional_call(
+                self.netG_student, down(s_params), (real_A,),
+                {"train": True, "taps": taps, "generator": state.rng},
+            )
+            return up(fake), up_acts(acts)
+
+        if hp.remat:
+            from torch.utils.checkpoint import checkpoint
+
+            import_stdlib_profile()  # torch.utils.checkpoint reaches TorchDynamo
+            s_fake, s_acts = checkpoint(s_forward, use_reentrant=False)
+            rng_end = state.rng.get_state()
+        else:
+            s_fake, s_acts = s_forward()
 
         # --- discriminator update on the detached fake ---
         fake_d = down(s_fake.detach())
@@ -217,7 +277,7 @@ class InceptionDistiller:
         d_grads = torch.autograd.grad(0.5 * (l_d_fake + l_d_real), list(d_params.values()))
         state.d.opt.step(d_grads, lr)
 
-        # --- generator update through the updated D (no gradient into D) ---
+        # --- generator + adaptor update through the updated D (no gradient into D) ---
         recon_target = real_B if aligned else t_fake
         d_in = torch.cat([real_A, down(s_fake)], 1) if aligned else down(s_fake)
         d_frozen = down({k: v.detach() for k, v in d_params.items()})
@@ -225,12 +285,24 @@ class InceptionDistiller:
         l_g_gan = gan_loss(up(pred), True, hp.gan_mode, False) * hp.lambda_gan
         l_g_rec = recon_loss(s_fake, recon_target, hp.recon_loss_type) * hp.lambda_recon
         if hp.lambda_distill > 0:
-            l_g_dis, dis_parts = self._distill_loss(s_acts, t_acts)
+            l_g_dis, dis_parts = self._distill_loss(state.adaptors, s_acts, t_acts)
             l_g_dis = l_g_dis * hp.lambda_distill
         else:
             l_g_dis, dis_parts = torch.zeros((), device=self.device), {}
-        g_grads = torch.autograd.grad(l_g_gan + l_g_rec + l_g_dis, list(s_params.values()))
+        g_group = [*s_params.values(), *state.adaptors.values()]
+        # an adaptor is unused when lambda_distill is 0
+        g_grads = torch.autograd.grad(l_g_gan + l_g_rec + l_g_dis, g_group,
+                                      allow_unused=True, materialize_grads=True)
+        if hp.remat:
+            state.rng.set_state(rng_end)  # the recompute may stop early
         state.g.opt.step(g_grads, lr)
+
+        if hp.ema_decay > 0:
+            ema = list(state.extra["ema_G"].values())
+            with torch.no_grad():
+                torch._foreach_mul_(ema, hp.ema_decay)
+                torch._foreach_add_(ema, torch._foreach_mul(list(s_params.values()),
+                                                            1.0 - hp.ema_decay))
 
         state.step += 1
         metrics = {
@@ -245,9 +317,14 @@ class InceptionDistiller:
 
     # -------------------------------------------------------------- inference
 
+    def student_eval_params(self, state: GANTrainState) -> Dict[str, torch.Tensor]:
+        """The EMA weights when ``ema_decay`` > 0, else the trained weights:
+        what evaluation and deployment use."""
+        return state.extra.get("ema_G", state.g.params)
+
     @torch.no_grad()
     def generate_student(self, state: GANTrainState, x: torch.Tensor) -> torch.Tensor:
-        return functional_call(self.netG_student, state.g.params, (x,))
+        return functional_call(self.netG_student, self.student_eval_params(state), (x,))
 
     @torch.no_grad()
     def generate_teacher(self, teacher_params: Dict[str, torch.Tensor],

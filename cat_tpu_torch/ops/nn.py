@@ -144,8 +144,8 @@ class Norm2d(nn.Module):
         super().__init__()
         if cfg.is_batch_like:
             raise NotImplementedError(
-                "batch-like norms are not ported yet "
-                "(ROADMAP.md queue 1, 'Teacher training')"
+                "batch-like norms are not ported yet: "
+                "ROADMAP.md queue 1, item 14, Teacher training"
             )
         self.cfg = cfg
         if cfg.has_scale:

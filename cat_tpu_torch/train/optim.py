@@ -1,5 +1,5 @@
-"""Adam with the JAX package's semantics (port of ``cat_tpu/train/optim.py``;
-the LR schedules are not ported yet).
+"""Adam with the JAX package's semantics, and the epoch-level LR schedules
+(port of ``cat_tpu/train/optim.py``).
 
 The JAX package's ``adam_tx`` is a direction-only Adam (``scale_by_adam``:
 b1, b2 = 0.999, eps = 1e-8, bias-corrected, eps outside the square root)
@@ -15,7 +15,8 @@ Written out with multi-tensor (``_foreach``) ops rather than
 
 from __future__ import annotations
 
-from typing import Iterable, List, Sequence
+import math
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -46,3 +47,80 @@ class Adam:
         torch._foreach_add_(denom, self.eps)
         torch._foreach_add_(self.params, torch._foreach_div(mu_hat, denom), alpha=-lr)
 
+    def state_dict(self, names: Sequence[str]) -> Dict:
+        """The moments keyed by the parameters' ``names`` (in the order the
+        optimiser was given them), and the step count."""
+        names = list(names)
+        return {"count": self.count, "mu": dict(zip(names, self.mu)),
+                "nu": dict(zip(names, self.nu))}
+
+    @torch.no_grad()
+    def load_state_dict(self, sd: Dict, names: Sequence[str]) -> None:
+        self.count = int(sd["count"])
+        for t, n in zip(self.mu, names):
+            t.copy_(sd["mu"][n])
+        for t, n in zip(self.nu, names):
+            t.copy_(sd["nu"][n])
+
+
+# ---------------------------------------------------------------------------
+# Epoch-level LR schedules (host side; the reference's get_scheduler)
+# ---------------------------------------------------------------------------
+
+
+def linear_lr(epoch: int, lr: float, nepochs: int, nepochs_decay: int) -> float:
+    """Constant for ``nepochs`` epochs, then linear decay to 0 over
+    ``nepochs_decay`` (``epoch`` counts from 0)."""
+    factor = 1.0 - max(0, epoch + 1 - nepochs) / float(nepochs_decay + 1)
+    return lr * factor
+
+
+def step_lr(epoch: int, lr: float, decay_iters: int, gamma: float = 0.1) -> float:
+    return lr * (gamma ** (epoch // decay_iters))
+
+
+def cosine_lr(epoch: int, lr: float, nepochs: int) -> float:
+    return lr * 0.5 * (1.0 + math.cos(math.pi * (epoch % nepochs) / nepochs))
+
+
+class PlateauLR:
+    """ReduceLROnPlateau (mode='min', factor=0.2, threshold=0.01, patience=5)."""
+
+    def __init__(self, lr: float, factor: float = 0.2, threshold: float = 0.01,
+                 patience: int = 5):
+        self.lr = lr
+        self.factor = factor
+        self.threshold = threshold
+        self.patience = patience
+        self.best = float("inf")
+        self.bad_epochs = 0
+
+    def update(self, metric: float) -> float:
+        if metric < self.best * (1.0 - self.threshold):
+            self.best = metric
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.patience:
+                self.lr *= self.factor
+                self.bad_epochs = 0
+        return self.lr
+
+
+def schedule_lr(policy: str, epoch: int, lr: float, *, nepochs: int = 100,
+                nepochs_decay: int = 100, lr_decay_iters: int = 50,
+                plateau: Optional[PlateauLR] = None) -> float:
+    if policy == "linear":
+        return linear_lr(epoch, lr, nepochs, nepochs_decay)
+    if policy == "step":
+        return step_lr(epoch, lr, lr_decay_iters)
+    if policy == "cosine":
+        return cosine_lr(epoch, lr, nepochs)
+    if policy == "plateau":
+        # stateful: the Trainer owns a PlateauLR and feeds it the eval metric
+        # once per epoch
+        if plateau is None:
+            raise ValueError("lr_policy 'plateau' is stateful: pass the PlateauLR "
+                             "tracker (the Trainer does this)")
+        return plateau.lr
+    raise NotImplementedError(f"learning rate policy [{policy}] is not implemented")

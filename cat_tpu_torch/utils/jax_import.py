@@ -1,8 +1,9 @@
 """Carry weights of the JAX package into the port.
 
-A JAX generator or NLayer-discriminator parameter tree, given as nested
-dicts of numpy arrays (``variables["params"]``), becomes the port's
-state_dict in the reference CAT key layout, so
+A JAX generator, NLayer-discriminator or distillation-adaptor parameter
+tree, given as nested dicts of numpy arrays (``variables["params"]``, as
+``utils/checkpoint.py::read_msgpack`` returns it from a ``.msgpack`` file),
+becomes the port's state_dict in the reference CAT key layout, so
 ``cat_tpu/utils/torch_import.py::import_inception_generator`` carries the
 port's generator weights back unchanged.
 
@@ -104,3 +105,46 @@ def nlayer_discriminator_state_dict(params: Dict, cfg: NLayerDiscriminatorConfig
         _norm(sd, f"model.{3 * n}", params.get(f"norm{n}"))
     _conv(sd, f"model.{3 * cfg.n_layers + 2}", params["conv_out"])
     return sd
+
+
+def adaptor_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
+    """The port's adaptor state_dict (``A{i}.weight`` / ``A{i}.bias``, 1x1
+    convs) from the JAX distiller's adaptor params ``{"A{i}": {"conv": ...}}``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        _conv(sd, name, p["conv"])
+    return sd
+
+
+def distill_state_dict(tree: Dict, student_cfg: InceptionGeneratorConfig,
+                       disc_cfg: NLayerDiscriminatorConfig, adaptors: bool) -> Dict:
+    """The port's train-state dict (``train/common.py::train_state_dict``'s
+    layout) from the JAX distiller's full state tree (a ``<tag>_state.msgpack``
+    as ``checkpoint.read_msgpack`` returns it): parameters, Adam moments and
+    counts, step and EMA.  Adam moments take the parameters' layout changes.
+    ``adaptors``: keep the adaptor group (the port has one only for mse).
+    The dropout RNG does not carry over: a JAX key is no torch.Generator."""
+
+    def gen(t):
+        return generator_state_dict(t, student_cfg)
+
+    def disc(t):
+        return nlayer_discriminator_state_dict(t, disc_cfg)
+
+    def g_group(t):  # the {G, A} group, adaptors prefixed as the port's optimiser names them
+        a = {f"A.{k}": v for k, v in adaptor_state_dict(t.get("A") or {}).items()}
+        return {**gen(t["G"]), **(a if adaptors else {})}
+
+    g, d = tree["g"], tree["d"]
+    extra = tree.get("extra") or {}
+    return {
+        "step": int(np.asarray(tree["step"])),
+        "g": {"params": gen(g["params"]["G"]),
+              "opt": {"count": int(np.asarray(g["opt_state"]["count"])),
+                      "mu": g_group(g["opt_state"]["mu"]), "nu": g_group(g["opt_state"]["nu"])}},
+        "d": {"params": disc(d["params"]),
+              "opt": {"count": int(np.asarray(d["opt_state"]["count"])),
+                      "mu": disc(d["opt_state"]["mu"]), "nu": disc(d["opt_state"]["nu"])}},
+        "adaptors": adaptor_state_dict(g["params"].get("A") or {}) if adaptors else {},
+        "extra": {"ema_G": gen(extra["ema_G"])} if "ema_G" in extra else {},
+    }

@@ -21,7 +21,16 @@ Phases, in order; any failure exits non-zero before the result line:
      float32 masters; packed blocks) at full width: 1 warm-up + 3 timed steps,
      the Gram's TMA kernel launched 8 times per step;
   5. fused norms: the same step with ``fused_norms=True`` for 2 steps, the
-     norm kernel launched once per ConvNormAct (6 per step).
+     norm kernel launched once per ConvNormAct (6 per step);
+  6. distill verb: ``entry.distill_main`` with the flags of
+     ``scripts/cycle_gan/horse2zebra/train_inception_student_2p6B.sh`` (batch
+     80, 2.6e9-MAC student, KA, lsgan, pretrained-G transfer and D restore)
+     over a seeded unaligned dataset of 256x256 PNGs, 8 steps, twice: (a)
+     float32 with the host loader, (b) bfloat16 with the device-resident
+     bank.  The Gram kernel must launch 8 times per step (the FMA kernel in
+     (a), the TMA kernel in (b)) and is held against its plain version on
+     the run's own (80, F) taps; the checkpoints must exist and reload to
+     the in-memory student's output exactly.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -41,6 +50,9 @@ SIZE = 256
 TIMED_STEPS = 3
 FUSED_STEPS = 2
 LR = 2e-4
+VERB_BATCH = 80  # the student recipe's batch
+VERB_IMAGES = 160  # per side: 2 steps per epoch
+VERB_EPOCHS = 4
 SLEEP_CYCLES = 4_000_000  # ~2 ms at 1.98 GHz: the host enqueues timed work meanwhile
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 FMA
@@ -95,6 +107,65 @@ def _check_gram(got, ref, what: str) -> float:
     return err
 
 
+def gram_numbers(xs, flush, card, expect_path: str, compare_mma: bool = False):
+    """Hold the Gram kernel against its plain version on each (B, F)
+    operand of ``xs`` (a teacher and a student tap), which must take kernel
+    ``expect_path``, and time kernel, plain version, one-call PyTorch
+    yardstick and bound; returns the totals of one step (four taps, so four
+    launches of each).  ``compare_mma`` (bf16): also check that two calls
+    are bit-identical, and hold and time the mma.sync kernel beside."""
+    import torch
+
+    from cat_tpu_torch.distill import ka
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
+           "bytes_ms": 0.0, "ops_ms": 0.0, "mma_sync_ms": 0.0}
+    for who, x in zip(("teacher", "student"), xs):
+        b, f = x.shape
+        dname = str(x.dtype).split(".")[-1]
+        path = ka._gram_path(b, f, x.dtype, x.data_ptr() % 16 == 0)
+        if path != expect_path:
+            fail(f"gram {who}: the {dname} operand {tuple(x.shape)} took path {path!r}, "
+                 f"expected {expect_path!r}")
+        ref = ka.gram_plain(x)
+        err = _check_gram(ka.gram_cuda(x), ref, f"{who} {dname} {path}")
+        mma_ms = None
+        if x.dtype == torch.bfloat16:
+            if compare_mma:
+                if not torch.equal(ka.gram_cuda(x), ka.gram_cuda(x)):
+                    fail(f"gram {who}: two calls of the TMA kernel differ")
+                mma_out = ka._gram_launch(x, "mma")
+                _check_gram(mma_out, ref, f"{who} {dname} mma")
+                # which of the three float32 results is nearest the exact Gram
+                r64 = x.double() @ x.double().T
+                e64 = {k: float((v.double() - r64).abs().max()) for k, v in
+                       (("kernel", ka.gram_cuda(x)), ("mma.sync", mma_out), ("plain", ref))}
+                del r64
+                log(f"gram {who} bf16: max |err| against float64: {e64}")
+                mma_ms = timed(lambda: ka._gram_launch(x, "mma"), flush=flush)
+            lib = timed(lambda: torch.mm(x, x.T, out_dtype=torch.float32), flush=flush)
+            lib_name = "torch.mm(x, x.T, out_dtype=float32)"
+        else:
+            lib = timed(lambda: torch.matmul(x, x.T), flush=flush)
+            lib_name = "torch.matmul(x, x.T)"
+        ms = timed(lambda: ka.gram_cuda(x), flush=flush)
+        plain = timed(lambda: ka.gram_plain(x), flush=flush)
+        bytes_ms = 1e3 * (b * f * x.element_size() + b * b * 4) / HBM_BYTES_PER_S
+        ops_ms = 1e3 * 2 * b * b * f / PEAK_FLOPS[dname]
+        bound = max(bytes_ms, ops_ms)
+        old = f", mma.sync kernel {mma_ms:.4f} ms" if mma_ms is not None else ""
+        log(f"gram {who:7s} {dname:8s} B={b} F={f}: kernel ({path}) {ms:.4f} ms "
+            f"({100 * bound / ms:.1f}% of bound){old}, plain {plain:.4f} ms, {lib_name} "
+            f"{lib:.4f} ms, bound {bound:.4f} ms, max|err| {err:.3g} (tol "
+            f"{1e-5 * float(ref.abs().max()):.3g}) [{card}]")
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                     ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
+                     ("mma_sync_ms", mma_ms or 0.0)):
+            tot[k] += 4 * v  # four taps per step
+        tot["err"] = max(tot["err"], err)
+    return tot
+
+
 def check_kernels(dev, t_channels, s_channels, card):
     """Each kernel against its plain version in bf16 and f32 at the step's
     shapes; returns the per-step numbers of each kernel at the main path's
@@ -112,58 +183,16 @@ def check_kernels(dev, t_channels, s_channels, card):
 
     out = {}
     # --- Gram: one operand per launch; per tap a teacher and a student one.
-    # bf16: the main path's kernel (TMA + wgmma), held against the plain
-    # version, called twice for bit-reproducibility, and timed beside the
-    # mma.sync kernel on the same operand; the yardstick is one cuBLAS call
-    # with bf16 operands and float32 output.  f32: the FMA kernel.
+    # bf16: the main path's kernel (TMA + wgmma), also called twice for
+    # bit-reproducibility and timed beside the mma.sync kernel on the same
+    # operand.  f32: the FMA kernel.
     bc = t_channels[-1], s_channels[-1]
     for dtype in (torch.bfloat16, torch.float32):
-        dname = str(dtype).split(".")[-1]
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
-               "bytes_ms": 0.0, "ops_ms": 0.0, "mma_sync_ms": 0.0}
-        for who, c in zip(("teacher", "student"), bc):
-            f = 64 * 64 * c
-            x = torch.relu(torch.randn(BATCH, f, generator=gen, device=dev)).to(dtype)
-            path = ka._gram_path(BATCH, f, dtype, x.data_ptr() % 16 == 0)
-            ref = ka.gram_plain(x)
-            err = _check_gram(ka.gram_cuda(x), ref, f"{who} {dname} {path}")
-            if dtype == torch.bfloat16:
-                if path != "tma":
-                    fail(f"gram {who}: the bf16 operand {tuple(x.shape)} took path {path!r}")
-                if not torch.equal(ka.gram_cuda(x), ka.gram_cuda(x)):
-                    fail(f"gram {who}: two calls of the TMA kernel differ")
-                mma_out = ka._gram_launch(x, "mma")
-                _check_gram(mma_out, ref, f"{who} {dname} mma")
-                # which of the three float32 results is nearest the exact Gram
-                r64 = x.double() @ x.double().T
-                e64 = {k: float((v.double() - r64).abs().max()) for k, v in
-                       (("kernel", ka.gram_cuda(x)), ("mma.sync", mma_out), ("plain", ref))}
-                del r64
-                log(f"gram {who} bf16: max |err| against float64: {e64}")
-                lib = timed(lambda: torch.mm(x, x.T, out_dtype=torch.float32), flush=flush)
-                lib_name = "torch.mm(x, x.T, out_dtype=float32)"
-            else:
-                xf = x.float()
-                lib = timed(lambda: torch.matmul(xf, xf.T), flush=flush)
-                lib_name = "torch.matmul(xf, xf.T)"
-            ms = timed(lambda: ka.gram_cuda(x), flush=flush)
-            plain = timed(lambda: ka.gram_plain(x), flush=flush)
-            mma_ms = (timed(lambda: ka._gram_launch(x, "mma"), flush=flush)
-                      if dtype == torch.bfloat16 else None)
-            bytes_ms = 1e3 * (BATCH * f * x.element_size() + BATCH * BATCH * 4) / HBM_BYTES_PER_S
-            ops_ms = 1e3 * 2 * BATCH * BATCH * f / PEAK_FLOPS[dname]
-            bound = max(bytes_ms, ops_ms)
-            old = f", mma.sync kernel {mma_ms:.4f} ms" if mma_ms is not None else ""
-            log(f"gram {who:7s} {dname:8s} B={BATCH} F={f}: kernel ({path}) {ms:.4f} ms "
-                f"({100 * bound / ms:.1f}% of bound){old}, plain {plain:.4f} ms, {lib_name} "
-                f"{lib:.4f} ms, bound {bound:.4f} ms, max|err| {err:.3g} (tol "
-                f"{1e-5 * float(ref.abs().max()):.3g}) [{card}]")
-            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                         ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
-                         ("mma_sync_ms", mma_ms or 0.0)):
-                tot[k] += 4 * v  # four taps per step
-            tot["err"] = max(tot["err"], err)
-        out[("gram", dname)] = tot
+        xs = [torch.relu(torch.randn(BATCH, 64 * 64 * c, generator=gen, device=dev)).to(dtype)
+              for c in bc]
+        bf16 = dtype == torch.bfloat16
+        out[("gram", str(dtype).split(".")[-1])] = gram_numbers(
+            xs, flush, card, "tma" if bf16 else "f32", compare_mma=bf16)
     # the mma.sync kernel is also the main path's for bf16 operands TMA
     # cannot map: F % 8 != 0
     x = torch.relu(torch.randn(BATCH, 4096 * 3 + 4, generator=gen, device=dev)).to(torch.bfloat16)
@@ -177,7 +206,7 @@ def check_kernels(dev, t_channels, s_channels, card):
               for j, c in enumerate(channels)]
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": None, "bound_ms": 0.0, "err": 0.0,
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
                "bytes_ms": 0.0, "ops_ms": 0.0}
         for c, hw in planes:
             x = (torch.randn(BATCH, c, hw, hw, generator=gen, device=dev) * 3 + 1).to(dtype)
@@ -199,15 +228,19 @@ def check_kernels(dev, t_channels, s_channels, card):
                     tot["err"] = max(tot["err"], float(diff.max()))
             ms = timed(lambda: inorm.instance_norm_act_cuda(x, scale, bias), flush=flush)
             plain = timed(lambda: inorm.instance_norm_act_plain(x, scale, bias), flush=flush)
+            # yardstick: norm + affine, without the ReLU: one call, less work
+            lib = timed(lambda: torch.nn.functional.instance_norm(x, weight=scale, bias=bias,
+                                                                  eps=1e-5), flush=flush)
             # one read and one write; ~10 flops per element on CUDA cores
             bytes_ms = 1e3 * 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S
             ops_ms = 1e3 * 10 * x.numel() / PEAK_FLOPS["float32"]
             bound = max(bytes_ms, ops_ms)
             log(f"instance_norm_act {dname:8s} {tuple(x.shape)}: kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, bound {bound:.4f} ms, max|err| {float(diff.max()):.3g} "
+                f"{plain:.4f} ms, F.instance_norm (norm + affine, no ReLU) {lib:.4f} ms, "
+                f"bound {bound:.4f} ms, max|err| {float(diff.max()):.3g} "
                 f"(tol rtol {rtol:g} + atol {atol:g}) [{card}]")
-            for k, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
-                         ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                         ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
                 tot[k] += v
         out[("instance_norm_act", dname)] = tot
     del l2
@@ -323,6 +356,216 @@ def run_steps(dev, teacher_cfg, teacher_sd, student_cfg, fused, n_steps, card,
     return times, counts, vals, torch.cuda.max_memory_allocated(), busy_ms
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the distill verb
+# ---------------------------------------------------------------------------
+
+# scripts/cycle_gan/horse2zebra/train_inception_student_2p6B.sh, but for the
+# paths and the schedule (no --real_stat_path, 4 epochs, a save at the end,
+# losses printed every step)
+RECIPE = ["--dataset_mode", "unaligned", "--distiller", "inception", "--gan_mode", "lsgan",
+          "--teacher_ngf", "64", "--student_ngf", "20", "--ndf", "64",
+          "--batch_size", str(VERB_BATCH), "--eval_batch_size", "2", "--norm_affine",
+          "--norm_affine_D", "--channels_reduction_factor", "6", "--kernel_sizes", "1", "3", "5",
+          "--lambda_distill", "1.0", "--lambda_recon", "5", "--prune_cin_lb", "16",
+          "--target_flops", "2.6e9", "--distill_G_loss_type", "ka",
+          "--nepochs", str(VERB_EPOCHS), "--nepochs_decay", "0",
+          "--save_epoch_freq", str(VERB_EPOCHS), "--print_freq", "1"]
+
+
+def write_verb_inputs(root, teacher_cfg, teacher_sd) -> None:
+    """An unaligned dataset of seeded 256x256 PNGs (horse2zebra's size:
+    the loader resizes to 286 and crops 256), and the teacher and an ndf-64
+    D as the port's ``save_net`` writes them."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from cat_tpu_torch.core.config import NLayerDiscriminatorConfig, NormConfig
+    from cat_tpu_torch.models.discriminators import NLayerDiscriminator
+    from cat_tpu_torch.utils import checkpoint as ckpt
+
+    rs = np.random.RandomState(0)
+    for side, n in (("trainA", VERB_IMAGES), ("trainB", VERB_IMAGES), ("valA", 2), ("valB", 2)):
+        d = os.path.join(root, "data", side)
+        os.makedirs(d)
+        for i in range(n):
+            Image.fromarray(rs.randint(0, 256, (SIZE, SIZE, 3), dtype=np.uint8)).save(
+                os.path.join(d, f"{i}.png"))
+    ckpt.save_net(os.path.join(root, "teacher"), "best_A", "G_A", teacher_sd, teacher_cfg)
+    dcfg = NLayerDiscriminatorConfig(input_nc=3, ndf=64,
+                                     norm=NormConfig(kind="instance", affine=True))
+    netD = NLayerDiscriminator(dcfg, generator=torch.Generator().manual_seed(5))
+    ckpt.save_net(os.path.join(root, "teacher"), "best_A", "D_A", netD.state_dict(), dcfg)
+
+
+class _TimedLoader:
+    """A loader whose every batch fetch is timed on the host clock."""
+
+    def __init__(self, loader, waits):
+        self.loader, self.waits = loader, waits
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            self.waits.append(time.perf_counter() - t0)
+            yield batch
+
+
+def run_verb(root, label, extra, expect_path, dev, card):
+    """``entry.distill_main`` with the recipe's flags and ``extra``; checks
+    launches, checkpoints, reload and losses, and returns the run's numbers
+    and the distill run."""
+    import numpy as np
+    import torch
+
+    from cat_tpu_torch import entry
+    from cat_tpu_torch.distill import ka
+    from cat_tpu_torch.models.generator import InceptionGenerator
+    from cat_tpu_torch.utils import checkpoint as ckpt
+
+    log_dir = os.path.join(root, f"log_{label}")
+    teacher = os.path.join(root, "teacher")
+    argv = ["--dataroot", os.path.join(root, "data"), "--log_dir", log_dir,
+            "--restore_teacher_G_path", os.path.join(teacher, "best_A_net_G_A.pth"),
+            "--restore_pretrained_G_path", os.path.join(teacher, "best_A_net_G_A.pth"),
+            "--restore_D_path", os.path.join(teacher, "best_A_net_D_A.pth"),
+            *RECIPE, *extra]
+    steps, starts, waits = [], [], []
+    setup = entry.setup_distill
+
+    def instrumented(opt, device=None, loader=None):
+        run = setup(opt, device, loader)
+        step_fn = run.trainer.step_fn
+
+        def timed_step(state, batch, lr):
+            t0 = time.perf_counter()
+            out = step_fn(state, batch, lr)
+            torch.cuda.synchronize()
+            starts.append(t0)
+            steps.append(time.perf_counter() - t0)
+            return out
+
+        run.trainer.step_fn = timed_step
+        run.trainer.dataloader = _TimedLoader(run.trainer.dataloader, waits)
+        return run
+
+    n_steps = VERB_EPOCHS * VERB_IMAGES // VERB_BATCH
+    entry.setup_distill = instrumented
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ka.launches = 0
+        ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
+        t0 = time.perf_counter()
+        run = entry.distill_main(argv)
+        wall = time.perf_counter() - t0
+        launches, on_path = ka.launches, ka.path_launches[expect_path]
+    finally:
+        entry.setup_distill = setup
+    mem = torch.cuda.max_memory_allocated()
+    if len(steps) != n_steps or launches != 8 * n_steps or on_path != launches:
+        fail(f"verb ({label}): {len(steps)} steps, {launches} Gram launches, {on_path} of them "
+             f"the {expect_path!r} kernel; expected {n_steps} steps and 8 launches per step, all "
+             f"{expect_path!r}")
+
+    save_dir = os.path.join(log_dir, "checkpoints")
+    for name in ("latest_net_G.pth", "latest_net_G.json", f"{VERB_EPOCHS}_net_G.pth",
+                 "latest_state.pth"):
+        if not os.path.exists(os.path.join(save_dir, name)):
+            fail(f"verb ({label}): {name} was not written")
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [v for r in rows for k, v in r.items() if "loss" in k]
+    if len(rows) != n_steps or not all(math.isfinite(v) for v in losses):
+        fail(f"verb ({label}): {len(rows)} logged steps, losses finite: "
+             f"{all(math.isfinite(v) for v in losses)}")
+
+    # the saved student reproduces the in-memory one exactly
+    batch = next(iter(run.loader))
+    x = batch["A"].to(dev)
+    sd, cfg = ckpt.load_net(save_dir, "latest", "G")
+    gen = InceptionGenerator(cfg, packed_blocks=run.distiller.hp.packed_blocks).to(dev)
+    gen.load_state_dict(sd)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            same = torch.equal(gen(x[:4]), run.distiller.generate_student(run.state, x[:4]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    if not same:
+        fail(f"verb ({label}): the reloaded student's output differs from the in-memory one")
+
+    step_ms = 1e3 * float(np.median(steps[1:]))
+    # from one step's start to the next: the step, the loader wait, logging
+    iter_ms = 1e3 * float(np.median(np.diff(starts)))
+    out = {"label": label, "steps": len(steps), "step_ms_median": step_ms,
+           "step_ms": [round(1e3 * t, 1) for t in steps],
+           "images_per_s": VERB_BATCH / (step_ms / 1e3), "iteration_ms_median": iter_ms,
+           "images_per_s_with_loader": VERB_BATCH / (iter_ms / 1e3),
+           "loader_wait_ms_per_step": 1e3 * sum(waits[1:]) / max(len(waits) - 1, 1),
+           "loader_wait_ms_first": 1e3 * waits[0], "wall_s": wall,
+           "peak_memory_gib": mem / 2 ** 30, "gram_launches": launches,
+           "gram_path": expect_path, "last_losses": {k: v for k, v in rows[-1].items()
+                                                    if "loss" in k}}
+    log(f"verb ({label}): median step {step_ms:.1f} ms over steps 2-{len(steps)}, "
+        f"{out['images_per_s']:.1f} images/s; median iteration {iter_ms:.1f} ms, "
+        f"{out['images_per_s_with_loader']:.1f} images/s; host wait on the loader "
+        f"{out['loader_wait_ms_per_step']:.1f} ms per step (first fetch "
+        f"{out['loader_wait_ms_first']:.0f} ms), peak memory {out['peak_memory_gib']:.2f} GiB, "
+        f"{launches} Gram launches ({expect_path}), fit {wall:.1f} s, steps {out['step_ms']} "
+        f"[{card}]")
+    return out, run, x
+
+
+def distill_verb(dev, card, teacher_cfg, teacher_sd):
+    """Phase 6: the recipe through ``entry.distill_main``, (a) float32 with
+    the host loader and (b) bfloat16 with the device bank; the Gram kernel
+    held against its plain version on each run's own (80, F) taps."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        l2.zero_()
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_verb_")
+    try:
+        t0 = time.perf_counter()
+        write_verb_inputs(root, teacher_cfg, teacher_sd)
+        log(f"verb: dataset ({VERB_IMAGES} + 2 PNGs per side, {SIZE} px) and checkpoints "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        results, kern = [], {}
+        for label, extra, dtype, path in (
+                ("a", [], torch.float32, "f32"),
+                ("b", ["--compute_dtype", "bfloat16", "--on_device_data", "1"],
+                 torch.bfloat16, "tma")):
+            out, run, x = run_verb(root, label, extra, path, dev, card)
+            with torch.no_grad():
+                taps = [net(x, taps=("encode",))[1]["encode"].reshape(x.shape[0], -1)
+                        .to(dtype).contiguous()
+                        for net in (run.distiller.netG_teacher, run.distiller.netG_student)]
+            kern[label] = gram_numbers(taps, flush, card, path)
+            results.append(out)
+            del run, taps
+        return results, kern
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        del l2
+
+
 _KERNEL_GROUPS = (  # (group, substrings of the lower-cased kernel name), first match wins
     ("gram (csrc/gram.cu)", ("gram_partial", "gram_reduce")),
     ("instance_norm_act (csrc/instance_norm.cu)", ("inorm_act",)),
@@ -336,27 +579,16 @@ _KERNEL_GROUPS = (  # (group, substrings of the lower-cased kernel name), first 
 )
 
 
-def _stdlib_profile() -> None:
-    """Import the standard library's ``profile`` module.  The repository
-    root holds ``profile.py`` (the JAX package's profile verb), which would
-    shadow it; torch.profiler reaches ``profile`` through cProfile."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    saved = sys.path[:]
-    sys.path[:] = [p for p in sys.path if os.path.abspath(p or ".") != root]
-    try:
-        import cProfile  # noqa: F401
-        import profile as _profile  # noqa: F401
-    finally:
-        sys.path[:] = saved
-
-
 def profile(step, n, card):
     """Device time of ``n`` steps by kernel group, from torch.profiler;
     returns the device-busy milliseconds per step (None if the profiler saw
     no device time).  The profiler slows the host, so its wall time is no
     measure of the idle share."""
-    _stdlib_profile()
     import torch
+
+    from cat_tpu_torch import import_stdlib_profile
+
+    import_stdlib_profile()  # the repository root's profile.py would shadow it
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -454,24 +686,31 @@ def main() -> None:
     log(f"fused-norm step: {sum(times_f) / FUSED_STEPS * 1e3:.1f} ms/step (first step "
         f"included), launches {counts_f}, losses {vals_f} [{card}]")
 
-    sources = {"gram": ("cat_tpu_torch/csrc/gram.cu", "cat_tpu/distill/ka.py:51",
-                        gram_launches),
-               "instance_norm_act": ("cat_tpu_torch/csrc/instance_norm.cu",
-                                     "cat_tpu/ops/pallas_norm.py:35",
-                                     counts_f["instance_norm_act"])}
-    rows = []
-    for name, (src, replaces, launches) in sources.items():
-        k = kern[(name, "bfloat16")]
-        rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches, "max_abs_err": k["err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": "bytes" if k["bytes_ms"] >= k["ops_ms"] else "operations",
-            "library_ms": k["library_ms"],
-            "per": f"one training step's launches at batch {BATCH}, bf16",
-        })
-        if name == "gram":
-            rows[-1]["mma_sync_ms"] = k["mma_sync_ms"]
+    # --- 6. the distill verb
+    verb, verb_kern = distill_verb(dev, card, teacher_cfg, teacher_sd)
+    log("verb: " + json.dumps(verb))
+
+    def row(name, src, replaces, launches, k, per):
+        return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                "launches": launches, "max_abs_err": k["err"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": "bytes" if k["bytes_ms"] >= k["ops_ms"] else "operations",
+                "library_ms": k["library_ms"], "per": per}
+
+    gram_src = ("cat_tpu_torch/csrc/gram.cu", "cat_tpu/distill/ka.py:51")
+    per = f"one training step's launches at batch {BATCH}, bf16"
+    rows = [
+        {**row("gram", *gram_src, gram_launches, kern[("gram", "bfloat16")], per),
+         "mma_sync_ms": kern[("gram", "bfloat16")]["mma_sync_ms"]},
+        row("instance_norm_act", "cat_tpu_torch/csrc/instance_norm.cu",
+            "cat_tpu/ops/pallas_norm.py:35", counts_f["instance_norm_act"],
+            kern[("instance_norm_act", "bfloat16")], per),
+    ]
+    for v, dname in zip(verb, ("float32", "bfloat16")):
+        rows.append(row(f"gram (distill verb, {dname})", *gram_src, v["gram_launches"],
+                        verb_kern[v["label"]],
+                        f"one training step's launches at batch {VERB_BATCH}, {dname}, on "
+                        f"the run's own taps ({v['gram_path']} kernel)"))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

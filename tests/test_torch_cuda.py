@@ -113,3 +113,43 @@ def test_instance_norm_kernel_matches_plain(cuda, rng, dtype, act, shape):
     rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (2 ** -7, 1e-2)
     err = (got.float() - ref.float()).abs() - rtol * ref.float().abs()
     assert float(err.max()) <= atol
+
+
+# ---------------------------------------------------------------------------
+# The distill verb's data path on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_device_prefetch_copies_host_batches_in_order(cuda):
+    """Pinned, non_blocking copies on a side stream: every batch arrives on
+    the card, in order and intact; batches already there pass through."""
+    from cat_tpu_torch.data.loader import device_prefetch
+
+    host = [{"A": torch.full((4, 3, 8, 8), float(i)), "A_paths": [str(i)]} for i in range(5)]
+    on_card = [{"A": torch.full((2,), float(i), device=cuda)} for i in range(3)]
+    out = list(device_prefetch(iter(host), cuda)) + list(device_prefetch(iter(on_card), cuda))
+    assert all(b["A"].is_cuda for b in out)
+    assert [float(b["A"].flatten()[0]) for b in out] == [0, 1, 2, 3, 4, 0, 1, 2]
+    assert all(torch.equal(b["A"].cpu(), h["A"]) for b, h in zip(out, host))
+    assert out[5]["A"] is on_card[0]["A"]
+
+
+@pytest.mark.cuda
+def test_device_bank_samples_the_same_patches_on_the_card(cuda, rng):
+    """The same draws cut the same patches from a bank on the card as from
+    one on the host: the same pixels, and values within one float32 unit in
+    the last place (the card divides by 255 as a multiply by its
+    reciprocal)."""
+    from cat_tpu_torch.data.device_data import draw, sample_side
+
+    bank = torch.from_numpy(rng.randint(0, 256, (5, 20, 20, 3)).astype(np.uint8))
+    draws = draw(torch.Generator(device=cuda).manual_seed(0), 16, bank.shape, 12, False)
+    got = sample_side(bank.to(cuda), *draws, 12).cpu()
+    ref = sample_side(bank, *(d.cpu() for d in draws), 12)
+
+    def pixels(t):
+        return ((t + 1.0) * 127.5).round().to(torch.uint8)
+
+    assert torch.equal(pixels(got), pixels(ref))
+    assert float((got - ref).abs().max()) <= 2 ** -23

@@ -10,17 +10,17 @@
 // products of its own range of F into a float32 (Bp, Bp) partial, and
 // gram_reduce, which sums the partials of every entry in a fixed order
 // (eight interleaved runs, then the eight run sums in order).  No atomics,
-// so a run is bit-reproducible.  B is padded to Bp = 16, 32, 64 or 128 rows
-// (zero rows add nothing), one kernel instance each.
+// so a run is bit-reproducible.  The bf16 kernels pad B to Bp = 16, 32, 64
+// or 128 rows (zero rows add nothing), one kernel instance each.
 //
-// Bound on an H100: bytes.  The work is B·F reads of X and 2·B²·F flops; at
-// B = 128 that is 128 flops per bf16 byte, under the ~295 the card needs to
-// be compute-bound, so a kernel can at best stream X once at the memory
+// Bound on an H100, for bf16: bytes.  The work is B·F reads of X and B(B+1)·F
+// flops (the triangle); at B = 128 that is 64 flops per bf16 byte, under the
+// ~295 the card needs to be compute-bound, so a kernel can at best stream X once at the memory
 // rate (B·F·2 bytes / 3.35 TB/s).  To stream at that rate an SM needs about
 // 48 KiB of loads in flight, and the partials (written and read once more)
 // must stay a small share of the traffic.
 //
-// Three partial-Gram kernels; the Python wrapper (distill/ka.py::_gram_path)
+// Four partial-Gram kernels; the Python wrapper (distill/ka.py::_gram_path)
 // picks one by dtype and shape:
 //
 //   gram_partial_tma (bf16, F % 8 == 0, 16-byte-aligned X: TMA's rules for
@@ -40,8 +40,35 @@
 //   gram_partial_bf16 (every other bf16 operand).  ~4 CTAs per SM, each
 //      staging (Bp, 64) tiles by cp.async in two buffers and multiplying with
 //      mma.sync m16n8k16 from fragments loaded out of shared memory.
-//   gram_partial_f32 (float32 operands): CUDA-core FMAs, each thread an
-//      8 x 8 register block of entries.
+//   gram_partial_f32_tma (float32, F % 4 == 0, 16-byte-aligned X).  The
+//      recipe runs float32 with TF32 off, so the products are exact float32
+//      FMAs on the CUDA cores, and the bound moves: at B = 80 the lower
+//      triangle's B(B+1)·F flops at 67 TFLOP/s take as long as streaming X
+//      (0.101 against 0.100 ms on the teacher's tap), so the kernel must both
+//      stream at the memory rate and keep every FMA pipe fed.  The loads are
+//      the bf16 kernel's: one persistent CTA per SM, a contiguous range of
+//      64-column tiles (256 bytes of each row; 128 columns when B <= 40),
+//      one producer lane keeping a 128 KiB TMA ring full, rows padded to Bp
+//      (B rounded up to a multiple of 8) by TMA's zero fill.  The work is
+//      sized to B and to the triangle: only the (Bp/8)(Bp/8 + 1)/2 8 x 8
+//      register blocks on or below the diagonal are computed.  An SM reads
+//      32 words of shared memory per clock and issues 128 FMAs, so a block
+//      loads 16-byte column groups of its 8 + 8 rows (16 words) for 64 FMAs
+//      per column: 4 FMAs per word.  A block alone is too little work for an
+//      SM (55 blocks at B = 80), so `groups` threads share each block, each
+//      taking the column groups ≡ its lane (mod groups) of every tile:
+//      9-15 consumer warps from B = 25 up.  Eight neighbouring lanes read 8
+//      consecutive column groups of their rows, so with 256- or 512-byte
+//      rows (no swizzle) their 16-byte loads hit 8 different bank groups.
+//      The groups' sums are added by a fixed butterfly of warp shuffles, the
+//      CTAs' by gram_reduce, which reads the triangle for both halves: G is
+//      bit-reproducible and exactly symmetric.  What bounds it on the card:
+//      shared memory fills an SM's registers at 128 bytes per clock, so at
+//      4 FMAs per word the loads take as many cycles as the FMAs, and the
+//      two overlap only in part (about half the FMA rate on an H100;
+//      PERF.md).
+//   gram_partial_f32 (every other float32 operand): CUDA-core FMAs, each
+//      thread an 8 x 8 register block of entries, staged synchronously.
 //
 // One entry point call computes one operand's Gram; KA launches it once per
 // operand (the teacher's and the student's F differ), two per tap.
@@ -232,27 +259,32 @@ gram_partial_f32(const float* __restrict__ x, int B, long long F, long long chun
 
 // G[e] = sum over chunks of partial[c, e] (e = i*B + j, read at i*Bp + j),
 // in a fixed order: warp w sums chunks w, w+8, w+16, ... in turn, then the
-// eight warp sums are added in warp order.  One lane per entry.
+// eight warp sums are added in warp order.  One lane per entry.  With
+// `lower` the partials hold the lower triangle only: the lane of (i, j),
+// j <= i, writes both G[i, j] and G[j, i], so G comes out exactly symmetric.
 __global__ void __launch_bounds__(kThreads)
-gram_reduce(const float* __restrict__ partial, int nchunks, int B, int Bp,
+gram_reduce(const float* __restrict__ partial, int nchunks, int B, int Bp, int lower,
             float* __restrict__ g) {
   __shared__ float red[kWarps][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int e = blockIdx.x * 32 + lane;
+  const int i = e / B, j = e % B;
+  const bool mine = e < B * B && (!lower || j <= i);
   float s = 0.f;
-  if (e < B * B) {
-    const float* p = partial + (e / B) * Bp + (e % B);
+  if (mine) {
+    const float* p = partial + i * Bp + j;
     const long long stride = (long long)Bp * Bp;
 #pragma unroll 8
     for (int c = warp; c < nchunks; c += kWarps) s += p[c * stride];
   }
   red[warp][lane] = s;
   __syncthreads();
-  if (warp == 0 && e < B * B) {
+  if (warp == 0 && mine) {
     float t = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) t += red[w][lane];
     g[e] = t;
+    if (lower) g[j * B + i] = t;
   }
 }
 
@@ -306,8 +338,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
-// Copy the (64 columns, rows) box at column c0, row 0 of the tensor map into
-// shared memory; completion counts the box's bytes on `bar`.
+// Copy the tensor map's box at column c0, row 0 into shared memory;
+// completion counts the box's bytes on `bar`.
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0) {
   asm volatile(
@@ -523,6 +555,24 @@ EncodeTiled tma_encoder() {
 
 constexpr int kEncodeError = 10000;  // + the CUresult of a failed encode
 
+// A tensor map over the row-major (B, F) matrix at x, with elements of
+// `elem_bytes` bytes (F·elem_bytes a multiple of 16, x 16-byte aligned), and
+// a box of box_rows x box_cols; rows past B and columns past F read as zeros.
+int encode_x(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* x, int B,
+             long long F, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = tma_encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(F), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(F) * elem_bytes};  // bytes
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, type, 2, const_cast<void*>(x), dims, strides, box, elem,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // out of bounds: zeros
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
 template <int N>
 int launch_tma(const void* x, int B, long long F, int ctas, float* partial, cudaStream_t s) {
   constexpr int kWG = N == 128 ? 2 : 1;
@@ -530,20 +580,184 @@ int launch_tma(const void* x, int B, long long F, int ctas, float* partial, cuda
   cudaError_t err = cudaFuncSetAttribute(gram_partial_tma<N>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const EncodeTiled encode = tma_encoder();
-  if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   CUtensorMap map;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(F), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(F) * 2};  // bytes, a multiple of 16
-  const cuuint32_t box[2] = {kTmaKT, 64u * kWG};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), dims,
-                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // out of bounds: zeros
-  if (r != CUDA_SUCCESS) return kEncodeError + static_cast<int>(r);
+  const int rc = encode_x(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, B, F, 64 * kWG, kTmaKT,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
+  if (rc != 0) return rc;
   const long long ntiles = (F + kTmaKT - 1) / kTmaKT;
   gram_partial_tma<N><<<ctas, 128 * kWG + 32, kSmem, s>>>(map, ntiles, partial);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// TMA ring + CUDA-core FMAs (float32)
+// ---------------------------------------------------------------------------
+
+constexpr int kF32MaxThreads = 512;  // at most 15 consumer warps, then the producer warp
+constexpr int kMaxStages = 32;
+
+// volatile: kept in order after the mbarrier wait that makes the tile valid
+__device__ __forceinline__ float4 lds128(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// (bi, bj), bi >= bj: block k of the lower triangle of nb x nb blocks of
+// 8 x 8 entries, the nb diagonal blocks first, then the others in row-major
+// order.
+__device__ __forceinline__ void tri_block(int k, int nb, int& bi, int& bj) {
+  if (k < nb) {
+    bi = bj = k;
+    return;
+  }
+  k -= nb;
+  bi = 1;
+  while (k >= bi) k -= bi++;
+  bj = k;
+}
+
+// acc[r][c] += the products over one 16-byte column group of the 8 rows at
+// a_addr and the 8 rows at b_addr (kRowBytes apart).  kDiag: the two row
+// sets are one, so b_addr is not read and only the entries c <= r are
+// computed.
+template <bool kDiag, int kRowBytes>
+__device__ __forceinline__ void f32_step(float (&acc)[8][8], uint32_t a_addr, uint32_t b_addr) {
+  float4 a[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) a[r] = lds128(a_addr + r * kRowBytes);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float4 b = kDiag ? a[c] : lds128(b_addr + c * kRowBytes);
+#pragma unroll
+    for (int r = kDiag ? c : 0; r < 8; ++r) {
+      acc[r][c] = fmaf(a[r].x, b.x, acc[r][c]);
+      acc[r][c] = fmaf(a[r].y, b.y, acc[r][c]);
+      acc[r][c] = fmaf(a[r].z, b.z, acc[r][c]);
+      acc[r][c] = fmaf(a[r].w, b.w, acc[r][c]);
+    }
+  }
+}
+
+// Persistent CTA `blockIdx.x` of gridDim.x: partial[cta] = the lower-triangle
+// 8 x 8 blocks of the Gram of its tiles [t0, t1) of the ntiles tiles of X
+// (Bp rows of kCG 16-byte column groups; the upper blocks are not written,
+// nor, in diagonal blocks, the entries above the diagonal: gram_reduce
+// reads neither).
+// Threads: consumer warps, then one producer warp.  Consumer thread t owns
+// block t / groups of the triangle (threads past the last block idle) and,
+// in every tile, the column groups ≡ t (mod groups).  The diagonal blocks
+// come first, so they fill whole warps, and those warps take f32_step's
+// diagonal path: half the loads and 36 of 64 entries.  Warps 0 and 1, on
+// the two schedulers that also get a 4th consumer warp at Bp = 80, are such.
+template <int kCG>
+__global__ void __launch_bounds__(kF32MaxThreads, 1)
+gram_partial_f32_tma(const __grid_constant__ CUtensorMap xmap, int Bp, int groups, int stages,
+                     long long ntiles, float* __restrict__ partial) {
+  constexpr int kRowBytes = 16 * kCG;
+  __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
+  extern __shared__ uint8_t dyn[];  // stages tiles + 1024, aligned below
+  const uint32_t ring = (smem_u32(dyn) + 1023u) & ~1023u;
+  const uint32_t tile_bytes = Bp * kRowBytes;
+  const int consumers = blockDim.x / 32 - 1;  // warps
+  const long long t0 = blockIdx.x * ntiles / gridDim.x;
+  const int n = static_cast<int>((blockIdx.x + 1) * ntiles / gridDim.x - t0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);            // the producer's expect_tx
+      mbar_init(smem_u32(&empty[s]), consumers);   // one per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == consumers) {
+    // producer: as in gram_partial_tma; round ph of a stage waits for the
+    // consumers' ph-th release
+    if (lane == 0) {
+      for (int i = 0, s = 0, ph = 0; i < n; ++i) {
+        mbar_wait(smem_u32(&empty[s]), ph ^ 1);
+        mbar_expect_tx(smem_u32(&full[s]), tile_bytes);  // the whole box, even at edges
+        tma_load_2d(ring + s * tile_bytes, &xmap, smem_u32(&full[s]),
+                    static_cast<int>((t0 + i) * 4 * kCG));
+        if (++s == stages) s = 0, ph ^= 1;
+      }
+    }
+    return;
+  }
+
+  const int nb = Bp / 8;
+  const bool active = threadIdx.x / groups < nb * (nb + 1) / 2;
+  int bi = 0, bj = 0;
+  if (active) tri_block(threadIdx.x / groups, nb, bi, bj);
+  // uniform across the warp (idle lanes hold (0, 0)), so no lane diverges
+  const bool diag = __all_sync(0xffffffffu, bi == bj);
+  const uint32_t a_off = 8 * bi * kRowBytes, b_off = 8 * bj * kRowBytes;
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+
+  for (int i = 0, s = 0, ph = 0; i < n; ++i) {
+    mbar_wait(smem_u32(&full[s]), ph);
+    if (active) {
+      const uint32_t tile = ring + s * tile_bytes;
+      for (int k = lane; k < lane + kCG; k += groups) {
+        const uint32_t col = 16 * (k & (kCG - 1));
+        if (diag)
+          f32_step<true, kRowBytes>(acc, tile + a_off + col, 0);
+        else
+          f32_step<false, kRowBytes>(acc, tile + a_off + col, tile + b_off + col);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(smem_u32(&empty[s]));
+    if (++s == stages) s = 0, ph ^= 1;
+  }
+
+  // the block's groups are neighbouring lanes: a butterfly adds their sums
+  // in the same order on every run
+  for (int off = groups / 2; off > 0; off /= 2)
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], off);
+  if (active && threadIdx.x % groups == 0) {
+    float* out = partial + static_cast<long long>(blockIdx.x) * Bp * Bp + 8 * bi * Bp + 8 * bj;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      *reinterpret_cast<float4*>(out + r * Bp) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+      *reinterpret_cast<float4*>(out + r * Bp + 4) =
+          make_float4(acc[r][4], acc[r][5], acc[r][6], acc[r][7]);
+    }
+  }
+}
+
+template <int kCG>
+int launch_f32_tma(const void* x, int B, long long F, int Bp, int groups, int ctas,
+                   float* partial, cudaStream_t s) {
+  const int nb = Bp / 8;
+  const int threads = 32 * ((nb * (nb + 1) / 2 * groups + 31) / 32 + 1);
+  const int tile_bytes = Bp * 16 * kCG;
+  const int stages = min(kMaxStages, kRingBytes / tile_bytes);
+  const int smem = stages * tile_bytes + 1024;  // + room to align the ring to 1024 bytes
+  if (threads > kF32MaxThreads) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(gram_partial_f32_tma<kCG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap map;
+  const int rc = encode_x(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, B, F, Bp, 4 * kCG,
+                          CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (rc != 0) return rc;
+  const long long ntiles = (F + 4 * kCG - 1) / (4 * kCG);
+  gram_partial_f32_tma<kCG><<<ctas, threads, smem, s>>>(map, Bp, groups, stages, ntiles,
+                                                        partial);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -568,7 +782,7 @@ int cat_gram_bf16(const void* x, int B, long long F, long long chunk, int nchunk
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  gram_reduce<<<(B * B + 31) / 32, kThreads, 0, s>>>(p, nchunks, B, Bp, static_cast<float*>(g));
+  gram_reduce<<<(B * B + 31) / 32, kThreads, 0, s>>>(p, nchunks, B, Bp, 0, static_cast<float*>(g));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -589,7 +803,26 @@ int cat_gram_bf16_tma(const void* x, int B, long long F, int ctas, void* partial
     default: rc = launch_tma<128>(x, B, F, ctas, p, s); break;
   }
   if (rc != 0) return rc;
-  gram_reduce<<<(B * B + 31) / 32, kThreads, 0, s>>>(p, ctas, B, Bp, static_cast<float*>(g));
+  gram_reduce<<<(B * B + 31) / 32, kThreads, 0, s>>>(p, ctas, B, Bp, 0, static_cast<float*>(g));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x: (B, F) float32, contiguous, F % 4 == 0, 16-byte aligned.  Bp: B rounded
+// up to a multiple of 8.  groups: threads per 8 x 8 block of the triangle, 1,
+// 2, 4, 8, 16 or 32 (32 takes 128-column tiles, the others 64), with at
+// most 480 consumer threads.  partial: ctas * Bp * Bp floats.  g: (B, B)
+// floats, exactly symmetric.  Returns a CUDA error code, or 10000 + the
+// CUresult of a failed tensor-map encode.
+int cat_gram_f32_tma(const void* x, int B, long long F, int Bp, int groups, int ctas,
+                     void* partial, void* g, void* stream) {
+  if (B < 1 || Bp < B || Bp > kMaxB || Bp % 8 != 0 || groups < 1 || 32 % groups != 0 || ctas < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* p = static_cast<float*>(partial);
+  const int rc = groups == 32 ? launch_f32_tma<32>(x, B, F, Bp, groups, ctas, p, s)
+                              : launch_f32_tma<16>(x, B, F, Bp, groups, ctas, p, s);
+  if (rc != 0) return rc;
+  gram_reduce<<<(B * B + 31) / 32, kThreads, 0, s>>>(p, ctas, B, Bp, 1, static_cast<float*>(g));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -603,7 +836,7 @@ int cat_gram_f32(const void* x, int B, long long F, long long chunk, int nchunks
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   gram_reduce<<<(B * B + 31) / 32, kThreads, 0, s>>>(static_cast<const float*>(partial),
-                                                     nchunks, B, B, static_cast<float*>(g));
+                                                     nchunks, B, B, 0, static_cast<float*>(g));
   return static_cast<int>(cudaGetLastError());
 }
 

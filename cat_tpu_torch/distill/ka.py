@@ -9,7 +9,9 @@ and teacher activations at mapped layers (loss = -KA).
 ``gram`` launches a hand-written CUDA kernel (``cat_tpu_torch/csrc/gram.cu``)
 for a CUDA tensor and the plain twin ``gram_plain`` for a CPU tensor.
 ``_gram_path`` picks the kernel: TMA + wgmma for bf16 operands that meet
-TMA's rules, mma.sync for other bf16 shapes, CUDA-core FMAs for float32.
+TMA's rules, mma.sync for other bf16 shapes; for float32, a TMA ring feeding
+CUDA-core FMAs on the lower triangle, and the plain FMA kernel for operands
+TMA cannot map.
 The backward needs only the saved Grams plus one more read of X or Y:
 dKA/dX = 2 (G_Y - (s/n_x) G_X) X / sqrt(n_x n_y), a (B x B)(B x F) product
 left to ``torch.matmul`` in float32, as the JAX package leaves it to XLA.
@@ -30,10 +32,11 @@ from cat_tpu_torch.utils import cuda_build
 
 _MAX_BATCH = 128
 _CTAS_PER_SM = 4
+_F32_TMA_CONSUMERS = 480  # consumer threads in a CTA of the f32 TMA kernel (gram.cu)
 
 # launches of the CUDA kernels since the last reset: in all, and by path
 launches = 0
-path_launches = {"tma": 0, "mma": 0, "f32": 0}
+path_launches = {"tma": 0, "mma": 0, "f32tma": 0, "f32": 0}
 
 
 def gram_plain(x: torch.Tensor) -> torch.Tensor:
@@ -55,8 +58,11 @@ def _lib():
         lib.cat_gram_bf16_tma.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                                           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                                           ctypes.c_void_p]
+        lib.cat_gram_f32_tma.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                                         ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         lib.cat_gram_bf16.restype = lib.cat_gram_f32.restype = ctypes.c_int
-        lib.cat_gram_bf16_tma.restype = ctypes.c_int
+        lib.cat_gram_bf16_tma.restype = lib.cat_gram_f32_tma.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -66,15 +72,27 @@ def _gram_path(b: int, f: int, dtype: torch.dtype, aligned: bool) -> str:
     address is a multiple of 16 bytes): "tma" (TMA ring + wgmma) for bf16
     when TMA can map it (a row stride of f·2 bytes must be a multiple of 16,
     so f % 8 == 0, and the base address 16-byte aligned), "mma" (cp.async +
-    mma.sync) for other bf16 operands, "f32" for float32.  Raises on what no
-    kernel takes."""
+    mma.sync) for other bf16 operands; "f32tma" (TMA ring + FMAs on the
+    lower triangle) for float32 when TMA can map it (f % 4 == 0, aligned),
+    "f32" (synchronous staging + FMAs) for other float32 operands.  Raises
+    on what no kernel takes."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"gram_cuda takes bf16 or f32, got {dtype}")
     if not 1 <= b <= _MAX_BATCH or f < 1:
         raise ValueError(f"gram_cuda takes 1 <= B <= {_MAX_BATCH} and F >= 1, got {(b, f)}")
     if dtype == torch.float32:
-        return "f32"
+        return "f32tma" if f % 4 == 0 and aligned else "f32"
     return "tma" if f % 8 == 0 and aligned else "mma"
+
+
+def _f32_tma_plan(b: int):
+    """(bp, groups) of the f32 TMA kernel for a batch of b: rows padded to
+    bp, a multiple of 8, and each of the triangle's (bp/8)(bp/8 + 1)/2 blocks
+    of 8 x 8 entries shared by ``groups`` threads, the most of 32, 16, ...,
+    1 that keeps the consumers within 15 warps."""
+    bp = -(-b // 8) * 8
+    blocks = (bp // 8) * (bp // 8 + 1) // 2
+    return bp, next(g for g in (32, 16, 8, 4, 2, 1) if blocks * g <= _F32_TMA_CONSUMERS)
 
 
 def gram_cuda(x: torch.Tensor) -> torch.Tensor:
@@ -89,22 +107,32 @@ def gram_cuda(x: torch.Tensor) -> torch.Tensor:
 
 def _gram_launch(x: torch.Tensor, path: str) -> torch.Tensor:
     """Launch kernel ``path`` on an operand ``gram_cuda`` has checked.  The
-    comparisons of the two bf16 designs (chip_smoke.py, the card tests) also
-    call it with "mma", which takes any bf16 operand."""
+    comparisons of the two designs of each dtype (chip_smoke.py, the card
+    tests) also call it with "mma", which takes any bf16 operand, and with
+    "f32", which takes any float32 operand."""
     global launches
     b, f = x.shape
-    # the bf16 kernels pad B to 16, 32, 64 or 128 rows (gram.cu)
-    bp = b if path == "f32" else next(r for r in (16, 32, 64, 128) if r >= b)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    # the rows each kernel pads B to (gram.cu)
+    if path == "f32tma":
+        bp, groups = _f32_tma_plan(b)
+    elif path == "f32":
+        bp = b
+    else:  # the bf16 kernels' instances
+        bp = next(r for r in (16, 32, 64, 128) if r >= b)
     g = torch.empty((b, b), dtype=torch.float32, device=x.device)
     lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if path == "tma":
+        if path in ("tma", "f32tma"):
             # one persistent CTA per SM, one partial each
             partial = torch.empty((sms, bp, bp), dtype=torch.float32, device=x.device)
-            rc = lib.cat_gram_bf16_tma(x.data_ptr(), b, f, sms, partial.data_ptr(),
-                                       g.data_ptr(), stream)
+            if path == "tma":
+                rc = lib.cat_gram_bf16_tma(x.data_ptr(), b, f, sms, partial.data_ptr(),
+                                           g.data_ptr(), stream)
+            else:
+                rc = lib.cat_gram_f32_tma(x.data_ptr(), b, f, bp, groups, sms,
+                                          partial.data_ptr(), g.data_ptr(), stream)
         else:
             kt = 64 if path == "mma" else 32  # columns a CTA stages per step (gram.cu)
             # ~4 CTAs per SM, but no chunk under 8·bp columns: a CTA's (bp, bp)

@@ -9,10 +9,14 @@ Phases, in order; any failure exits non-zero before the result line:
   2. kernels: builds the hand-written CUDA kernels from ``cat_tpu_torch/csrc``
      (one nvcc per source, in parallel), then holds each against its plain
      PyTorch version in bf16 and f32 at the flagship step's shapes, and times
-     kernel, plain version, one-call PyTorch yardstick and the bytes bound.
-     The bf16 Gram: the TMA + wgmma kernel the main path takes (also called
-     twice for bit-identity) and the mma.sync kernel, both at the step's
-     shapes and the latter also at an F % 8 != 0 shape;
+     kernel, plain version, one-call PyTorch yardstick and the bound (for
+     the Gram, the lower triangle's B(B+1)·F flops, printed beside the full
+     square's 2·B²·F counted before).  The bf16 Gram: the TMA + wgmma kernel
+     the main path takes (also called twice for bit-identity) and the
+     mma.sync kernel, both at the step's shapes and the latter also at an
+     F % 8 != 0 shape.  The f32 Gram: the TMA + FMA kernel (bit-identity
+     and exact symmetry checked) and the old FMA kernel, both at the step's
+     shapes and the latter also at an F % 4 != 0 shape;
   3. reference: one float32 KA-distillation step at a tiny size on the card
      (kernels) and on the CPU (plain versions), losses compared;
   4. flagship: the horse2zebra KA-distillation step of ``bench.py`` (teacher
@@ -27,10 +31,12 @@ Phases, in order; any failure exits non-zero before the result line:
      80, 2.6e9-MAC student, KA, lsgan, pretrained-G transfer and D restore)
      over a seeded unaligned dataset of 256x256 PNGs, 8 steps, twice: (a)
      float32 with the host loader, (b) bfloat16 with the device-resident
-     bank.  The Gram kernel must launch 8 times per step (the FMA kernel in
-     (a), the TMA kernel in (b)) and is held against its plain version on
-     the run's own (80, F) taps; the checkpoints must exist and reload to
-     the in-memory student's output exactly.
+     bank.  The Gram kernel must launch 8 times per step (the f32 TMA + FMA
+     kernel in (a), the bf16 TMA kernel in (b)) and is held against its
+     plain version on the run's own (80, F) taps (in (a) also for
+     bit-identity and symmetry, and timed beside the old FMA kernel); the
+     checkpoints must exist and reload to the in-memory student's output
+     exactly.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -112,55 +118,71 @@ def gram_numbers(xs, flush, card, expect_path: str, compare_mma: bool = False):
     operand of ``xs`` (a teacher and a student tap), which must take kernel
     ``expect_path``, and time kernel, plain version, one-call PyTorch
     yardstick and bound; returns the totals of one step (four taps, so four
-    launches of each).  ``compare_mma`` (bf16): also check that two calls
-    are bit-identical, and hold and time the mma.sync kernel beside."""
+    launches of each).  float32: also check that two calls are bit-identical
+    and G == Gᵀ exactly, and hold and time the old FMA kernel beside
+    (``fma_ms``).  ``compare_mma`` (bf16): check bit-identity, and hold and
+    time the mma.sync kernel beside (``mma_sync_ms``).  The bound counts
+    the lower triangle's B(B+1)·F flops, the least a symmetric Gram needs
+    (``bound_full_square_ms``: the 2·B²·F counted before)."""
     import torch
 
     from cat_tpu_torch.distill import ka
 
+    old_key = "fma_ms" if expect_path == "f32tma" else "mma_sync_ms"
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
-           "bytes_ms": 0.0, "ops_ms": 0.0, "mma_sync_ms": 0.0}
+           "bytes_ms": 0.0, "ops_ms": 0.0, "bound_full_square_ms": 0.0, old_key: 0.0}
     for who, x in zip(("teacher", "student"), xs):
         b, f = x.shape
         dname = str(x.dtype).split(".")[-1]
+        f32 = x.dtype == torch.float32
         path = ka._gram_path(b, f, x.dtype, x.data_ptr() % 16 == 0)
         if path != expect_path:
             fail(f"gram {who}: the {dname} operand {tuple(x.shape)} took path {path!r}, "
                  f"expected {expect_path!r}")
-        ref = ka.gram_plain(x)
-        err = _check_gram(ka.gram_cuda(x), ref, f"{who} {dname} {path}")
-        mma_ms = None
-        if x.dtype == torch.bfloat16:
-            if compare_mma:
-                if not torch.equal(ka.gram_cuda(x), ka.gram_cuda(x)):
-                    fail(f"gram {who}: two calls of the TMA kernel differ")
-                mma_out = ka._gram_launch(x, "mma")
-                _check_gram(mma_out, ref, f"{who} {dname} mma")
-                # which of the three float32 results is nearest the exact Gram
-                r64 = x.double() @ x.double().T
-                e64 = {k: float((v.double() - r64).abs().max()) for k, v in
-                       (("kernel", ka.gram_cuda(x)), ("mma.sync", mma_out), ("plain", ref))}
-                del r64
-                log(f"gram {who} bf16: max |err| against float64: {e64}")
-                mma_ms = timed(lambda: ka._gram_launch(x, "mma"), flush=flush)
-            lib = timed(lambda: torch.mm(x, x.T, out_dtype=torch.float32), flush=flush)
-            lib_name = "torch.mm(x, x.T, out_dtype=float32)"
+        if f32:
+            def library():
+                return torch.matmul(x, x.T)
+            lib_name, old_path, old_name = "torch.matmul(x, x.T)", "f32", "FMA"
         else:
-            lib = timed(lambda: torch.matmul(x, x.T), flush=flush)
-            lib_name = "torch.matmul(x, x.T)"
+            def library():
+                return torch.mm(x, x.T, out_dtype=torch.float32)
+            lib_name, old_path, old_name = ("torch.mm(x, x.T, out_dtype=float32)", "mma",
+                                            "mma.sync")
+        ref = ka.gram_plain(x)
+        got = ka.gram_cuda(x)
+        err = _check_gram(got, ref, f"{who} {dname} {path}")
+        old_ms = None
+        if f32 or compare_mma:
+            if not torch.equal(got, ka.gram_cuda(x)):
+                fail(f"gram {who}: two calls of the {path} kernel differ")
+            if f32 and not torch.equal(got, got.T):
+                fail(f"gram {who}: the {path} kernel's result is not exactly symmetric")
+            old_out = ka._gram_launch(x, old_path)
+            _check_gram(old_out, ref, f"{who} {dname} {old_path}")
+            # which float32 result is nearest the exact Gram
+            r64 = x.double() @ x.double().T
+            e64 = {k: float((v.double() - r64).abs().max()) for k, v in
+                   (("kernel", got), (old_name, old_out), (lib_name, library()),
+                    ("plain", ref))}
+            del r64, old_out
+            log(f"gram {who} {dname}: max |err| against float64: {e64}")
+            old_ms = timed(lambda: ka._gram_launch(x, old_path), flush=flush)
+        lib = timed(library, flush=flush)
         ms = timed(lambda: ka.gram_cuda(x), flush=flush)
         plain = timed(lambda: ka.gram_plain(x), flush=flush)
         bytes_ms = 1e3 * (b * f * x.element_size() + b * b * 4) / HBM_BYTES_PER_S
-        ops_ms = 1e3 * 2 * b * b * f / PEAK_FLOPS[dname]
+        ops_ms = 1e3 * b * (b + 1) * f / PEAK_FLOPS[dname]
         bound = max(bytes_ms, ops_ms)
-        old = f", mma.sync kernel {mma_ms:.4f} ms" if mma_ms is not None else ""
+        full = max(bytes_ms, 1e3 * 2 * b * b * f / PEAK_FLOPS[dname])
+        old = f", {old_name} kernel {old_ms:.4f} ms" if old_ms is not None else ""
         log(f"gram {who:7s} {dname:8s} B={b} F={f}: kernel ({path}) {ms:.4f} ms "
             f"({100 * bound / ms:.1f}% of bound){old}, plain {plain:.4f} ms, {lib_name} "
-            f"{lib:.4f} ms, bound {bound:.4f} ms, max|err| {err:.3g} (tol "
+            f"{lib:.4f} ms, bound {bound:.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'ops'}; "
+            f"{full:.4f} ms with the full square counted), max|err| {err:.3g} (tol "
             f"{1e-5 * float(ref.abs().max()):.3g}) [{card}]")
         for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                      ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
-                     ("mma_sync_ms", mma_ms or 0.0)):
+                     ("bound_full_square_ms", full), (old_key, old_ms or 0.0)):
             tot[k] += 4 * v  # four taps per step
         tot["err"] = max(tot["err"], err)
     return tot
@@ -185,21 +207,24 @@ def check_kernels(dev, t_channels, s_channels, card):
     # --- Gram: one operand per launch; per tap a teacher and a student one.
     # bf16: the main path's kernel (TMA + wgmma), also called twice for
     # bit-reproducibility and timed beside the mma.sync kernel on the same
-    # operand.  f32: the FMA kernel.
+    # operand.  f32: the TMA + FMA kernel, checked the same way and for exact
+    # symmetry, and timed beside the old FMA kernel.
     bc = t_channels[-1], s_channels[-1]
     for dtype in (torch.bfloat16, torch.float32):
         xs = [torch.relu(torch.randn(BATCH, 64 * 64 * c, generator=gen, device=dev)).to(dtype)
               for c in bc]
         bf16 = dtype == torch.bfloat16
         out[("gram", str(dtype).split(".")[-1])] = gram_numbers(
-            xs, flush, card, "tma" if bf16 else "f32", compare_mma=bf16)
-    # the mma.sync kernel is also the main path's for bf16 operands TMA
-    # cannot map: F % 8 != 0
-    x = torch.relu(torch.randn(BATCH, 4096 * 3 + 4, generator=gen, device=dev)).to(torch.bfloat16)
-    if ka._gram_path(*x.shape, x.dtype, True) != "mma":
-        fail("gram: F % 8 != 0 did not select the mma.sync kernel")
-    err = _check_gram(ka.gram_cuda(x), ka.gram_plain(x), "bf16 mma F % 8 != 0")
-    log(f"gram mma.sync kernel on {tuple(x.shape)} bf16: max|err| {err:.3g}")
+            xs, flush, card, "tma" if bf16 else "f32tma", compare_mma=bf16)
+    # the old kernels stay the main path's for operands TMA cannot map: bf16
+    # with F % 8 != 0 (mma.sync), float32 with F % 4 != 0 (FMA)
+    for dtype, f, path in ((torch.bfloat16, 4096 * 3 + 4, "mma"),
+                           (torch.float32, 4096 * 3 + 2, "f32")):
+        x = torch.relu(torch.randn(BATCH, f, generator=gen, device=dev)).to(dtype)
+        if ka._gram_path(*x.shape, x.dtype, True) != path:
+            fail(f"gram: {dtype} with F = {f} did not select the {path!r} kernel")
+        err = _check_gram(ka.gram_cuda(x), ka.gram_plain(x), f"{dtype} {path} F = {f}")
+        log(f"gram {path} kernel on {tuple(x.shape)} {dtype}: max|err| {err:.3g}")
 
     # --- instance norm + affine + relu at stem / down0 / down1, both nets
     planes = [(c, SIZE >> j) for channels in (t_channels, s_channels)
@@ -549,7 +574,7 @@ def distill_verb(dev, card, teacher_cfg, teacher_sd):
             f"written in {time.perf_counter() - t0:.1f} s")
         results, kern = [], {}
         for label, extra, dtype, path in (
-                ("a", [], torch.float32, "f32"),
+                ("a", [], torch.float32, "f32tma"),
                 ("b", ["--compute_dtype", "bfloat16", "--on_device_data", "1"],
                  torch.bfloat16, "tma")):
             out, run, x = run_verb(root, label, extra, path, dev, card)
@@ -701,16 +726,24 @@ def main() -> None:
     per = f"one training step's launches at batch {BATCH}, bf16"
     rows = [
         {**row("gram", *gram_src, gram_launches, kern[("gram", "bfloat16")], per),
-         "mma_sync_ms": kern[("gram", "bfloat16")]["mma_sync_ms"]},
+         "mma_sync_ms": kern[("gram", "bfloat16")]["mma_sync_ms"],
+         "bound_full_square_ms": kern[("gram", "bfloat16")]["bound_full_square_ms"]},
         row("instance_norm_act", "cat_tpu_torch/csrc/instance_norm.cu",
             "cat_tpu/ops/pallas_norm.py:35", counts_f["instance_norm_act"],
             kern[("instance_norm_act", "bfloat16")], per),
     ]
     for v, dname in zip(verb, ("float32", "bfloat16")):
-        rows.append(row(f"gram (distill verb, {dname})", *gram_src, v["gram_launches"],
-                        verb_kern[v["label"]],
-                        f"one training step's launches at batch {VERB_BATCH}, {dname}, on "
-                        f"the run's own taps ({v['gram_path']} kernel)"))
+        k = verb_kern[v["label"]]
+        rows.append({**row(f"gram (distill verb, {dname})", *gram_src, v["gram_launches"], k,
+                           f"one training step's launches at batch {VERB_BATCH}, {dname}, on "
+                           f"the run's own taps ({v['gram_path']} kernel)"),
+                     **{key: k[key] for key in ("fma_ms", "bound_full_square_ms") if key in k}})
+    # the f32 kernel at phase 2's batch 128 (launches: its count in phase 6 (a))
+    f32 = kern[("gram", "float32")]
+    rows.append({**row("gram (float32, batch 128)", *gram_src, verb[0]["gram_launches"], f32,
+                       f"four taps' launches at batch {BATCH}, float32 (phase 2's operands; "
+                       f"launches are the f32tma kernel's in phase 6 (a))"),
+                 "fma_ms": f32["fma_ms"], "bound_full_square_ms": f32["bound_full_square_ms"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -93,6 +93,49 @@ def test_gram_mma_kernel_matches_plain(cuda, b, f):
     _assert_gram_close(got, x)
 
 
+def _f32_operand(cuda, b, f, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(b, f, generator=gen, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [64 * 64 * 58, 64 * 64 * 256, 4096 * 3 + 4,  # ragged last tile
+                               64 * 50])  # fewer tiles than SMs: some CTAs get none
+@pytest.mark.parametrize("b", [1, 8, 33, 80, 100, 128])
+def test_gram_f32_tma_kernel_matches_plain(cuda, b, f):
+    x = _f32_operand(cuda, b, f, seed=b * 7 + f)
+    before = tka.path_launches["f32tma"]
+    got = tka.gram_cuda(x)
+    torch.cuda.synchronize()
+    assert tka.path_launches["f32tma"] == before + 1
+    _assert_gram_close(got, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [80, 128])
+def test_gram_f32_tma_kernel_is_bit_reproducible_and_symmetric(cuda, b):
+    x = _f32_operand(cuda, b, 64 * 64 * 256, seed=b)
+    first = tka.gram_cuda(x)
+    second = tka.gram_cuda(x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, first.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, f", [(80, 4096 * 3 + 2), (128, 64 * 64 * 58)])
+def test_gram_f32_fma_kernel_matches_plain(cuda, b, f):
+    """The FMA kernel: the main path's for float32 operands TMA cannot map
+    (F % 4 != 0), and reached directly on a shape the TMA kernel takes (to
+    compare the two designs)."""
+    x = _f32_operand(cuda, b, f, seed=5)
+    before = tka.path_launches["f32"]
+    got = tka.gram_cuda(x) if f % 4 else tka._gram_launch(x, "f32")
+    torch.cuda.synchronize()
+    assert tka.path_launches["f32"] == before + 1
+    _assert_gram_close(got, x)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["relu", "leaky_relu"])

@@ -110,8 +110,13 @@ _BF16, _F32 = torch.bfloat16, torch.float32
     (1, 8, _BF16, True, "tma"),                 # smallest B and F TMA takes
     (128, 4096 * 3 + 4, _BF16, True, "mma"),    # row stride not a multiple of 16 bytes
     (33, 4096, _BF16, False, "mma"),            # base address not 16-byte aligned
-    (128, 4096, _F32, True, "f32"),
-    (129, 4096, _BF16, True, ValueError),       # B past 128
+    (128, 4096, _F32, True, "f32tma"),
+    (80, 64 * 64 * 256, _F32, True, "f32tma"),  # the recipe's teacher tap (batch 80)
+    (80, 64 * 64 * 58, _F32, True, "f32tma"),   # and its student tap
+    (80, 4096 * 3 + 2, _F32, True, "f32"),      # row stride not a multiple of 16 bytes
+    (80, 4096, _F32, False, "f32"),             # base address not 16-byte aligned
+    (129, 4096, _F32, True, ValueError),        # B past 128
+    (129, 4096, _BF16, True, ValueError),
     (0, 4096, _BF16, True, ValueError),
     (16, 4096, torch.float16, True, ValueError),
 ])
@@ -121,6 +126,22 @@ def test_gram_path_rules(b, f, dtype, aligned, path):
             tka._gram_path(b, f, dtype, aligned)
     else:
         assert tka._gram_path(b, f, dtype, aligned) == path
+
+
+@pytest.mark.parametrize("b, bp, groups, warps", [
+    (1, 8, 32, 1),      # one block, one warp
+    (33, 40, 32, 15),   # 15 blocks of 32 threads (128-column tiles)
+    (80, 80, 8, 14),    # the recipe's batch: 55 blocks, not 128 rows' 136
+    (100, 104, 4, 12),
+    (128, 128, 2, 9),   # 136 blocks
+])
+def test_f32_tma_plan(b, bp, groups, warps):
+    """Rows padded to a multiple of 8, and as many threads per block of the
+    triangle as 15 consumer warps allow (gram.cu checks the same limit)."""
+    got_bp, got_groups = tka._f32_tma_plan(b)
+    blocks = (bp // 8) * (bp // 8 + 1) // 2
+    assert (got_bp, got_groups) == (bp, groups)
+    assert -(-blocks * groups // 32) == warps
 
 
 def test_ka_backward_matches_autograd_of_formula(rng):

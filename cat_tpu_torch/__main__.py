@@ -1,11 +1,12 @@
-"""``python -m cat_tpu_torch distill <flags>``: the port's distill verb, with
-the flags of the JAX package's ``distill.py``.  It runs on CUDA."""
+"""``python -m cat_tpu_torch <verb> <flags>``: the port's verbs, with the
+flags of the JAX package's ``distill.py``, ``profile.py``,
+``get_real_stat.py`` and ``tools/kid_score.py``.  They run on CUDA."""
 
 from __future__ import annotations
 
 import sys
 
-_VERBS = ("distill",)
+_VERBS = ("distill", "profile", "get_real_stat", "kid_score")
 
 
 def main(argv=None) -> None:
@@ -14,7 +15,9 @@ def main(argv=None) -> None:
         sys.exit(f"usage: python -m cat_tpu_torch {{{','.join(_VERBS)}}} [flags]")
     from cat_tpu_torch import entry
 
-    entry.distill_main(argv[1:])
+    verb = {"distill": entry.distill_main, "profile": entry.profile_main,
+            "get_real_stat": entry.real_stat_main, "kid_score": entry.kid_score_main}
+    verb[argv[0]](argv[1:])
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
-"""Command-line interface of the port's distill verb (port of
-``cat_tpu/cli.py``): every flag of the JAX package's distill parser, with
-the same name, type, choices and default, so the reference recipes run as
-they are; and the configs built from them.
+"""Command-line interface of the port's verbs (port of ``cat_tpu/cli.py``):
+every flag of the JAX package's distill, profile, get_real_stat and KID
+parsers, with the same name, type, choices and default, so the reference
+recipes run as they are; and the configs and the judge built from them.
 
 Flags whose code path is not ported yet raise ``NotImplementedError``
 naming the ROADMAP.md item that brings it, when set away from their default
@@ -61,8 +61,9 @@ def base_arguments(parser: argparse.ArgumentParser):
     p.add_argument("--num_threads", type=int, default=4)
     p.add_argument("--data_backend", type=str, default="thread",
                    choices=["thread", "process", "native"],
-                   help="decode workers: Python thread pool or worker processes; 'native' "
-                        "(the JAX package's C++ image pipeline) is not ported yet")
+                   help="decode workers: Python thread pool, worker processes, or the C++ "
+                        "image pipeline (built with g++ on first use; threads where it "
+                        "cannot be built)")
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--load_size", type=int, default=286)
     p.add_argument("--crop_size", type=int, default=256)
@@ -236,6 +237,19 @@ def distill_arguments(parser: argparse.ArgumentParser):
     return p
 
 
+def test_arguments(parser: argparse.ArgumentParser):
+    """Evaluation-verb flags (reference options/test_options.py:13-117)."""
+    p = parser
+    p.add_argument("--results_dir", type=str, default=None,
+                   help="where the eval image dumps go (default: log_dir)")
+    p.add_argument("--num_test", type=int, default=-1,
+                   help="how many eval images to run (-1 = all)")
+    p.add_argument("--times", type=int, default=100,
+                   help="forward repetitions for the latency benchmark")
+    p.add_argument("--no_mIoU", action="store_true")
+    return p
+
+
 def distill_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     base_arguments(parser)
@@ -243,12 +257,43 @@ def distill_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def profile_parser() -> argparse.ArgumentParser:
+    """The profile verb's flags: distill's and the evaluation verb's."""
+    parser = distill_parser()
+    test_arguments(parser)
+    return parser
+
+
+def real_stat_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    base_arguments(parser)
+    parser.add_argument("--output_path", type=str, required=True)
+    parser.add_argument("--batch_size_stat", type=int, default=32)
+    return parser
+
+
+def kid_parser() -> argparse.ArgumentParser:
+    """The flags of the JAX package's ``tools/kid_score.py``."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--real", type=str, required=True)
+    parser.add_argument("--fake", type=str, required=True)
+    parser.add_argument("--inception_path", type=str, default="pt_inception-2015-12-05.pth")
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--n_subsets", type=int, default=100)
+    parser.add_argument("--subset_size", type=int, default=100)
+    parser.add_argument("--ret_var", action="store_true",
+                        help="also report the per-subset U-statistic variance estimate of "
+                             "MMD^2 (reference kid_score.py:205-283; never printed by the "
+                             "reference's shipped flows)")
+    return parser
+
+
 def check_ported(opt) -> None:
     """Raise for a flag whose code path is not ported yet, set away from
     its default, naming the ROADMAP.md item (queue 1) that brings it.  The
     other unported paths raise where they would run: the int8 teacher and
-    wgangp in the distiller, batch norm in ``Norm2d``, the native loader and
-    Cityscapes in the data path, the pixel D in ``discriminator_config``."""
+    wgangp in the distiller, batch norm in ``Norm2d``, Cityscapes in the data
+    path, the pixel D in ``discriminator_config``, mIoU in the entry."""
     for what, asked, item in (
         ("--distiller spade", opt.distiller == "spade", "15, SPADE family"),
         ("--n_devices != 1", opt.n_devices != 1, "16, Multi-GPU"),
@@ -349,6 +394,18 @@ def load_generator_checkpoint(path: str, norm: NormConfig):
     if cfg is None:
         raise FileNotFoundError(f"{path}: no .json config beside it")
     return cfg, generator_state_dict(ckpt.load_pytree(path)["params"], cfg)
+
+
+def make_fid_judge(opt, device):
+    """The InceptionV3 judge on ``device``, or None (with a warning) when its
+    weights are absent: training still runs, without FID."""
+    if opt.inception_path and os.path.exists(opt.inception_path):
+        from cat_tpu_torch.metrics.inception import load_inception
+
+        return load_inception(opt.inception_path, device=device)
+    print(f"WARNING: inception weights not found at {opt.inception_path!r}; "
+          "FID evaluation disabled.")
+    return None
 
 
 def trainer_config(opt):

@@ -1,6 +1,6 @@
 """Datasets: aligned (pix2pix AB pairs), unaligned (CycleGAN), single (eval)
 (port of ``cat_tpu/data/datasets.py``; the Cityscapes dataset comes with
-evaluation).
+the SPADE family).
 
 The same files, random draws (in the same order) and PIL calls as the JAX
 package, so the two give the same samples from the same folder and seed.
@@ -16,9 +16,11 @@ import random
 import re
 from typing import Dict, List, Optional
 
+import numpy as np
 from PIL import Image
 
 from cat_tpu_torch.data.loader import DataLoader
+from cat_tpu_torch.data.native import native_filter_for
 from cat_tpu_torch.data.transforms import (TransformSpec, apply_transform, chw, finish_transform,
                                            get_params, resize_image)
 
@@ -179,6 +181,39 @@ class UnalignedDataset:
     def __getitem__(self, index: int) -> Dict:
         return self.load(self.prepare(index))
 
+    def native_supported(self) -> bool:
+        """The C++ batch fetcher covers the training default: RGB
+        resize_and_crop with a bilinear or bicubic filter over JPEG and PNG
+        files.  Any other container makes the whole loader use PIL from the
+        start, not mid-epoch."""
+        s = self.spec
+        ok_files = all(p.lower().endswith((".jpg", ".jpeg", ".png"))
+                       for p in self.paths_A + self.paths_B)
+        return (ok_files and s.preprocess == "resize_and_crop" and not s.grayscale
+                and s.aspect_ratio == 1.0 and native_filter_for(s.method) is not None)
+
+    def native_batch(self, indices: List[int], pipe, nthreads: int) -> Dict:
+        """A collated batch through the C++ pipeline, as NCHW arrays.  The
+        path, crop and flip draws come from ``prepare``, in the order serial
+        iteration makes them, so the sample stream is the other backends';
+        the pixels are the JAX package's native backend's."""
+        spec = self.spec
+        paths: List[str] = []
+        cx, cy, fl = [], [], []
+        for index in indices:
+            path_a, path_b, prm_a, prm_b = self.prepare(index)
+            for p, prm in ((path_a, prm_a), (path_b, prm_b)):
+                paths.append(p)
+                cx.append(prm.crop_pos[0])
+                cy.append(prm.crop_pos[1])
+                fl.append(prm.flip)
+        out = pipe.fetch_batch(paths, spec.load_size, spec.crop_size, np.asarray(cx),
+                               np.asarray(cy), np.asarray(fl, np.uint8), nthreads=nthreads,
+                               filter=native_filter_for(spec.method))
+        return {"A": np.ascontiguousarray(out[0::2].transpose(0, 3, 1, 2)),
+                "B": np.ascontiguousarray(out[1::2].transpose(0, 3, 1, 2)),
+                "A_paths": paths[0::2], "B_paths": paths[1::2]}
+
 
 class SingleDataset:
     """One-directory loader for evaluation (reference data/single_dataset.py)."""
@@ -228,7 +263,7 @@ def create_dataloader(
         ds = SingleDataset(dataroot, phase, spec, max_size)
     else:
         raise NotImplementedError(f"dataset mode [{dataset_mode}] is not ported yet"
-                                  + (": ROADMAP.md queue 1, item 13, Evaluation"
+                                  + (": ROADMAP.md queue 1, item 15, SPADE family"
                                      if dataset_mode == "cityscapes" else ""))
     return DataLoader(ds, batch_size, shuffle=not serial_batches, seed=seed,
                       drop_last=drop_last, num_workers=num_workers, worker_mode=worker_mode)

@@ -28,8 +28,21 @@ _DECODE_THREADS = 4
 
 def stack_resized_uint8(paths: Sequence[str], load_size: int) -> np.ndarray:
     """Decode and bicubic-resize every image once on the host -> (N, S, S, 3)
-    uint8, with PIL over a thread pool."""
+    uint8: with the C++ pipeline (``data/native.py``) where it builds, as
+    the JAX package does, so the two banks hold the same pixels; else, or
+    for a container the pipeline cannot read, with PIL over a thread
+    pool."""
     from PIL import Image
+
+    from cat_tpu_torch.data.native import load_pipe, native_filter_for
+
+    pipe = load_pipe()
+    if pipe is not None:
+        try:
+            return pipe.fill_bank(paths, load_size, nthreads=_DECODE_THREADS,
+                                  filter=native_filter_for(Image.BICUBIC))
+        except IOError:
+            pass  # e.g. webp: PIL below
 
     def one(p):
         with Image.open(p) as img:

@@ -1,8 +1,9 @@
 """Batching loader with parallel decode, and the copy of batches to the
 device one step ahead (port of ``cat_tpu/data/loader.py``).
 
-Decoding runs in a thread pool (PIL releases the GIL while it decodes) or in
-worker processes; samples are stacked into contiguous NCHW float32 tensors.
+Decoding runs in a thread pool (PIL releases the GIL while it decodes), in
+worker processes, or in the C++ image pipeline; samples are stacked into
+contiguous NCHW float32 tensors.
 Every random draw is made serially in the consumer (the datasets'
 ``prepare``), so the sample stream is the same for every backend and worker
 count, and the same as the JAX package's from the same folder and seed.
@@ -70,13 +71,12 @@ class DataLoader:
             in flight;
           * ``"process"``: ``num_workers`` worker processes (started with
             ``spawn`` at the first iteration, kept until ``close``), one
-            batch per task.
-        The C++ image pipeline of the JAX package (``"native"``) is not
-        ported yet."""
-        if worker_mode == "native":
-            raise NotImplementedError("--data_backend native is not ported yet: "
-                                      "ROADMAP.md queue 1, item 18, Extras")
-        if worker_mode not in ("thread", "process"):
+            batch per task;
+          * ``"native"``: whole batches through the C++ image pipeline
+            (``data/native.py``) on ``num_workers`` C++ threads, two batches
+            in flight; the thread backend where the pipeline or the
+            dataset's spec is unsupported."""
+        if worker_mode not in ("thread", "process", "native"):
             raise ValueError(f"unknown worker_mode {worker_mode!r}")
         self.dataset = dataset
         self.batch_size = batch_size
@@ -115,6 +115,11 @@ class DataLoader:
         if self.worker_mode == "process":
             yield from self._iter_processes(batches)
             return
+        if self.worker_mode == "native":
+            it = self._iter_native(batches)
+            if it is not None:
+                yield from it
+                return
 
         # per-sample decode fanned out over the pool, _PREFETCH batches in
         # flight; the random draws happen here, serially
@@ -136,6 +141,37 @@ class DataLoader:
                 yield collate([f.result() for f in ready])
             while window:
                 yield collate([f.result() for f in window.popleft()])
+
+    def _iter_native(self, batches: List[List[int]]) -> Optional[Iterator[Dict[str, Any]]]:
+        """Batches through the C++ image pipeline: one submission thread
+        keeps the random draws in serial order, and the ctypes call releases
+        the GIL while the C++ threads decode, so ``_PREFETCH`` batches
+        overlap the step.  None (the caller uses the thread backend) when
+        the dataset has no native path, its spec or files are unsupported,
+        or the pipeline did not build."""
+        from cat_tpu_torch.data import native
+
+        fetch = getattr(self.dataset, "native_batch", None)
+        supported = getattr(self.dataset, "native_supported", None)
+        if fetch is None or supported is None or not supported():
+            return None
+        pipe = native.load_pipe()
+        if pipe is None:
+            return None
+
+        def gen():
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                window: collections.deque = collections.deque()
+                for b in batches[:_PREFETCH]:
+                    window.append(pool.submit(fetch, b, pipe, self.num_workers))
+                for b in batches[_PREFETCH:]:
+                    ready = window.popleft()
+                    window.append(pool.submit(fetch, b, pipe, self.num_workers))
+                    yield ready.result()
+                while window:
+                    yield window.popleft().result()
+
+        return gen()
 
     def _iter_processes(self, batches: List[List[int]]) -> Iterator[Dict[str, Any]]:
         """Batches decoded by worker processes; ``num_workers + 2`` batches

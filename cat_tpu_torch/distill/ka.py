@@ -11,7 +11,9 @@ for a CUDA tensor and the plain twin ``gram_plain`` for a CPU tensor.
 ``_gram_path`` picks the kernel: TMA + wgmma for bf16 operands that meet
 TMA's rules, mma.sync for other bf16 shapes; for float32, a TMA ring feeding
 CUDA-core FMAs on the lower triangle, and the plain FMA kernel for operands
-TMA cannot map.
+TMA cannot map.  The kernels take at most 128 rows; a larger batch is cut
+into blocks of 64 rows and its Gram assembled from one launch per pair of
+blocks (``gram_blocked``).
 The backward needs only the saved Grams plus one more read of X or Y:
 dKA/dX = 2 (G_Y - (s/n_x) G_X) X / sqrt(n_x n_y), a (B x B)(B x F) product
 left to ``torch.matmul`` in float32, as the JAX package leaves it to XLA.
@@ -31,6 +33,7 @@ import torch
 from cat_tpu_torch.utils import cuda_build
 
 _MAX_BATCH = 128
+_BLOCK_ROWS = 64  # rows of a block of gram_blocked: two blocks fill one launch
 _CTAS_PER_SM = 4
 _F32_TMA_CONSUMERS = 480  # consumer threads in a CTA of the f32 TMA kernel (gram.cu)
 
@@ -74,12 +77,15 @@ def _gram_path(b: int, f: int, dtype: torch.dtype, aligned: bool) -> str:
     so f % 8 == 0, and the base address 16-byte aligned), "mma" (cp.async +
     mma.sync) for other bf16 operands; "f32tma" (TMA ring + FMAs on the
     lower triangle) for float32 when TMA can map it (f % 4 == 0, aligned),
-    "f32" (synchronous staging + FMAs) for other float32 operands.  Raises
-    on what no kernel takes."""
+    "f32" (synchronous staging + FMAs) for other float32 operands; and
+    "blocked" (``gram_blocked`` over those kernels) for b > 128.  Raises on
+    what no kernel takes."""
     if dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"gram_cuda takes bf16 or f32, got {dtype}")
-    if not 1 <= b <= _MAX_BATCH or f < 1:
-        raise ValueError(f"gram_cuda takes 1 <= B <= {_MAX_BATCH} and F >= 1, got {(b, f)}")
+    if b < 1 or f < 1:
+        raise ValueError(f"gram_cuda takes B >= 1 and F >= 1, got {(b, f)}")
+    if b > _MAX_BATCH:
+        return "blocked"
     if dtype == torch.float32:
         return "f32tma" if f % 4 == 0 and aligned else "f32"
     return "tma" if f % 8 == 0 and aligned else "mma"
@@ -102,7 +108,38 @@ def gram_cuda(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gram_cuda needs a CUDA tensor, got {x.device}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("gram_cuda needs a contiguous (B, F) tensor")
-    return _gram_launch(x, _gram_path(*x.shape, x.dtype, x.data_ptr() % 16 == 0))
+    path = _gram_path(*x.shape, x.dtype, x.data_ptr() % 16 == 0)
+    if path == "blocked":
+        return gram_blocked(x, gram_cuda)
+    return _gram_launch(x, path)
+
+
+def gram_blocked(x: torch.Tensor, gram_fn) -> torch.Tensor:
+    """X·Xᵀ of a (B, F) operand with B > 128 from ``gram_fn`` on operands of
+    at most 128 rows: the rows are cut into n = ⌈B/64⌉ blocks, and for each
+    pair i < j, ``gram_fn([X_i; X_j])`` gives G_ij (its off-diagonal block,
+    also written transposed as G_ji, so G == Gᵀ exactly) and, for a block
+    not yet placed, G_ii (the first pair that holds block i, so calls are
+    reproducible; its lower triangle mirrored).  n(n-1)/2 calls, each on a
+    fresh contiguous copy of the two blocks."""
+    b = x.shape[0]
+    blocks = x.split(_BLOCK_ROWS)
+    starts = [i * _BLOCK_ROWS for i in range(len(blocks))]
+    g = torch.empty((b, b), dtype=torch.float32, device=x.device)
+    placed = set()
+    for i in range(len(blocks)):
+        for j in range(i + 1, len(blocks)):
+            bi, bj = blocks[i].shape[0], blocks[j].shape[0]
+            si, sj = starts[i], starts[j]
+            gij = gram_fn(torch.cat([blocks[i], blocks[j]]))
+            off = gij[:bi, bi:]
+            g[si:si + bi, sj:sj + bj] = off
+            g[sj:sj + bj, si:si + bi] = off.T
+            for k, s, n, d in ((i, si, bi, gij[:bi, :bi]), (j, sj, bj, gij[bi:, bi:])):
+                if k not in placed:
+                    g[s:s + n, s:s + n] = d.tril() + d.tril(-1).T
+                    placed.add(k)
+    return g
 
 
 def _gram_launch(x: torch.Tensor, path: str) -> torch.Tensor:

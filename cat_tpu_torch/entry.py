@@ -1,16 +1,22 @@
-"""The distill verb end to end (port of the inception half of
-``cat_tpu/entry.py``'s distill verb).
+"""The verbs end to end (port of the inception half of ``cat_tpu/entry.py``:
+distill, profile and get_real_stat; and of ``tools/kid_score.py``).
 
 ``distill_main`` parses the JAX package's distill flags, builds the loader,
 restores the teacher, shrinks it to the student architecture
 (``--target_flops``), carries a pretrained generator's weights into the
 student (``--restore_pretrained_G_path``), restores D, the adaptors and the
-full train state where asked, and hands a step, save and copy function to
-the ``Trainer``.  It runs on CUDA unless the caller passes ``device="cpu"``.
+full train state where asked, and hands a step, save, copy and evaluate
+function to the ``Trainer``.  With the judge's weights (``--inception_path``)
+and the real statistics (``--real_stat_path``) present, it evaluates FID at
+the trainer's cadence and tags the best checkpoints; without them it warns
+and trains without FID, as the JAX package does.  mIoU (Cityscapes, BtoA)
+is not ported yet (ROADMAP.md queue 1, item 13b) and raises.
 
-Evaluation (FID, mIoU) is not ported yet (ROADMAP.md queue 1, item 13): as
-the JAX package does when the judge files are absent, the verb warns and
-trains without it; it raises when they are present.
+``profile_main`` times the shrink, counts the student's MACs and parameters,
+times its forward at batch 1 and sweeps the val set with every image
+dumped; ``real_stat_main`` writes the judge's statistics of a folder;
+``kid_score_main`` scores two folders.  Every verb runs on CUDA unless the
+caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -20,9 +26,10 @@ import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from cat_tpu_torch import cli, resolve_device
+from cat_tpu_torch import cli, import_stdlib_profile, resolve_device
 from cat_tpu_torch.compress.profiling import profile_generator
 from cat_tpu_torch.compress.shrink import PruneBounds, shrink_generator
 from cat_tpu_torch.core.config import config_to_json
@@ -73,21 +80,29 @@ def _maybe_restore_state(opt, state, dist):
     return state
 
 
-def _check_no_evaluation(opt) -> None:
-    """Evaluation is not ported yet: warn and train without it when its
-    files are absent, as the JAX package does; raise when they exist."""
-    have_judge = bool(opt.inception_path) and os.path.exists(opt.inception_path)
-    have_stats = bool(opt.real_stat_path) and os.path.exists(opt.real_stat_path)
-    miou = ("cityscapes" in opt.dataroot and opt.direction == "BtoA" and bool(opt.drn_path)
-            and os.path.exists(opt.drn_path) and os.path.exists(opt.table_path))
-    if (have_judge and have_stats) or miou:
-        raise NotImplementedError("evaluation (FID / mIoU) is not ported yet: ROADMAP.md "
-                                  "queue 1, item 13, Evaluation")
-    if not have_judge:
-        print(f"WARNING: inception weights not found at {opt.inception_path!r}; "
-              "FID evaluation disabled.")
-    if opt.real_stat_path and not have_stats:
-        print(f"WARNING: real stats not found at {opt.real_stat_path!r}; FID disabled.")
+def _check_no_miou(opt) -> None:
+    """mIoU is not ported yet.  The JAX package judges generated Cityscapes
+    photos (dataroot naming cityscapes, direction BtoA) when the DRN weights
+    and the table file exist: raise there; warn, as it does, when they are
+    absent."""
+    if "cityscapes" not in opt.dataroot or opt.direction != "BtoA":
+        return
+    if not (opt.drn_path and os.path.exists(opt.drn_path)):
+        print(f"WARNING: DRN weights not found at {opt.drn_path!r}; mIoU disabled.")
+    elif not os.path.exists(opt.table_path):
+        print(f"WARNING: table file not found at {opt.table_path!r}; mIoU disabled.")
+    else:
+        raise NotImplementedError("mIoU evaluation is not ported yet: ROADMAP.md queue 1, "
+                                  "item 13b, mIoU")
+
+
+def _real_stats(path: Optional[str]) -> Optional[Dict[str, np.ndarray]]:
+    if path and os.path.exists(path):
+        npz = np.load(path)
+        return {"mu": npz["mu"], "sigma": npz["sigma"]}
+    if path:
+        print(f"WARNING: real stats not found at {path!r}; FID disabled.")
+    return None
 
 
 def _make_train_loader(opt, spec, device: torch.device):
@@ -186,11 +201,15 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
     from cat_tpu_torch.compress.transfer import transfer_generator_state_dict
     from cat_tpu_torch.distill.inception_distiller import DistillHParams, InceptionDistiller
 
+    from cat_tpu_torch.data.datasets import create_eval_dataloader
+    from cat_tpu_torch.train.evaluation import FIDEvaluator, combine_evaluators
+
     device = resolve_device(device)
     cli.set_seed(opt.seed)
-    _check_no_evaluation(opt)
+    _check_no_miou(opt)
+    spec = cli.transform_spec(opt)
     if loader is None:
-        loader = _make_train_loader(opt, cli.transform_spec(opt), device)
+        loader = _make_train_loader(opt, spec, device)
     logger = Logger(opt.log_dir, opt.tensorboard_dir)
     save_dir = os.path.join(opt.log_dir, "checkpoints")
 
@@ -268,6 +287,21 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
         logger.print_info("prune_only: student architecture emitted; exiting.")
         return DistillRun(None, state, dist, teacher_params, student_cfg, loader, logger)
 
+    # FID of the student's eval weights over the val set, at the trainer's
+    # cadence; the evaluator reads the newest state from the box
+    judge = cli.make_fid_judge(opt, device)
+    stats = _real_stats(opt.real_stat_path)
+    state_box = [state]
+    evaluate_fn = None
+    if judge is not None and stats is not None:
+        eval_loader = create_eval_dataloader(opt.dataset_mode, opt.dataroot,
+                                             opt.eval_batch_size, spec, opt.direction)
+        evaluate_fn = combine_evaluators(**{"": FIDEvaluator(
+            lambda x: dist.generate_student(state_box[0], x), eval_loader, judge, stats,
+            opt.log_dir, opt.eval_batch_size,
+            teacher_generate=lambda x: dist.generate_teacher(teacher_params, x),
+            device=device)})
+
     def save_fn(state, tag):
         # net_G holds what evaluation and deployment use: the EMA weights
         # with --moving_average_decay (the raw weights then go to net_G_raw),
@@ -288,9 +322,11 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
             ckpt.remove_stale(save_dir, tag, "state.pth")
 
     def step_fn(state, batch, lr):
-        return dist.train_step(state, teacher_params, batch, lr)
+        state, metrics = dist.train_step(state, teacher_params, batch, lr)
+        state_box[0] = state
+        return state, metrics
 
-    trainer = Trainer(step_fn, loader, cli.trainer_config(opt), None, save_fn, logger,
+    trainer = Trainer(step_fn, loader, cli.trainer_config(opt), evaluate_fn, save_fn, logger,
                       device=device, copy_tag_fn=lambda s, d: ckpt.copy_tag(save_dir, s, d))
     return DistillRun(trainer, state, dist, teacher_params, student_cfg, loader, logger)
 
@@ -311,3 +347,223 @@ def distill_main(argv: Optional[List[str]] = None, device=None) -> DistillRun:
     finally:
         run.close()
     return run
+
+
+# ---------------------------------------------------------------------------
+# profile verb (reference profiler.py:38-164)
+# ---------------------------------------------------------------------------
+
+
+def _generator_fn(cfg, state_dict, opt, device):
+    """A frozen generator on ``device`` as a function of NCHW batches."""
+    from cat_tpu_torch.models.generator import InceptionGenerator
+
+    net = InceptionGenerator(cfg, packed_blocks=_packed(opt, True))
+    net.load_state_dict(state_dict)
+    net = net.requires_grad_(False).to(device).eval()
+
+    @torch.no_grad()
+    def generate(x):
+        return net(x)
+
+    return net, generate
+
+
+def counted_flops(net, x: torch.Tensor) -> int:
+    """FLOPs of ``net(x)`` as ``torch.utils.flop_counter`` counts them (2 per
+    multiply-add of the convolutions): the port's cross-check of the
+    analytic MACs, where the JAX package asks XLA's cost analysis."""
+    import_stdlib_profile()  # the flop counter reaches TorchDynamo
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter, torch.no_grad():
+        net(x)
+    return int(counter.get_total_flops())
+
+
+def _profile_eval_sweep(opt, logger, device, gen_s, gen_t) -> Dict[str, float]:
+    """The profile verb's final evaluation (reference profiler.py:154-164,
+    ``evaluate(0, 0, save_image=True)``): sweep the val set, dump every
+    input/Sfake/Tfake image to <results_dir>/eval/latest/ (the KID tool's
+    input), and report FID."""
+    from cat_tpu_torch.data.datasets import create_eval_dataloader
+    from cat_tpu_torch.train.evaluation import FIDEvaluator
+
+    judge = cli.make_fid_judge(opt, device) if not opt.no_fid else None
+    stats = _real_stats(opt.real_stat_path)
+    eval_loader = create_eval_dataloader(opt.dataset_mode, opt.dataroot, opt.eval_batch_size,
+                                         cli.transform_spec(opt), opt.direction,
+                                         max_size=opt.num_test)
+    results_dir = opt.results_dir or opt.log_dir
+    ev = FIDEvaluator(gen_s, eval_loader, judge, stats, results_dir, opt.eval_batch_size,
+                      dump_images=10 ** 9, teacher_generate=gen_t, device=device)
+    metrics, _ = ev("latest")
+    dump_dir = os.path.join(results_dir, "eval", "latest")
+    logger.print_info("evaluation: "
+                      + (", ".join(f"{k}: {v:.4f}" for k, v in metrics.items()) or "(no judges)")
+                      + f"; images dumped to {dump_dir}")
+    return metrics
+
+
+def profile_distill(opt, device=None) -> Dict[str, Any]:
+    """Shrink latency, MACs and parameters with a FLOP-counter cross-check,
+    the student's forward latency at batch 1, and the full evaluation sweep
+    (reference profiler.py:38-164)."""
+    device = resolve_device(device)
+    if not opt.no_mIoU:
+        _check_no_miou(opt)
+    logger = Logger(opt.log_dir)
+    try:
+        teacher_norm = cli.norm_config(opt, opt.norm_affine)
+        teacher_cfg, teacher_sd = cli.load_generator_checkpoint(opt.restore_teacher_G_path,
+                                                                teacher_norm)
+        bounds = PruneBounds(
+            cin_lb=max(opt.prune_cin_lb, 1),
+            cin_ub=opt.prune_cin_ub if opt.prune_cin_ub > 0 else None,
+            ft_cin_lb=max(opt.prune_ft_cin_lb, 1),
+        )
+
+        # 5 warm-up and 10 timed shrinks (reference profiler.py:139-149)
+        for _ in range(5):
+            shrink_generator(teacher_cfg, teacher_sd, opt.target_flops, opt.crop_size,
+                             opt.crop_size, bounds)
+        times = []
+        for _ in range(10):
+            t0 = time.time()
+            res = shrink_generator(teacher_cfg, teacher_sd, opt.target_flops, opt.crop_size,
+                                   opt.crop_size, bounds)
+            times.append(time.time() - t0)
+        prune_mean = sum(times) / len(times)
+        logger.print_info(f"mean pruning time over 10 runs: {prune_mean * 1e3:.3f} ms")
+
+        # the student: a shipped checkpoint if given, else the shrink's result
+        if opt.pretrained_student_G_path:
+            student_cfg, student_sd = cli.load_generator_checkpoint(
+                opt.pretrained_student_G_path, teacher_norm)
+        else:
+            student_cfg, student_sd = res.config, res.state_dict
+
+        prof = profile_generator(student_cfg, opt.crop_size, opt.crop_size)
+        logger.print_info(f"student MACs: {prof.macs:,}; params: {prof.params:,} "
+                          f"(analytic, reference model_profiling formulas)")
+        student, gen_s = _generator_fn(student_cfg, student_sd, opt, device)
+        x = torch.zeros((1, student_cfg.input_nc, opt.crop_size, opt.crop_size), device=device)
+        flops = counted_flops(student, x)
+        logger.print_info(f"torch FLOP counter: {flops:,} flops (~{flops // 2:,} MACs) vs "
+                          f"analytic {prof.macs:,} MACs")
+
+        # forward latency (reference TestOptions --times, test_options.py:108-111)
+        gen_s(x)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        reps = max(opt.times, 1)
+        t0 = time.time()
+        for _ in range(reps):
+            gen_s(x)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        latency_ms = (time.time() - t0) / reps * 1e3
+        logger.print_info(f"student forward latency: {latency_ms:.3f} ms/image "
+                          f"(batch 1, {reps} reps)")
+
+        _, gen_t = _generator_fn(teacher_cfg, teacher_sd, opt, device)
+        metrics = _profile_eval_sweep(opt, logger, device, gen_s, gen_t)
+    finally:
+        logger.close()
+    return {
+        "latency_ms": latency_ms,
+        "pruning_seconds_mean": prune_mean,
+        "student_macs": prof.macs,
+        "student_params": prof.params,
+        "counted_flops": flops,
+        "student_config": student_cfg,
+        "student_state_dict": student_sd,
+        "teacher_cfg": teacher_cfg,
+        "metrics": metrics,
+    }
+
+
+def profile_main(argv: Optional[List[str]] = None, device=None) -> Dict[str, Any]:
+    """``python -m cat_tpu_torch profile <flags>``: the JAX package's
+    profile flags (distill's and the evaluation verb's)."""
+    parser = cli.profile_parser()
+    opt = parser.parse_args(argv)
+    cli.check_ported(opt)
+    device = resolve_device(device)
+    cli.print_options(opt, parser)
+    return profile_distill(opt, device)
+
+
+# ---------------------------------------------------------------------------
+# get_real_stat and KID
+# ---------------------------------------------------------------------------
+
+
+def real_stat_main(argv: Optional[List[str]] = None, device=None) -> Dict[str, np.ndarray]:
+    """``python -m cat_tpu_torch get_real_stat <flags>``: cache the judge's
+    {mu, sigma} of a real-image set (reference get_real_stat.py:24-48)."""
+    from cat_tpu_torch.data.datasets import create_dataloader
+    from cat_tpu_torch.metrics.fid import compute_real_stats
+
+    opt = cli.real_stat_parser().parse_args(argv)
+    device = resolve_device(device)
+    judge = cli.make_fid_judge(opt, device)
+    if judge is None:
+        raise SystemExit("inception weights are required for real stats")
+    loader = create_dataloader("single", opt.dataroot, opt.batch_size_stat,
+                               cli.transform_spec(opt), phase=opt.phase, serial_batches=True,
+                               drop_last=False)
+    images = torch.cat([b["A"] for b in loader]).numpy()
+    stats = compute_real_stats(images, judge, opt.batch_size_stat)
+    os.makedirs(os.path.dirname(opt.output_path) or ".", exist_ok=True)
+    np.savez(opt.output_path, mu=stats["mu"], sigma=stats["sigma"])
+    print(f"saved real statistics ({images.shape[0]} images) to {opt.output_path}")
+    return stats
+
+
+def _load_dir(path: str, size=None) -> np.ndarray:
+    """Every image of a folder as uint8 NCHW, bicubic-resized to ``size``
+    (w, h) when given."""
+    from PIL import Image
+
+    from cat_tpu_torch.data.datasets import make_dataset
+
+    ims = []
+    for p in make_dataset(path):
+        with Image.open(p) as img:
+            img = img.convert("RGB")
+            if size:
+                img = img.resize(size, Image.BICUBIC)
+            ims.append(np.asarray(img, dtype=np.uint8).transpose(2, 0, 1))
+    if not ims:
+        raise SystemExit(f"no images found in {path!r}")
+    return np.stack(ims)
+
+
+def kid_score_main(argv: Optional[List[str]] = None, device=None):
+    """``python -m cat_tpu_torch kid_score --real <dir> --fake <dir>``: KID
+    between two folders, mean +/- std over random subsets (the JAX
+    package's ``tools/kid_score.py``); the fakes are resized to the reals'
+    size.  Returns (mean, std), or (mean, std, variance estimates) with
+    --ret_var."""
+    from cat_tpu_torch.metrics.fid import get_activations
+    from cat_tpu_torch.metrics.inception import load_inception
+    from cat_tpu_torch.metrics.kid import kid_score
+
+    args = cli.kid_parser().parse_args(argv)
+    device = resolve_device(device)
+    model = load_inception(args.inception_path, device=device)
+    real = _load_dir(args.real)
+    fake = _load_dir(args.fake, size=(real.shape[3], real.shape[2]))
+    act_r = get_activations(real, model, args.batch_size)
+    act_f = get_activations(fake, model, args.batch_size)
+    if args.ret_var:
+        mean, std, var_ests = kid_score(act_f, act_r, args.n_subsets, args.subset_size,
+                                        ret_var=True)
+        print(f"KID: {mean:.6f} +/- {std:.6f} (U-stat var estimate: {var_ests.mean():.6g}, "
+              f"+/-sqrt: {np.sqrt(max(var_ests.mean(), 0.0)):.6f})")
+        return mean, std, var_ests
+    mean, std = kid_score(act_f, act_r, args.n_subsets, args.subset_size)
+    print(f"KID: {mean:.6f} +/- {std:.6f}")
+    return mean, std

@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero before the result line:
      mma.sync kernel, both at the step's shapes and the latter also at an
      F % 8 != 0 shape.  The f32 Gram: the TMA + FMA kernel (bit-identity
      and exact symmetry checked) and the old FMA kernel, both at the step's
-     shapes and the latter also at an F % 4 != 0 shape;
+     shapes and the latter also at an F % 4 != 0 shape.  Both dtypes at
+     B = 256 on the teacher tap's F (the blocked dispatch: 6 launches on
+     pairs of 64-row blocks), checked for G == Gᵀ and timed;
   3. reference: one float32 KA-distillation step at a tiny size on the card
      (kernels) and on the CPU (plain versions), losses compared;
   4. flagship: the horse2zebra KA-distillation step of ``bench.py`` (teacher
@@ -29,14 +31,28 @@ Phases, in order; any failure exits non-zero before the result line:
   6. distill verb: ``entry.distill_main`` with the flags of
      ``scripts/cycle_gan/horse2zebra/train_inception_student_2p6B.sh`` (batch
      80, 2.6e9-MAC student, KA, lsgan, pretrained-G transfer and D restore)
-     over a seeded unaligned dataset of 256x256 PNGs, 8 steps, twice: (a)
-     float32 with the host loader, (b) bfloat16 with the device-resident
-     bank.  The Gram kernel must launch 8 times per step (the f32 TMA + FMA
-     kernel in (a), the bf16 TMA kernel in (b)) and is held against its
-     plain version on the run's own (80, F) taps (in (a) also for
-     bit-identity and symmetry, and timed beside the old FMA kernel); the
-     checkpoints must exist and reload to the in-memory student's output
-     exactly.
+     over a seeded unaligned dataset of 256x256 PNGs (160 per training side,
+     120 in valA and 140 in valB, horse2zebra's test split), 8 steps, three
+     times: (a) float32 with the host loader, (b) bfloat16 with the
+     device-resident bank, (c) float32 with ``--data_backend native`` (the
+     C++ image pipeline), timed for its loader wait beside (a).  The Gram
+     kernel must launch 8 times per step (the f32 TMA + FMA kernel in (a) and
+     (c), the bf16 TMA kernel in (b)) and is held against its plain version
+     on the run's own (80, F) taps (in (a) also for bit-identity and
+     symmetry, and timed beside the old FMA kernel); the checkpoints must
+     exist and reload to the in-memory student's output exactly.  A line
+     says whether the C++ pipeline built; when it did, (b)'s bank (filled by
+     it) is held against PIL's resize within the JAX package's bounds (max
+     3/255, mean under 1);
+  7. evaluation: a seeded random judge; ``real_stat_main`` over valB; a
+     2-step bf16 distill run with the bank, ``--inception_path`` and
+     ``--real_stat_path``, which must log ``metric/fid`` and save ``best``;
+     ``profile_main`` on its best student (every val image dumped) and
+     ``kid_score_main`` on that dump; the judge's pool3 features on the card
+     against the CPU's for 4 images.  Prints the statistics' images/s, the
+     evaluations' seconds split into generator sweep, judge and Fréchet
+     distance on the host, and the profile's prune time, latency and peak
+     memory.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -47,8 +63,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 BATCH = 128  # bench.py's batch
@@ -59,6 +77,9 @@ LR = 2e-4
 VERB_BATCH = 80  # the student recipe's batch
 VERB_IMAGES = 160  # per side: 2 steps per epoch
 VERB_EPOCHS = 4
+VAL_IMAGES = {"valA": 120, "valB": 140}  # horse2zebra's test split
+BLOCKED_BATCH = 256  # a batch past the kernels' 128 rows
+TEACHER_F = 64 * 64 * 256  # the teacher tap's features at 256 px
 SLEEP_CYCLES = 4_000_000  # ~2 ms at 1.98 GHz: the host enqueues timed work meanwhile
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 FMA
@@ -188,6 +209,49 @@ def gram_numbers(xs, flush, card, expect_path: str, compare_mma: bool = False):
     return tot
 
 
+def gram_blocked_numbers(x, flush, card):
+    """The Gram of a (256, F) operand through the blocked dispatch: its
+    launches (one per pair of 64-row blocks), exact symmetry, the plain
+    version's result, and kernel, plain, library and bound times per call."""
+    import torch
+
+    from cat_tpu_torch.distill import ka
+
+    b, f = x.shape
+    dname = str(x.dtype).split(".")[-1]
+    if ka._gram_path(b, f, x.dtype, x.data_ptr() % 16 == 0) != "blocked":
+        fail(f"gram {dname} B = {b}: the blocked dispatch was not selected")
+    n = -(-b // 64)
+    before = ka.launches
+    got = ka.gram_cuda(x)
+    torch.cuda.synchronize()
+    launches = ka.launches - before
+    if launches != n * (n - 1) // 2:
+        fail(f"gram {dname} B = {b}: {launches} launches, expected {n * (n - 1) // 2}")
+    if not torch.equal(got, got.T):
+        fail(f"gram {dname} B = {b}: the blocked result is not exactly symmetric")
+    err = _check_gram(got, ka.gram_plain(x), f"{dname} blocked B = {b}")
+    del got
+    if x.dtype == torch.float32:
+        lib_name, library = "torch.matmul(x, x.T)", lambda: torch.matmul(x, x.T)
+    else:
+        lib_name = "torch.mm(x, x.T, out_dtype=float32)"
+        library = lambda: torch.mm(x, x.T, out_dtype=torch.float32)  # noqa: E731
+    ms = timed(lambda: ka.gram_cuda(x), flush=flush, iters=5)
+    plain = timed(lambda: ka.gram_plain(x), flush=flush, iters=5)
+    lib = timed(library, flush=flush, iters=5)
+    bytes_ms = 1e3 * (b * f * x.element_size() + b * b * 4) / HBM_BYTES_PER_S
+    ops_ms = 1e3 * b * (b + 1) * f / PEAK_FLOPS[dname]
+    bound = max(bytes_ms, ops_ms)
+    log(f"gram blocked {dname:8s} B={b} F={f}: {launches} launches, kernels {ms:.4f} ms "
+        f"({100 * bound / ms:.1f}% of bound), plain {plain:.4f} ms, {lib_name} {lib:.4f} ms, "
+        f"bound {bound:.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'ops'}), max|err| "
+        f"{err:.3g}, G == Gᵀ exactly [{card}]")
+    return {"launches_per_call": launches, "ms": ms, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": err}
+
+
 def check_kernels(dev, t_channels, s_channels, card):
     """Each kernel against its plain version in bf16 and f32 at the step's
     shapes; returns the per-step numbers of each kernel at the main path's
@@ -225,6 +289,11 @@ def check_kernels(dev, t_channels, s_channels, card):
             fail(f"gram: {dtype} with F = {f} did not select the {path!r} kernel")
         err = _check_gram(ka.gram_cuda(x), ka.gram_plain(x), f"{dtype} {path} F = {f}")
         log(f"gram {path} kernel on {tuple(x.shape)} {dtype}: max|err| {err:.3g}")
+    # a batch past the kernels' 128 rows, on the teacher tap's F
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(BLOCKED_BATCH, TEACHER_F, generator=gen, device=dev).relu_().to(dtype)
+        out[("gram_blocked", str(dtype).split(".")[-1])] = gram_blocked_numbers(x, flush, card)
+        del x
 
     # --- instance norm + affine + relu at stem / down0 / down1, both nets
     planes = [(c, SIZE >> j) for channels in (t_channels, s_channels)
@@ -386,16 +455,22 @@ def run_steps(dev, teacher_cfg, teacher_sd, student_cfg, fused, n_steps, card,
 # ---------------------------------------------------------------------------
 
 # scripts/cycle_gan/horse2zebra/train_inception_student_2p6B.sh, but for the
-# paths and the schedule (no --real_stat_path, 4 epochs, a save at the end,
-# losses printed every step)
+# paths and the schedule (no --real_stat_path but in phase 7, a few epochs
+# with a save at the end, losses printed every step)
 RECIPE = ["--dataset_mode", "unaligned", "--distiller", "inception", "--gan_mode", "lsgan",
           "--teacher_ngf", "64", "--student_ngf", "20", "--ndf", "64",
           "--batch_size", str(VERB_BATCH), "--eval_batch_size", "2", "--norm_affine",
           "--norm_affine_D", "--channels_reduction_factor", "6", "--kernel_sizes", "1", "3", "5",
           "--lambda_distill", "1.0", "--lambda_recon", "5", "--prune_cin_lb", "16",
-          "--target_flops", "2.6e9", "--distill_G_loss_type", "ka",
-          "--nepochs", str(VERB_EPOCHS), "--nepochs_decay", "0",
-          "--save_epoch_freq", str(VERB_EPOCHS), "--print_freq", "1"]
+          "--target_flops", "2.6e9", "--distill_G_loss_type", "ka", "--nepochs_decay", "0",
+          "--print_freq", "1"]
+
+
+# scripts/cycle_gan/horse2zebra/evaluate_inception_student_2p6B.sh's profile
+# flags, but for the paths
+EVAL_RECIPE = ["--dataset_mode", "unaligned", "--gan_mode", "lsgan", "--norm_affine",
+               "--norm_affine_D", "--channels_reduction_factor", "6", "--kernel_sizes", "1", "3",
+               "5", "--prune_cin_lb", "16", "--target_flops", "2.6e9"]
 
 
 def write_verb_inputs(root, teacher_cfg, teacher_sd) -> None:
@@ -411,7 +486,7 @@ def write_verb_inputs(root, teacher_cfg, teacher_sd) -> None:
     from cat_tpu_torch.utils import checkpoint as ckpt
 
     rs = np.random.RandomState(0)
-    for side, n in (("trainA", VERB_IMAGES), ("trainB", VERB_IMAGES), ("valA", 2), ("valB", 2)):
+    for side, n in (("trainA", VERB_IMAGES), ("trainB", VERB_IMAGES), *VAL_IMAGES.items()):
         d = os.path.join(root, "data", side)
         os.makedirs(d)
         for i in range(n):
@@ -445,10 +520,10 @@ class _TimedLoader:
             yield batch
 
 
-def run_verb(root, label, extra, expect_path, dev, card):
-    """``entry.distill_main`` with the recipe's flags and ``extra``; checks
-    launches, checkpoints, reload and losses, and returns the run's numbers
-    and the distill run."""
+def run_verb(root, label, extra, expect_path, dev, card, epochs=VERB_EPOCHS):
+    """``entry.distill_main`` with the recipe's flags, ``extra`` and
+    ``epochs`` epochs; checks launches, checkpoints, reload and losses, and
+    returns the run's numbers and the distill run."""
     import numpy as np
     import torch
 
@@ -463,7 +538,7 @@ def run_verb(root, label, extra, expect_path, dev, card):
             "--restore_teacher_G_path", os.path.join(teacher, "best_A_net_G_A.pth"),
             "--restore_pretrained_G_path", os.path.join(teacher, "best_A_net_G_A.pth"),
             "--restore_D_path", os.path.join(teacher, "best_A_net_D_A.pth"),
-            *RECIPE, *extra]
+            *RECIPE, "--nepochs", str(epochs), "--save_epoch_freq", str(epochs), *extra]
     steps, starts, waits = [], [], []
     setup = entry.setup_distill
 
@@ -483,7 +558,7 @@ def run_verb(root, label, extra, expect_path, dev, card):
         run.trainer.dataloader = _TimedLoader(run.trainer.dataloader, waits)
         return run
 
-    n_steps = VERB_EPOCHS * VERB_IMAGES // VERB_BATCH
+    n_steps = epochs * VERB_IMAGES // VERB_BATCH
     entry.setup_distill = instrumented
     try:
         torch.cuda.synchronize()
@@ -503,12 +578,12 @@ def run_verb(root, label, extra, expect_path, dev, card):
              f"{expect_path!r}")
 
     save_dir = os.path.join(log_dir, "checkpoints")
-    for name in ("latest_net_G.pth", "latest_net_G.json", f"{VERB_EPOCHS}_net_G.pth",
+    for name in ("latest_net_G.pth", "latest_net_G.json", f"{epochs}_net_G.pth",
                  "latest_state.pth"):
         if not os.path.exists(os.path.join(save_dir, name)):
             fail(f"verb ({label}): {name} was not written")
     with open(os.path.join(log_dir, "scalars.jsonl")) as f:
-        rows = [json.loads(line) for line in f]
+        rows = [r for r in map(json.loads, f) if any("loss" in k for k in r)]
     losses = [v for r in rows for k, v in r.items() if "loss" in k]
     if len(rows) != n_steps or not all(math.isfinite(v) for v in losses):
         fail(f"verb ({label}): {len(rows)} logged steps, losses finite: "
@@ -552,13 +627,45 @@ def run_verb(root, label, extra, expect_path, dev, card):
     return out, run, x
 
 
-def distill_verb(dev, card, teacher_cfg, teacher_sd):
-    """Phase 6: the recipe through ``entry.distill_main``, (a) float32 with
-    the host loader and (b) bfloat16 with the device bank; the Gram kernel
-    held against its plain version on each run's own (80, F) taps."""
-    import shutil
-    import tempfile
+def native_status():
+    """Whether the C++ image pipeline built on this machine (else its
+    error); the bank and ``--data_backend native`` use it when it did."""
+    from cat_tpu_torch.data import native
 
+    t0 = time.perf_counter()
+    built = native.load_pipe() is not None
+    log(f"native image pipeline: "
+        + (f"built ({time.perf_counter() - t0:.1f} s)" if built
+           else f"not built, PIL decodes instead: {native.pipe_error()}"))
+    return built
+
+
+def check_bank_against_pil(run, root):
+    """Run (b)'s bank, filled by the C++ pipeline, against PIL's bicubic
+    resize of the same files: at most 3/255 per pixel and under 1/255 on
+    average (the JAX package's bounds, tests/test_native_pipe.py)."""
+    import numpy as np
+    from PIL import Image
+
+    from cat_tpu_torch.data.datasets import make_dataset
+
+    bank = run.loader.dd.imgs_a.cpu().numpy()
+    paths = make_dataset(os.path.join(root, "data", "trainA"))
+    size = bank.shape[1]
+    diff = np.concatenate([np.abs(bank[i].astype(int) - np.asarray(
+        Image.open(p).convert("RGB").resize((size, size), Image.BICUBIC), int))
+        for i, p in enumerate(paths)])
+    if diff.max() > 3 or diff.mean() >= 1.0:
+        fail(f"bank against PIL: max {diff.max()}, mean {diff.mean():.3f} (bounds 3 and 1)")
+    log(f"verb (b): the bank ({bank.shape[0]} images at {size} px, filled by the C++ pipeline) "
+        f"against PIL: max |diff| {diff.max()}/255, mean {diff.mean():.4f}/255 (bounds 3, 1)")
+
+
+def distill_verb(dev, card, root, native_built):
+    """Phase 6: the recipe through ``entry.distill_main``, (a) float32 with
+    the host loader, (b) bfloat16 with the device bank and (c) float32 with
+    the native loader where the pipeline built; the Gram kernel held against
+    its plain version on (a)'s and (b)'s own (80, F) taps."""
     import torch
 
     l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -566,29 +673,169 @@ def distill_verb(dev, card, teacher_cfg, teacher_sd):
     def flush():
         l2.zero_()
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_verb_")
-    try:
-        t0 = time.perf_counter()
-        write_verb_inputs(root, teacher_cfg, teacher_sd)
-        log(f"verb: dataset ({VERB_IMAGES} + 2 PNGs per side, {SIZE} px) and checkpoints "
-            f"written in {time.perf_counter() - t0:.1f} s")
-        results, kern = [], {}
-        for label, extra, dtype, path in (
-                ("a", [], torch.float32, "f32tma"),
-                ("b", ["--compute_dtype", "bfloat16", "--on_device_data", "1"],
-                 torch.bfloat16, "tma")):
-            out, run, x = run_verb(root, label, extra, path, dev, card)
+    results, kern = [], {}
+    runs = [("a", [], torch.float32, "f32tma"),
+            ("b", ["--compute_dtype", "bfloat16", "--on_device_data", "1"],
+             torch.bfloat16, "tma")]
+    if native_built:
+        runs.append(("c", ["--data_backend", "native"], None, "f32tma"))
+    for label, extra, dtype, path in runs:
+        out, run, x = run_verb(root, label, extra, path, dev, card)
+        if label == "b" and native_built:
+            check_bank_against_pil(run, root)
+        if dtype is not None:
             with torch.no_grad():
                 taps = [net(x, taps=("encode",))[1]["encode"].reshape(x.shape[0], -1)
                         .to(dtype).contiguous()
                         for net in (run.distiller.netG_teacher, run.distiller.netG_student)]
             kern[label] = gram_numbers(taps, flush, card, path)
-            results.append(out)
-            del run, taps
-        return results, kern
+            del taps
+        results.append(out)
+        del run
+    if native_built:
+        a, c = results[0], results[2]
+        log(f"verb: host wait on the loader per step, thread backend (a) "
+            f"{a['loader_wait_ms_per_step']:.1f} ms, native backend (c) "
+            f"{c['loader_wait_ms_per_step']:.1f} ms; iteration {a['iteration_ms_median']:.1f} "
+            f"and {c['iteration_ms_median']:.1f} ms [{card}]")
+    del l2
+    return results, kern
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: evaluation
+# ---------------------------------------------------------------------------
+
+
+class _Timer:
+    """Wrap ``obj.name`` so each call adds its host seconds to ``total``."""
+
+    def __init__(self, obj, name, sync=False):
+        self.obj, self.name, self.fn, self.total = obj, name, getattr(obj, name), 0.0
+        self.sync = sync
+
+        def timed_call(*args, **kwargs):
+            import torch
+
+            t0 = time.perf_counter()
+            out = self.fn(*args, **kwargs)
+            if self.sync:
+                torch.cuda.synchronize()
+            self.total += time.perf_counter() - t0
+            return out
+
+        setattr(obj, name, timed_call)
+
+    def restore(self):
+        setattr(self.obj, self.name, self.fn)
+
+
+def evaluation(dev, card, root):
+    """Phase 7: statistics, a distill run with FID, profile and KID, through
+    the verbs' entry points; returns its numbers."""
+    import numpy as np
+    import scipy
+    import torch
+    from PIL import Image
+
+    from cat_tpu_torch import entry
+    from cat_tpu_torch.metrics import fid
+    from cat_tpu_torch.metrics.inception import load_inception, write_random_judge
+    from cat_tpu_torch.train.evaluation import FIDEvaluator
+
+    data = os.path.join(root, "data")
+    judge = write_random_judge(os.path.join(root, "judge.pth"), seed=233)
+    stats = os.path.join(root, "real_stat_B.npz")
+    log(f"eval: scipy {scipy.__version__}, numpy {np.__version__}")
+
+    # --- statistics of valB
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = entry.real_stat_main(["--dataroot", os.path.join(data, "valB"), "--inception_path",
+                               judge, "--output_path", stats])
+    stat_s = time.perf_counter() - t0
+    if st["mu"].shape != (2048,) or not np.isfinite(st["sigma"]).all():
+        fail("get_real_stat: statistics not finite or of the wrong width")
+    n_real = VAL_IMAGES["valB"]
+    log(f"eval: get_real_stat over {n_real} images: {stat_s:.2f} s, {n_real / stat_s:.1f} "
+        f"images/s (decode, judge, statistics) [{card}]")
+
+    # --- a distill run with FID at the trainer's cadence
+    timers = [_Timer(FIDEvaluator, "__call__"), _Timer(fid, "get_activations", sync=True),
+              _Timer(fid, "calculate_frechet_distance")]
+    try:
+        out, run, _ = run_verb(root, "eval", ["--compute_dtype", "bfloat16",
+                                              "--on_device_data", "1", "--inception_path",
+                                              judge, "--real_stat_path", stats],
+                               "tma", dev, card, epochs=1)
     finally:
-        shutil.rmtree(root, ignore_errors=True)
-        del l2
+        for t in timers:
+            t.restore()
+    del run
+    sweep_s, judge_s, frechet_s = (t.total for t in timers)
+    log_dir = os.path.join(root, "log_eval")
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        fids = [r["metric/fid"] for r in map(json.loads, f) if "metric/fid" in r]
+    best = os.path.join(log_dir, "checkpoints", "best_net_G.pth")
+    if len(fids) != 2 or not all(math.isfinite(v) for v in fids) or not os.path.exists(best):
+        fail(f"eval: FID values {fids} (expected 2, finite), best saved: {os.path.exists(best)}")
+    log(f"eval: FID {fids} over {VAL_IMAGES['valA']} valA images at eval batch 2; the two "
+        f"evaluations took {sweep_s:.2f} s: generator sweep and dumps "
+        f"{sweep_s - judge_s - frechet_s:.2f} s, judge {judge_s:.2f} s, Fréchet distance on "
+        f"the host {frechet_s:.2f} s [{card}]")
+
+    # --- profile the best student, as the evaluate recipe does
+    prof_dir = os.path.join(root, "profile")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prof = entry.profile_main([
+        "--dataroot", data, "--log_dir", prof_dir,
+        "--restore_teacher_G_path", os.path.join(root, "teacher", "best_A_net_G_A.pth"),
+        "--pretrained_student_G_path", best, "--real_stat_path", stats,
+        "--inception_path", judge, *EVAL_RECIPE])
+    prof_s = time.perf_counter() - t0
+    prof_mem = torch.cuda.max_memory_allocated()
+    sfake = os.path.join(prof_dir, "eval", "latest", "Sfake")
+    n_dumped = len(os.listdir(sfake))
+    if n_dumped != VAL_IMAGES["valA"] or not math.isfinite(prof["metrics"]["metric/fid"]):
+        fail(f"profile: {n_dumped} Sfake images, metrics {prof['metrics']}")
+    log(f"profile: prune mean {prof['pruning_seconds_mean'] * 1e3:.2f} ms over 10 shrinks, "
+        f"student {prof['student_macs']:,} MACs and {prof['student_params']:,} params "
+        f"(FLOP counter {prof['counted_flops']:,}), latency {prof['latency_ms']:.3f} ms/image "
+        f"at batch 1, FID {prof['metrics']['metric/fid']:.4f}, {n_dumped} images dumped, "
+        f"peak memory {prof_mem / 2 ** 30:.2f} GiB, {prof_s:.1f} s in all [{card}]")
+
+    # --- KID of the dump against valB
+    t0 = time.perf_counter()
+    kid_mean, kid_std = entry.kid_score_main(["--real", os.path.join(data, "valB"), "--fake",
+                                              sfake, "--inception_path", judge])
+    kid_s = time.perf_counter() - t0
+    if not (math.isfinite(kid_mean) and math.isfinite(kid_std)):
+        fail(f"kid_score: {kid_mean}, {kid_std}")
+    log(f"kid_score: {kid_mean:.6f} +/- {kid_std:.6f} in {kid_s:.2f} s [{card}]")
+
+    # --- the judge on the card against the CPU
+    cpu_judge, card_judge = load_inception(judge), load_inception(judge, device=dev)
+    x = torch.from_numpy(np.stack([np.asarray(Image.open(os.path.join(data, "valB", f"{i}.png"))
+                                              .convert("RGB")) for i in range(4)])
+                         .transpose(0, 3, 1, 2).copy()).float() / 255
+    ref = cpu_judge(x)[0]
+    got = card_judge(x.to(dev))[0].cpu()
+    diff = float((got - ref).abs().max())
+    tol = 1e-4 * float(ref.abs().max())
+    if not diff <= tol:
+        fail(f"judge: pool3 on the card differs from the CPU's by {diff:g} > {tol:g}")
+    log(f"judge: pool3 of 4 images on the card against the CPU: max |diff| {diff:.3g} "
+        f"(largest feature {float(ref.abs().max()):.3g}, tol {tol:.3g}), TF32 off in the judge")
+    return {"real_stat_s": stat_s, "real_stat_images_per_s": n_real / stat_s,
+            "fid": fids, "eval_s": sweep_s, "eval_sweep_s": sweep_s - judge_s - frechet_s,
+            "eval_judge_s": judge_s, "eval_frechet_s": frechet_s, "verb": out,
+            "profile_prune_ms": prof["pruning_seconds_mean"] * 1e3,
+            "profile_latency_ms": prof["latency_ms"], "profile_peak_memory_gib":
+            prof_mem / 2 ** 30, "profile_s": prof_s,
+            "profile_fid": prof["metrics"]["metric/fid"],
+            "kid": [kid_mean, kid_std], "kid_s": kid_s, "judge_card_vs_cpu_max_abs": diff}
 
 
 _KERNEL_GROUPS = (  # (group, substrings of the lower-cased kernel name), first match wins
@@ -711,9 +958,20 @@ def main() -> None:
     log(f"fused-norm step: {sum(times_f) / FUSED_STEPS * 1e3:.1f} ms/step (first step "
         f"included), launches {counts_f}, losses {vals_f} [{card}]")
 
-    # --- 6. the distill verb
-    verb, verb_kern = distill_verb(dev, card, teacher_cfg, teacher_sd)
-    log("verb: " + json.dumps(verb))
+    # --- 6. the distill verb and 7. evaluation, over one seeded dataset
+    root = tempfile.mkdtemp(prefix="chip_smoke_verb_")
+    try:
+        t0 = time.perf_counter()
+        write_verb_inputs(root, teacher_cfg, teacher_sd)
+        log(f"verb: dataset ({VERB_IMAGES} PNGs per training side, {VAL_IMAGES}, {SIZE} px) "
+            f"and checkpoints written in {time.perf_counter() - t0:.1f} s")
+        native_built = native_status()
+        verb, verb_kern = distill_verb(dev, card, root, native_built)
+        log("verb: " + json.dumps(verb))
+        ev = evaluation(dev, card, root)
+        log("eval: " + json.dumps(ev))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     def row(name, src, replaces, launches, k, per):
         return {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -727,7 +985,8 @@ def main() -> None:
     rows = [
         {**row("gram", *gram_src, gram_launches, kern[("gram", "bfloat16")], per),
          "mma_sync_ms": kern[("gram", "bfloat16")]["mma_sync_ms"],
-         "bound_full_square_ms": kern[("gram", "bfloat16")]["bound_full_square_ms"]},
+         "bound_full_square_ms": kern[("gram", "bfloat16")]["bound_full_square_ms"],
+         "blocked_b256": kern[("gram_blocked", "bfloat16")]},
         row("instance_norm_act", "cat_tpu_torch/csrc/instance_norm.cu",
             "cat_tpu/ops/pallas_norm.py:35", counts_f["instance_norm_act"],
             kern[("instance_norm_act", "bfloat16")], per),
@@ -743,7 +1002,8 @@ def main() -> None:
     rows.append({**row("gram (float32, batch 128)", *gram_src, verb[0]["gram_launches"], f32,
                        f"four taps' launches at batch {BATCH}, float32 (phase 2's operands; "
                        f"launches are the f32tma kernel's in phase 6 (a))"),
-                 "fma_ms": f32["fma_ms"], "bound_full_square_ms": f32["bound_full_square_ms"]})
+                 "fma_ms": f32["fma_ms"], "bound_full_square_ms": f32["bound_full_square_ms"],
+                 "blocked_b256": kern[("gram_blocked", "float32")]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -138,6 +138,23 @@ def test_gram_f32_fma_kernel_matches_plain(cuda, b, f):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, f", [(129, 64 * 64 * 40), (256, 64 * 64 * 58), (300, 4096 * 3 + 4)])
+def test_gram_past_128_rows_goes_through_the_kernels(cuda, b, f, dtype):
+    """B > 128: n(n-1)/2 launches of the kernels on pairs of 64-row blocks,
+    the plain version's result within float32 rounding, exactly symmetric."""
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    x = torch.randn(b, f, generator=gen, device=cuda).to(dtype)
+    before = tka.launches
+    got = tka.gram_cuda(x)
+    torch.cuda.synchronize()
+    n = -(-b // 64)
+    assert tka.launches == before + n * (n - 1) // 2
+    assert torch.equal(got, got.T)
+    _assert_gram_close(got, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("act", ["relu", "leaky_relu"])
 @pytest.mark.parametrize("shape", [(2, 8, 64, 64), (2, 4, 128, 128), (1, 2, 256, 256),
                                    (3, 5, 7, 9)])
@@ -176,6 +193,27 @@ def test_device_prefetch_copies_host_batches_in_order(cuda):
     assert [float(b["A"].flatten()[0]) for b in out] == [0, 1, 2, 3, 4, 0, 1, 2]
     assert all(torch.equal(b["A"].cpu(), h["A"]) for b, h in zip(out, host))
     assert out[5]["A"] is on_card[0]["A"]
+
+
+@pytest.mark.cuda
+def test_judge_features_on_the_card_match_the_cpu(cuda, rng):
+    """The InceptionV3 judge's pool3 features on the card (float32, TF32 off
+    inside the judge even when the process turns it on) against the CPU's,
+    within 1e-4 of the largest feature."""
+    from cat_tpu_torch.metrics.inception import InceptionV3FID, random_judge_state_dict
+
+    judge = InceptionV3FID()
+    judge.load_state_dict(random_judge_state_dict(3))
+    x = torch.from_numpy(rng.uniform(0, 1, (4, 3, 256, 256)).astype(np.float32))
+    ref = judge(x)[0]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = judge.to(cuda)(x.to(cuda))[0].cpu()
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
 @pytest.mark.cuda

@@ -14,6 +14,7 @@ from PIL import Image
 from cat_tpu.data import datasets as jds
 from cat_tpu.data import transforms as jtf
 from cat_tpu.data.device_data import _sample_side as jax_sample_side
+from cat_tpu.data.device_data import stack_resized_uint8 as jax_stack_resized_uint8
 from cat_tpu.data.loader import DataLoader as JLoader
 from cat_tpu_torch.data import datasets as tds
 from cat_tpu_torch.data import transforms as ttf
@@ -115,12 +116,24 @@ def test_make_dataset_natural_sort_and_max_size(tmp_path):
 
 
 def test_loader_drop_last_and_unported_backend(tmp_path):
+    """drop_last; the native backend runs, and on a dataset without a native
+    path it gives the thread backend's batches; an unknown backend raises."""
     write_images(tmp_path, 5)
     ds = tds.SingleDataset(str(tmp_path), "", ttf.TransformSpec(preprocess="none"))
     assert [b["A"].shape for b in DataLoader(ds, 2, shuffle=False)] == [(2, 3, 36, 40)] * 2
     assert len(list(DataLoader(ds, 2, shuffle=False, drop_last=False))) == 3
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 18"):
-        DataLoader(ds, 2, worker_mode="native")
+    native = list(DataLoader(ds, 2, shuffle=False, drop_last=False, worker_mode="native"))
+    threads = list(DataLoader(ds, 2, shuffle=False, drop_last=False))
+    assert len(native) == 3
+    assert all(torch.equal(a["A"], b["A"]) and a["A_paths"] == b["A_paths"]
+               for a, b in zip(native, threads))
+    with pytest.raises(ValueError, match="worker_mode"):
+        DataLoader(ds, 2, worker_mode="dali")
+
+
+def test_cityscapes_mode_names_its_roadmap_item(tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 15"):
+        tds.create_dataloader("cityscapes", str(tmp_path), 2)
 
 
 def test_device_prefetch_order_on_the_host():
@@ -195,10 +208,10 @@ def test_from_unaligned_bank_and_epoch_pacing(tmp_path):
     dd, n = DeviceData.from_unaligned(str(tmp_path), "train", load_size=36, crop_size=32,
                                       device="cpu")
     assert n == 4
-    bank = stack_resized_uint8(tds.make_dataset(str(tmp_path / "trainA")), 36)
-    ref = np.asarray(Image.open(tmp_path / "trainA" / "img_0.png").convert("RGB")
-                     .resize((36, 36), Image.BICUBIC))
-    np.testing.assert_array_equal(bank[0], ref)
+    # the JAX package's bank: its C++ pipeline where that builds, as here
+    paths = tds.make_dataset(str(tmp_path / "trainA"))
+    bank = stack_resized_uint8(paths, 36)
+    np.testing.assert_array_equal(bank, jax_stack_resized_uint8(paths, 36))
     np.testing.assert_array_equal(dd.imgs_a.numpy(), bank)
     loader = DeviceDataLoader(dd, 2, max(n // 2, 1), seed=5)
     epochs = [list(loader), list(loader)]

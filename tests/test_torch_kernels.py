@@ -115,8 +115,9 @@ _BF16, _F32 = torch.bfloat16, torch.float32
     (80, 64 * 64 * 58, _F32, True, "f32tma"),   # and its student tap
     (80, 4096 * 3 + 2, _F32, True, "f32"),      # row stride not a multiple of 16 bytes
     (80, 4096, _F32, False, "f32"),             # base address not 16-byte aligned
-    (129, 4096, _F32, True, ValueError),        # B past 128
-    (129, 4096, _BF16, True, ValueError),
+    (129, 4096, _F32, True, "blocked"),         # B past 128: pairs of 64-row blocks
+    (129, 4096, _BF16, True, "blocked"),
+    (300, 4096 * 3 + 2, _F32, False, "blocked"),
     (0, 4096, _BF16, True, ValueError),
     (16, 4096, torch.float16, True, ValueError),
 ])
@@ -142,6 +143,44 @@ def test_f32_tma_plan(b, bp, groups, warps):
     blocks = (bp // 8) * (bp // 8 + 1) // 2
     assert (got_bp, got_groups) == (bp, groups)
     assert -(-blocks * groups // 32) == warps
+
+
+@pytest.mark.parametrize("dtype", [_F32, _BF16])
+@pytest.mark.parametrize("b", [129, 200, 256, 300])
+def test_gram_blocked_dispatch(rng, b, dtype):
+    """B > 128: the Gram from one launch per pair of 64-row blocks, each on
+    a contiguous operand of at most 128 rows; X·Xᵀ within float32 rounding
+    (rtol 1e-5), exactly symmetric, n(n-1)/2 launches for n = ⌈B/64⌉."""
+    x = torch.from_numpy(rng.randn(b, 96).astype(np.float32)).to(dtype)
+    seen = []
+
+    def launch(op):
+        assert op.shape[0] <= 128 and op.is_contiguous() and op.dtype == dtype
+        seen.append(op.shape[0])
+        return tka.gram_plain(op)
+
+    got = tka.gram_blocked(x, launch)
+    n = -(-b // 64)
+    assert len(seen) == n * (n - 1) // 2
+    assert got.dtype == torch.float32 and torch.equal(got, got.T)
+    xd = x.double()
+    np.testing.assert_allclose(got.numpy(), (xd @ xd.T).numpy(), rtol=1e-5, atol=1e-4)
+    assert torch.equal(tka.gram_blocked(x, launch), got)  # reproducible
+
+
+def test_ka_past_128_rows_matches_pallas_interpret(rng):
+    """KA at B = 130 through the blocked dispatch (the plain version per
+    launch on the CPU) against the JAX package's Pallas Gram, which takes any
+    B, in interpret mode."""
+    x = rng.randn(130, 40).astype(np.float32)
+    y = rng.randn(130, 24).astype(np.float32)
+    gx_j, gy_j = jax_gram_pair(jnp.asarray(x), jnp.asarray(y), interpret=True)
+    for got, ref in ((tka.gram_blocked(torch.from_numpy(x), tka.gram_plain), gx_j),
+                     (tka.gram_blocked(torch.from_numpy(y), tka.gram_plain), gy_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
+    val_j = jax_ka(jnp.asarray(x), jnp.asarray(y), use_pallas="no")
+    np.testing.assert_allclose(float(tka.ka(torch.from_numpy(x), torch.from_numpy(y))),
+                               float(val_j), rtol=1e-5)
 
 
 def test_ka_backward_matches_autograd_of_formula(rng):

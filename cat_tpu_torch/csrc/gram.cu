@@ -70,10 +70,18 @@
 //   gram_partial_f32 (every other float32 operand): CUDA-core FMAs, each
 //      thread an 8 x 8 register block of entries, staged synchronously.
 //
+// Past 128 rows the two TMA kernels run as pair kernels (section "Work
+// units" below): B is cut into 128-row blocks and every block pair X_i·X_jᵀ
+// is computed in one launch, reading X in place through one tensor map, on
+// a plan of work units that gram_reduce also reads to sum and mirror them.
+// The wrapper hands them an operand TMA can map (a zero-padded copy of one
+// it cannot).
+//
 // One entry point call computes one operand's Gram; KA launches it once per
 // operand (the teacher's and the student's F differ), two per tap.
 //
-// Limits (checked by the Python wrapper): 1 <= B <= 128, X contiguous.
+// Limits (checked by the Python wrapper): X contiguous; 1 <= B <= 128 but
+// for the TMA kernels' pair plans, which take B > 128.
 
 #include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's types (no -lcuda: see tma_encoder)
 #include <cuda_bf16.h>
@@ -257,25 +265,32 @@ gram_partial_f32(const float* __restrict__ x, int B, long long F, long long chun
     }
 }
 
-// G[e] = sum over chunks of partial[c, e] (e = i*B + j, read at i*Bp + j),
-// in a fixed order: warp w sums chunks w, w+8, w+16, ... in turn, then the
-// eight warp sums are added in warp order.  One lane per entry.  With
-// `lower` the partials hold the lower triangle only: the lane of (i, j),
-// j <= i, writes both G[i, j] and G[j, i], so G comes out exactly symmetric.
+// G[r, c] = the sum of partial[v, r % Bp, c % Bp] over the partials v of
+// the entry, in a fixed order: warp w sums v0 + w, v0 + w + 8, ... in turn,
+// then the eight warp sums are added in warp order.  One lane per entry.
+// Without `starts` v runs over [0, nchunks) (B <= Bp).  With it (the pair
+// plans; `lower` set), (r, c) lies in pair p = i(i+1)/2 + j of Bp-row blocks
+// (i = r / Bp, j = c / Bp) and v over the pair's units [starts[p],
+// starts[p + 1]).  With `lower` the partials hold the lower triangle only:
+// the lane of (r, c), c <= r, writes both G[r, c] and G[c, r], so G comes
+// out exactly symmetric.
 __global__ void __launch_bounds__(kThreads)
-gram_reduce(const float* __restrict__ partial, int nchunks, int B, int Bp, int lower,
-            float* __restrict__ g) {
+gram_reduce(const float* __restrict__ partial, int nchunks, const int* __restrict__ starts,
+            int B, int Bp, int lower, float* __restrict__ g) {
   __shared__ float red[kWarps][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int e = blockIdx.x * 32 + lane;
-  const int i = e / B, j = e % B;
-  const bool mine = e < B * B && (!lower || j <= i);
+  const long long e = static_cast<long long>(blockIdx.x) * 32 + lane;
+  const int r = static_cast<int>(e / B), c = static_cast<int>(e % B);
+  const bool mine = e < static_cast<long long>(B) * B && (!lower || c <= r);
   float s = 0.f;
   if (mine) {
-    const float* p = partial + i * Bp + j;
-    const long long stride = (long long)Bp * Bp;
+    const int p = r / Bp * (r / Bp + 1) / 2 + c / Bp;
+    const int v0 = starts != nullptr ? starts[p] : 0;
+    const int v1 = starts != nullptr ? starts[p + 1] : nchunks;
+    const float* q = partial + (r % Bp) * Bp + c % Bp;
+    const long long stride = static_cast<long long>(Bp) * Bp;
 #pragma unroll 8
-    for (int c = warp; c < nchunks; c += kWarps) s += p[c * stride];
+    for (int v = v0 + warp; v < v1; v += kWarps) s += q[v * stride];
   }
   red[warp][lane] = s;
   __syncthreads();
@@ -283,13 +298,13 @@ gram_reduce(const float* __restrict__ partial, int nchunks, int B, int Bp, int l
     float t = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) t += red[w][lane];
-    g[e] = t;
-    if (lower) g[j * B + i] = t;
+    g[static_cast<long long>(r) * B + c] = t;
+    if (lower) g[static_cast<long long>(c) * B + r] = t;
   }
 }
 
 // ---------------------------------------------------------------------------
-// TMA ring + wgmma (bf16)
+// TMA, mbarrier and wgmma primitives
 // ---------------------------------------------------------------------------
 
 constexpr int kTmaKT = 64;               // columns per tile: 128 bytes of a row
@@ -338,14 +353,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
-// Copy the tensor map's box at column c0, row 0 into shared memory;
+// Copy the tensor map's box at column c0, row r0 into shared memory;
 // completion counts the box's bytes on `bar`.
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0) {
+                                            int c0, int r0) {
   asm volatile(
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(0), "r"(bar)
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(r0), "r"(bar)
       : "memory");
 }
 
@@ -441,46 +456,130 @@ __device__ __forceinline__ void fence_acc(float (&d)[K]) {
   for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Persistent CTA `blockIdx.x` of gridDim.x: partial[cta] = the Gram of its
-// tiles [t0, t1) of the ntiles 64-column tiles of X.  Threads: kWG consumer
-// warpgroups (warps 0 .. 4·kWG-1, warpgroup-aligned), then one producer warp.
-template <int N>
-__global__ void __launch_bounds__(128 * (N == 128 ? 2 : 1) + 32, 1)
-gram_partial_tma(const __grid_constant__ CUtensorMap xmap, long long ntiles,
-                 float* __restrict__ partial) {
-  constexpr int kWG = N == 128 ? 2 : 1;  // consumer warpgroups, 64 rows each
-  constexpr int kTileBytes = 64 * kWG * kTmaKT * 2;
-  constexpr int kStages = kRingBytes / kTileBytes;
-  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
-  extern __shared__ uint8_t dyn[];  // kRingBytes + 1024, aligned below
-  const uint32_t ring = (smem_u32(dyn) + 1023u) & ~1023u;
-  const long long t0 = blockIdx.x * ntiles / gridDim.x;
-  const int n = static_cast<int>((blockIdx.x + 1) * ntiles / gridDim.x - t0);
+// ---------------------------------------------------------------------------
+// Work units and the TMA ring of both dtypes; block pairs (B > 128)
+// ---------------------------------------------------------------------------
+//
+// Past 128 rows the TMA kernels run on a plan of work units.  The rows are
+// cut into n = ⌈B/128⌉ blocks, and pair p = i(i+1)/2 + j (i >= j) yields
+// the (128, 128) block X_i·X_jᵀ.  The tensor map covers the whole (B, F)
+// operand with a box of 128 rows, so a block is read in place at row 128·i;
+// rows past B (a ragged last block) arrive as zeros.  CTA u runs
+// unit u of the plan (distill/ka.py::_pair_plan, passed as a table): pair
+// (bi, bj) over the 64-column tiles first, first + stride, ... of F, into
+// its own (128, 128) float32 partial.  A diagonal pair loads one box per
+// tile, an off-diagonal pair two (block i's and block j's) for the same
+// products, so an off-diagonal pair gets twice a diagonal pair's CTAs (twice
+// the stride).  Then every CTA moves about as many bytes per second, and the
+// CTAs of all pairs step through F together, round-robin over the tiles: at
+// any time the card reads a window of ~2·stride tiles (4 MB at B = 256), and
+// of the n reads of a block's tile, one comes from HBM and the others from
+// the 50 MB L2.  A CTA that falls behind reads from L2, which is faster, so
+// it catches up.  gram_reduce sums each pair's partials.  Bounds on an H100
+// at B = 256: bf16 by bytes (streaming X once; the n - 1 other reads of a
+// tile must hit L2), float32 by the lower triangle's FMAs, which the
+// kernels compute and no more (diagonal pairs take their triangle only in
+// float32; in bf16 the tensor cores have room for the full square).
+//
+// Without a plan (B <= 128) a CTA's unit is a contiguous range of tiles of
+// the one block, an even split of F among the CTAs.
 
+// No L2 promotion past 128 rows: a tile's neighbour belongs to another CTA,
+// and fetching it with this one's rows (the 256-byte promotion of the B <=
+// 128 kernels) made the bf16 pair kernel slower at B = 256 on an H100.
+constexpr CUtensorMapL2promotion kPairPromotion = CU_TENSOR_MAP_L2_PROMOTION_NONE;
+
+// The work of a CTA: n tiles first, first + stride, ... of X, the products
+// of row block bi with row block bj.
+struct Unit {
+  int bi, bj, n;
+  long long first, stride;
+};
+
+// CTA blockIdx.x's unit: with kPairs, its row (bi, bj, first, stride) of
+// `plan`; else tiles [t0, t1) of the one block, balanced to within one tile.
+// kPairs is a template argument so that the B <= 128 instances know at
+// compile time that their unit is diagonal (a runtime test cost the float32
+// kernel 5-7% at B = 80 and 128 on an H100).
+template <bool kPairs>
+__device__ __forceinline__ Unit cta_unit(const int4* plan, long long ntiles) {
+  if (kPairs) {
+    const int4 u = plan[blockIdx.x];
+    const int n = u.z < ntiles ? static_cast<int>((ntiles - u.z + u.w - 1) / u.w) : 0;
+    return {u.x, u.y, n, u.z, u.w};
+  }
+  const long long t0 = blockIdx.x * ntiles / gridDim.x;
+  return {0, 0, static_cast<int>((blockIdx.x + 1) * ntiles / gridDim.x - t0), t0, 1};
+}
+
+// A ring of `stages` stages: full[s] completes on the producer's expect_tx
+// and the bytes it counts, empty[s] on one arrival per consumer warp.
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty, int stages,
+                                          int consumer_warps) {
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(smem_u32(&full[s]), 1);            // the producer's expect_tx
-      mbar_init(smem_u32(&empty[s]), 4 * kWG);     // one per consumer warp
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(&full[s]), 1);
+      mbar_init(smem_u32(&empty[s]), consumer_warps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+}
+
+// The producer (one lane) keeps the ring full with unit u's tiles of `cols`
+// columns: each stage holds block bi's box (rows from bi·rows) and, for an
+// off-diagonal pair, block bj's box behind it.  Round ph of a stage waits
+// for the consumers' ph-th release (parity ph ^ 1 passes at once for ph = 0).
+__device__ __forceinline__ void ring_produce(const CUtensorMap* map, uint64_t* full,
+                                             uint64_t* empty, uint32_t ring, int stages,
+                                             uint32_t box_bytes, const Unit& u, int cols,
+                                             int rows) {
+  const bool off = u.bi != u.bj;
+  const uint32_t stage_bytes = off ? 2 * box_bytes : box_bytes;
+  for (int i = 0, s = 0, ph = 0; i < u.n; ++i) {
+    mbar_wait(smem_u32(&empty[s]), ph ^ 1);
+    mbar_expect_tx(smem_u32(&full[s]), stage_bytes);  // whole boxes, even at edges
+    const int c0 = static_cast<int>((u.first + i * u.stride) * cols);
+    const uint32_t dst = ring + s * stage_bytes;
+    tma_load_2d(dst, map, smem_u32(&full[s]), c0, u.bi * rows);
+    if (off) tma_load_2d(dst + box_bytes, map, smem_u32(&full[s]), c0, u.bj * rows);
+    if (++s == stages) s = 0, ph ^= 1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the TMA ring + wgmma
+// ---------------------------------------------------------------------------
+
+// Persistent CTA `blockIdx.x`: partial[cta] = the products of its unit's
+// tiles (cta_unit), rows [0, N) of block bi against those of block bj; a
+// diagonal unit's stage is its one box, used as A and B.  Threads: kWG
+// consumer warpgroups (warps 0 .. 4·kWG-1, warpgroup-aligned), then one
+// producer warp.  A diagonal pair computes the whole square: the kernel is
+// bound by bytes, and sparing warpgroup 0 the columns its rows do not need
+// (m64n64) was tried and was not faster on an H100.
+template <int N, bool kPairs>
+__global__ void __launch_bounds__(128 * (N == 128 ? 2 : 1) + 32, 1)
+gram_partial_tma(const __grid_constant__ CUtensorMap xmap, const int4* __restrict__ plan,
+                 long long ntiles, float* __restrict__ partial) {
+  constexpr int kWG = N == 128 ? 2 : 1;  // consumer warpgroups, 64 rows each
+  constexpr int kBoxBytes = 64 * kWG * kTmaKT * 2;
+  constexpr int kStages = kRingBytes / kBoxBytes;  // half of them with two boxes a stage
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  extern __shared__ uint8_t dyn[];  // kRingBytes + 1024, aligned below
+  const uint32_t ring = (smem_u32(dyn) + 1023u) & ~1023u;
+  const Unit u = cta_unit<kPairs>(plan, ntiles);
+  const bool off = u.bi != u.bj;
+  const uint32_t stage_bytes = off ? 2 * kBoxBytes : kBoxBytes;
+  const int stages = kRingBytes / stage_bytes;
+  ring_init(full, empty, stages, 4 * kWG);
 
   // warpgroup index, from lane 0 so that the compiler knows it is uniform
   // across the warp (else it serialises the wgmma instructions)
   const int wg = __shfl_sync(0xffffffff, threadIdx.x / 128, 0);
   if (wg == kWG) {
-    // producer: one lane keeps the ring full.  Round r of stage s waits for
-    // the consumers' r-th release (parity (r & 1) ^ 1 passes at once for r = 0).
-    if (threadIdx.x == 128 * kWG) {
-      for (int i = 0; i < n; ++i) {
-        const int s = i % kStages;
-        mbar_wait(smem_u32(&empty[s]), ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(smem_u32(&full[s]), kTileBytes);  // the whole box, even at edges
-        tma_load_2d(ring + s * kTileBytes, &xmap, smem_u32(&full[s]),
-                    static_cast<int>((t0 + i) * kTmaKT));
-      }
-    }
+    if (threadIdx.x == 128 * kWG)
+      ring_produce(&xmap, full, empty, ring, stages, kBoxBytes, u, kTmaKT, 64 * kWG);
     return;
   }
 
@@ -492,18 +591,18 @@ gram_partial_tma(const __grid_constant__ CUtensorMap xmap, long long ntiles,
   float acc[N / 2], sum[N / 2];
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = sum[i] = 0.f;
-  for (int i = 0; i < n; ++i) {
-    const int s = i % kStages;
-    mbar_wait(smem_u32(&full[s]), (i / kStages) & 1);
-    const uint32_t tile = ring + s * kTileBytes;
-    const uint64_t da = sw128_desc(tile + wg * 64 * 128), db = sw128_desc(tile);
+  for (int i = 0, s = 0, ph = 0, prev = 0; i < u.n; ++i) {
+    mbar_wait(smem_u32(&full[s]), ph);
+    const uint32_t tile = ring + s * stage_bytes;
+    const uint64_t da = sw128_desc(tile + wg * 64 * 128);
+    const uint64_t db = sw128_desc(off ? tile + kBoxBytes : tile);
     fence_acc(acc);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < kTmaKT / 16; ++kk)  // 16 columns = 32 bytes = 2 units of 16
       wgmma_bf16<N>(acc, da + 2 * kk, db + 2 * kk, kk > 0 || i % kRun != 0);
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-    if (i % kRun == kRun - 1 || i == n - 1) {  // the run ends: fold it into sum
+    if (i % kRun == kRun - 1 || i == u.n - 1) {  // the run ends: fold it into sum
       asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
       fence_acc(acc);
 #pragma unroll
@@ -512,7 +611,9 @@ gram_partial_tma(const __grid_constant__ CUtensorMap xmap, long long ntiles,
       asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");  // tile i-1 is read
       fence_acc(acc);
     }
-    if (i > 0 && lane == 0) mbar_arrive(smem_u32(&empty[(i - 1) % kStages]));
+    if (i > 0 && lane == 0) mbar_arrive(smem_u32(&empty[prev]));  // one release per warp
+    prev = s;
+    if (++s == stages) s = 0, ph ^= 1;
   }
 
   // accumulator layout of m64nN: sum[4j + 2h + e] is entry (row, 8j + 2·(lane % 4) + e),
@@ -558,8 +659,10 @@ constexpr int kEncodeError = 10000;  // + the CUresult of a failed encode
 // A tensor map over the row-major (B, F) matrix at x, with elements of
 // `elem_bytes` bytes (F·elem_bytes a multiple of 16, x 16-byte aligned), and
 // a box of box_rows x box_cols; rows past B and columns past F read as zeros.
+// `promotion`: how far past a box row L2 fetches (see kPairPromotion).
 int encode_x(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const void* x, int B,
-             long long F, int box_rows, int box_cols, CUtensorMapSwizzle swizzle) {
+             long long F, int box_rows, int box_cols, CUtensorMapSwizzle swizzle,
+             CUtensorMapL2promotion promotion) {
   const EncodeTiled encode = tma_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(F), static_cast<cuuint64_t>(B)};
@@ -567,25 +670,29 @@ int encode_x(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes, const v
   const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(map, type, 2, const_cast<void*>(x), dims, strides, box, elem,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, promotion,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);  // out of bounds: zeros
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }
 
-template <int N>
-int launch_tma(const void* x, int B, long long F, int ctas, float* partial, cudaStream_t s) {
+// gram_partial_tma on `ctas` CTAs, over the units of `plan` (kPairs, N =
+// 128) or, without one, an even split of F.
+template <int N, bool kPairs>
+int launch_tma(const void* x, int B, long long F, const int* plan, int ctas, float* partial,
+               cudaStream_t s) {
   constexpr int kWG = N == 128 ? 2 : 1;
   constexpr int kSmem = kRingBytes + 1024;  // + room to align the ring to 1024 bytes
-  cudaError_t err = cudaFuncSetAttribute(gram_partial_tma<N>,
+  cudaError_t err = cudaFuncSetAttribute(gram_partial_tma<N, kPairs>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map;
   const int rc = encode_x(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, B, F, 64 * kWG, kTmaKT,
-                          CU_TENSOR_MAP_SWIZZLE_128B);
+                          CU_TENSOR_MAP_SWIZZLE_128B,
+                          kPairs ? kPairPromotion : CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
   if (rc != 0) return rc;
   const long long ntiles = (F + kTmaKT - 1) / kTmaKT;
-  gram_partial_tma<N><<<ctas, 128 * kWG + 32, kSmem, s>>>(map, ntiles, partial);
+  gram_partial_tma<N, kPairs><<<ctas, 128 * kWG + 32, kSmem, s>>>(
+      map, reinterpret_cast<const int4*>(plan), ntiles, partial);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -641,74 +748,70 @@ __device__ __forceinline__ void f32_step(float (&acc)[8][8], uint32_t a_addr, ui
   }
 }
 
-// Persistent CTA `blockIdx.x` of gridDim.x: partial[cta] = the lower-triangle
-// 8 x 8 blocks of the Gram of its tiles [t0, t1) of the ntiles tiles of X
-// (Bp rows of kCG 16-byte column groups; the upper blocks are not written,
-// nor, in diagonal blocks, the entries above the diagonal: gram_reduce
-// reads neither).
-// Threads: consumer warps, then one producer warp.  Consumer thread t owns
-// block t / groups of the triangle (threads past the last block idle) and,
-// in every tile, the column groups ≡ t (mod groups).  The diagonal blocks
-// come first, so they fill whole warps, and those warps take f32_step's
-// diagonal path: half the loads and 36 of 64 entries.  Warps 0 and 1, on
-// the two schedulers that also get a 4th consumer warp at Bp = 80, are such.
-template <int kCG>
+// Persistent CTA `blockIdx.x`: partial[cta] = the 8 x 8 blocks of the
+// products of its unit's tiles (cta_unit; Bp rows of kCG 16-byte column
+// groups per box) that gram_reduce reads.  A diagonal unit computes the
+// lower triangle of the Gram of its box: not the upper blocks, nor, in
+// diagonal blocks, the entries above the diagonal.  An off-diagonal pair
+// (Bp = 128) computes all 16 x 16 blocks of its two boxes.
+// Threads: consumer warps, then one producer warp.  Diagonal unit: consumer
+// thread t owns block t / groups of the triangle (threads past the last
+// block idle) and, in every tile, the column groups ≡ t (mod groups).  The
+// diagonal blocks come first, so they fill whole warps, and those warps
+// take f32_step's diagonal path: half the loads and 36 of 64 entries.
+// Warps 0 and 1, on the two schedulers that also get a 4th consumer warp at
+// Bp = 80, are such.  Off-diagonal pair: thread t owns block (t / 16,
+// t % 16) of box bi against box bj, alone (two threads a block would exceed
+// kF32MaxThreads).  Its tile is twice a diagonal one's FMAs and its pair has
+// twice the stride, so the CTAs' work per tile-step is balanced in FMAs as
+// the bf16 kernel's is in bytes.
+template <int kCG, bool kPairs>
 __global__ void __launch_bounds__(kF32MaxThreads, 1)
-gram_partial_f32_tma(const __grid_constant__ CUtensorMap xmap, int Bp, int groups, int stages,
-                     long long ntiles, float* __restrict__ partial) {
+gram_partial_f32_tma(const __grid_constant__ CUtensorMap xmap, const int4* __restrict__ plan,
+                     int Bp, int groups, long long ntiles, float* __restrict__ partial) {
   constexpr int kRowBytes = 16 * kCG;
   __shared__ __align__(8) uint64_t full[kMaxStages], empty[kMaxStages];
-  extern __shared__ uint8_t dyn[];  // stages tiles + 1024, aligned below
+  extern __shared__ uint8_t dyn[];  // the ring + 1024, aligned below
   const uint32_t ring = (smem_u32(dyn) + 1023u) & ~1023u;
-  const uint32_t tile_bytes = Bp * kRowBytes;
+  const Unit u = cta_unit<kPairs>(plan, ntiles);
+  const bool off = u.bi != u.bj;
+  const uint32_t box_bytes = Bp * kRowBytes, stage_bytes = off ? 2 * box_bytes : box_bytes;
+  const int stages = min(kMaxStages, static_cast<int>(kRingBytes / stage_bytes));
   const int consumers = blockDim.x / 32 - 1;  // warps
-  const long long t0 = blockIdx.x * ntiles / gridDim.x;
-  const int n = static_cast<int>((blockIdx.x + 1) * ntiles / gridDim.x - t0);
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(smem_u32(&full[s]), 1);            // the producer's expect_tx
-      mbar_init(smem_u32(&empty[s]), consumers);   // one per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  ring_init(full, empty, stages, consumers);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp == consumers) {
-    // producer: as in gram_partial_tma; round ph of a stage waits for the
-    // consumers' ph-th release
-    if (lane == 0) {
-      for (int i = 0, s = 0, ph = 0; i < n; ++i) {
-        mbar_wait(smem_u32(&empty[s]), ph ^ 1);
-        mbar_expect_tx(smem_u32(&full[s]), tile_bytes);  // the whole box, even at edges
-        tma_load_2d(ring + s * tile_bytes, &xmap, smem_u32(&full[s]),
-                    static_cast<int>((t0 + i) * 4 * kCG));
-        if (++s == stages) s = 0, ph ^= 1;
-      }
-    }
+    if (lane == 0) ring_produce(&xmap, full, empty, ring, stages, box_bytes, u, 4 * kCG, Bp);
     return;
   }
 
   const int nb = Bp / 8;
-  const bool active = threadIdx.x / groups < nb * (nb + 1) / 2;
+  if (off) groups = 1;
+  const int k = threadIdx.x / groups;
+  const bool active = k < (off ? nb * nb : nb * (nb + 1) / 2);
   int bi = 0, bj = 0;
-  if (active) tri_block(threadIdx.x / groups, nb, bi, bj);
+  if (active) {
+    if (off)
+      bi = k / nb, bj = k % nb;
+    else
+      tri_block(k, nb, bi, bj);
+  }
   // uniform across the warp (idle lanes hold (0, 0)), so no lane diverges
-  const bool diag = __all_sync(0xffffffffu, bi == bj);
-  const uint32_t a_off = 8 * bi * kRowBytes, b_off = 8 * bj * kRowBytes;
+  const bool diag = !off && __all_sync(0xffffffffu, bi == bj);
+  const uint32_t a_off = 8 * bi * kRowBytes, b_off = (off ? box_bytes : 0) + 8 * bj * kRowBytes;
   float acc[8][8];
 #pragma unroll
   for (int r = 0; r < 8; ++r)
 #pragma unroll
     for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
 
-  for (int i = 0, s = 0, ph = 0; i < n; ++i) {
+  for (int i = 0, s = 0, ph = 0; i < u.n; ++i) {
     mbar_wait(smem_u32(&full[s]), ph);
     if (active) {
-      const uint32_t tile = ring + s * tile_bytes;
-      for (int k = lane; k < lane + kCG; k += groups) {
-        const uint32_t col = 16 * (k & (kCG - 1));
+      const uint32_t tile = ring + s * stage_bytes;
+      for (int q = lane; q < lane + kCG; q += groups) {
+        const uint32_t col = 16 * (q & (kCG - 1));
         if (diag)
           f32_step<true, kRowBytes>(acc, tile + a_off + col, 0);
         else
@@ -722,11 +825,11 @@ gram_partial_f32_tma(const __grid_constant__ CUtensorMap xmap, int Bp, int group
 
   // the block's groups are neighbouring lanes: a butterfly adds their sums
   // in the same order on every run
-  for (int off = groups / 2; off > 0; off /= 2)
+  for (int o = groups / 2; o > 0; o /= 2)
 #pragma unroll
     for (int r = 0; r < 8; ++r)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], off);
+      for (int c = 0; c < 8; ++c) acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], o);
   if (active && threadIdx.x % groups == 0) {
     float* out = partial + static_cast<long long>(blockIdx.x) * Bp * Bp + 8 * bi * Bp + 8 * bj;
 #pragma unroll
@@ -739,25 +842,28 @@ gram_partial_f32_tma(const __grid_constant__ CUtensorMap xmap, int Bp, int group
   }
 }
 
-template <int kCG>
-int launch_f32_tma(const void* x, int B, long long F, int Bp, int groups, int ctas,
-                   float* partial, cudaStream_t s) {
+// gram_partial_f32_tma on `ctas` CTAs, over the units of `plan` (kPairs: Bp
+// = 128, kCG = 16, so 64-column tiles) or, without one, an even split of F.
+template <int kCG, bool kPairs>
+int launch_f32_tma(const void* x, int B, long long F, int Bp, int groups, const int* plan,
+                   int ctas, float* partial, cudaStream_t s) {
   const int nb = Bp / 8;
-  const int threads = 32 * ((nb * (nb + 1) / 2 * groups + 31) / 32 + 1);
-  const int tile_bytes = Bp * 16 * kCG;
-  const int stages = min(kMaxStages, kRingBytes / tile_bytes);
-  const int smem = stages * tile_bytes + 1024;  // + room to align the ring to 1024 bytes
+  const int consumers = max(kPairs ? nb * nb : 0, nb * (nb + 1) / 2 * groups);
+  const int threads = 32 * ((consumers + 31) / 32 + 1);
+  const int box_bytes = Bp * 16 * kCG;
+  const int smem = min(kMaxStages, kRingBytes / box_bytes) * box_bytes + 1024;  // + alignment
   if (threads > kF32MaxThreads) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(gram_partial_f32_tma<kCG>,
+  cudaError_t err = cudaFuncSetAttribute(gram_partial_f32_tma<kCG, kPairs>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap map;
   const int rc = encode_x(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, B, F, Bp, 4 * kCG,
-                          CU_TENSOR_MAP_SWIZZLE_NONE);
+                          CU_TENSOR_MAP_SWIZZLE_NONE,
+                          kPairs ? kPairPromotion : CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
   if (rc != 0) return rc;
   const long long ntiles = (F + 4 * kCG - 1) / (4 * kCG);
-  gram_partial_f32_tma<kCG><<<ctas, threads, smem, s>>>(map, Bp, groups, stages, ntiles,
-                                                        partial);
+  gram_partial_f32_tma<kCG, kPairs><<<ctas, threads, smem, s>>>(
+      map, reinterpret_cast<const int4*>(plan), Bp, groups, ntiles, partial);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -782,47 +888,65 @@ int cat_gram_bf16(const void* x, int B, long long F, long long chunk, int nchunk
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  gram_reduce<<<(B * B + 31) / 32, kThreads, 0, s>>>(p, nchunks, B, Bp, 0, static_cast<float*>(g));
+  gram_reduce<<<(B * B + 31) / 32, kThreads, 0, s>>>(p, nchunks, nullptr, B, Bp, 0,
+                                                     static_cast<float*>(g));
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (B, F) bf16, contiguous, F % 8 == 0, 16-byte aligned.  partial: ctas *
-// Bp * Bp floats (ctas: one per SM), Bp as for cat_gram_bf16.  g: (B, B)
-// floats.  Returns a CUDA error code, or 10000 + the CUresult of a failed
-// tensor-map encode.
-int cat_gram_bf16_tma(const void* x, int B, long long F, int ctas, void* partial, void* g,
-                      void* stream) {
+// x: (B, F) bf16, contiguous, F % 8 == 0, 16-byte aligned.  B <= 128:
+// plan null, ctas one per SM, partial ctas * Bp * Bp floats, Bp as for
+// cat_gram_bf16.  B > 128: plan int32 on the device, `ctas` rows of (bi, bj,
+// first tile, tile stride), then the n(n+1)/2 + 1 starts of the pairs' rows
+// (distill/ka.py::_pair_plan), and partial ctas * 128 * 128 floats.  g: (B,
+// B) floats, exactly symmetric past 128 rows.  Returns a CUDA error code, or
+// 10000 + the CUresult of a failed tensor-map encode.
+int cat_gram_bf16_tma(const void* x, int B, long long F, const void* plan, int ctas,
+                      void* partial, void* g, void* stream) {
+  const auto* pl = static_cast<const int*>(plan);
+  if (B < 1 || ctas < 1 || (pl != nullptr) != (B > kMaxB))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int Bp = B <= 16 ? 16 : B <= 32 ? 32 : B <= 64 ? 64 : 128;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
   int rc;
   switch (Bp) {
-    case 16: rc = launch_tma<16>(x, B, F, ctas, p, s); break;
-    case 32: rc = launch_tma<32>(x, B, F, ctas, p, s); break;
-    case 64: rc = launch_tma<64>(x, B, F, ctas, p, s); break;
-    default: rc = launch_tma<128>(x, B, F, ctas, p, s); break;
+    case 16: rc = launch_tma<16, false>(x, B, F, nullptr, ctas, p, s); break;
+    case 32: rc = launch_tma<32, false>(x, B, F, nullptr, ctas, p, s); break;
+    case 64: rc = launch_tma<64, false>(x, B, F, nullptr, ctas, p, s); break;
+    default:
+      rc = pl != nullptr ? launch_tma<128, true>(x, B, F, pl, ctas, p, s)
+                         : launch_tma<128, false>(x, B, F, nullptr, ctas, p, s);
   }
   if (rc != 0) return rc;
-  gram_reduce<<<(B * B + 31) / 32, kThreads, 0, s>>>(p, ctas, B, Bp, 0, static_cast<float*>(g));
+  const long long entries = static_cast<long long>(B) * B;
+  gram_reduce<<<static_cast<unsigned>((entries + 31) / 32), kThreads, 0, s>>>(
+      p, ctas, pl != nullptr ? pl + 4 * ctas : nullptr, B, Bp, pl != nullptr,
+      static_cast<float*>(g));
   return static_cast<int>(cudaGetLastError());
 }
 
 // x: (B, F) float32, contiguous, F % 4 == 0, 16-byte aligned.  Bp: B rounded
-// up to a multiple of 8.  groups: threads per 8 x 8 block of the triangle, 1,
-// 2, 4, 8, 16 or 32 (32 takes 128-column tiles, the others 64), with at
-// most 480 consumer threads.  partial: ctas * Bp * Bp floats.  g: (B, B)
-// floats, exactly symmetric.  Returns a CUDA error code, or 10000 + the
-// CUresult of a failed tensor-map encode.
-int cat_gram_f32_tma(const void* x, int B, long long F, int Bp, int groups, int ctas,
-                     void* partial, void* g, void* stream) {
-  if (B < 1 || Bp < B || Bp > kMaxB || Bp % 8 != 0 || groups < 1 || 32 % groups != 0 || ctas < 1)
+// up to a multiple of 8, or 128 with a plan.  groups: threads per 8 x 8
+// block of the triangle (of a diagonal pair's, with a plan), 1, 2, 4, 8, 16
+// or 32 (32 takes 128-column tiles, the others 64), with at most 480
+// consumer threads.  plan and ctas as for cat_gram_bf16_tma.  partial: ctas
+// * Bp * Bp floats.  g: (B, B) floats, exactly symmetric.  Returns a CUDA
+// error code, or 10000 + the CUresult of a failed tensor-map encode.
+int cat_gram_f32_tma(const void* x, int B, long long F, int Bp, int groups, const void* plan,
+                     int ctas, void* partial, void* g, void* stream) {
+  const auto* pl = static_cast<const int*>(plan);
+  const bool rows_ok = pl != nullptr ? B > kMaxB && Bp == kMaxB : B <= Bp && Bp <= kMaxB;
+  if (B < 1 || !rows_ok || Bp % 8 != 0 || groups < 1 || 32 % groups != 0 || ctas < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* p = static_cast<float*>(partial);
-  const int rc = groups == 32 ? launch_f32_tma<32>(x, B, F, Bp, groups, ctas, p, s)
-                              : launch_f32_tma<16>(x, B, F, Bp, groups, ctas, p, s);
+  const int rc = pl != nullptr ? launch_f32_tma<16, true>(x, B, F, Bp, groups, pl, ctas, p, s)
+                 : groups == 32 ? launch_f32_tma<32, false>(x, B, F, Bp, groups, pl, ctas, p, s)
+                                : launch_f32_tma<16, false>(x, B, F, Bp, groups, pl, ctas, p, s);
   if (rc != 0) return rc;
-  gram_reduce<<<(B * B + 31) / 32, kThreads, 0, s>>>(p, ctas, B, Bp, 1, static_cast<float*>(g));
+  const long long entries = static_cast<long long>(B) * B;
+  gram_reduce<<<static_cast<unsigned>((entries + 31) / 32), kThreads, 0, s>>>(
+      p, ctas, pl != nullptr ? pl + 4 * ctas : nullptr, B, Bp, 1, static_cast<float*>(g));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -836,7 +960,8 @@ int cat_gram_f32(const void* x, int B, long long F, long long chunk, int nchunks
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   gram_reduce<<<(B * B + 31) / 32, kThreads, 0, s>>>(static_cast<const float*>(partial),
-                                                     nchunks, B, B, 0, static_cast<float*>(g));
+                                                     nchunks, nullptr, B, B, 0,
+                                                     static_cast<float*>(g));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,16 +16,23 @@ Phases, in order; any failure exits non-zero before the result line:
      mma.sync kernel, both at the step's shapes and the latter also at an
      F % 8 != 0 shape.  The f32 Gram: the TMA + FMA kernel (bit-identity
      and exact symmetry checked) and the old FMA kernel, both at the step's
-     shapes and the latter also at an F % 4 != 0 shape.  Both dtypes at
-     B = 256 on the teacher tap's F (the blocked dispatch: 6 launches on
-     pairs of 64-row blocks), checked for G == Gᵀ and timed;
+     shapes and the latter also at an F % 4 != 0 shape.  Past 128 rows, the
+     pair kernels of both dtypes (one launch over all pairs of 128-row
+     blocks): at B = 256 on the teacher's and the student's tap, checked
+     (one launch, G == Gᵀ exactly, two calls bit-identical, the plain
+     version's result), the teacher's timed; at B = 300 (a ragged last
+     block) in place and on a padded copy (F % 8 != 0), checked only;
   3. reference: one float32 KA-distillation step at a tiny size on the card
-     (kernels) and on the CPU (plain versions), losses compared;
+     (kernels) and on the CPU (plain versions), losses compared, at batch 2
+     and at batch 130 (4 launches of the float32 pair kernel);
   4. flagship: the horse2zebra KA-distillation step of ``bench.py`` (teacher
      ngf 64 / r6 / kernels 1,3,5; student shrunk to 2.6e9 MACs; 256 px;
      unaligned lsgan + KA over encode, block2, block5, block8; bf16 compute,
      float32 masters; packed blocks) at full width: 1 warm-up + 3 timed steps,
-     the Gram's TMA kernel launched 8 times per step;
+     the Gram's TMA kernel launched 8 times per step; 4b: the same step at
+     batch 256, 1 warm-up + 1 timed step, the bf16 pair kernel launched 8
+     times per step; 4c: 4b in float32 (TF32 off), the float32 pair kernel
+     launched 8 times per step;
   5. fused norms: the same step with ``fused_norms=True`` for 2 steps, the
      norm kernel launched once per ConvNormAct (6 per step);
   6. distill verb: ``entry.distill_main`` with the flags of
@@ -78,8 +85,9 @@ VERB_BATCH = 80  # the student recipe's batch
 VERB_IMAGES = 160  # per side: 2 steps per epoch
 VERB_EPOCHS = 4
 VAL_IMAGES = {"valA": 120, "valB": 140}  # horse2zebra's test split
-BLOCKED_BATCH = 256  # a batch past the kernels' 128 rows
-TEACHER_F = 64 * 64 * 256  # the teacher tap's features at 256 px
+PAIRS_BATCH = 256  # a batch past 128 rows: the pair kernels' (phases 2, 4b and 4c)
+PAIRS_STEPS = 2  # phases 4b and 4c: 1 warm-up + 1 timed step
+REF_PAIRS_BATCH = 130  # phase 3's second tiny float32 step
 SLEEP_CYCLES = 4_000_000  # ~2 ms at 1.98 GHz: the host enqueues timed work meanwhile
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 FMA
@@ -209,47 +217,60 @@ def gram_numbers(xs, flush, card, expect_path: str, compare_mma: bool = False):
     return tot
 
 
-def gram_blocked_numbers(x, flush, card):
-    """The Gram of a (256, F) operand through the blocked dispatch: its
-    launches (one per pair of 64-row blocks), exact symmetry, the plain
-    version's result, and kernel, plain, library and bound times per call."""
+def gram_pairs_numbers(x, flush, card, time_it=True):
+    """The Gram of a (B, F) operand, B > 128, through the pair kernel of its
+    dtype: one launch, the plain version's result (``gram_pairs_plain``)
+    within 1e-5 of the largest entry, G == Gᵀ exactly, two calls
+    bit-identical; with ``time_it``, kernel, plain, library and bound times
+    per call."""
     import torch
 
     from cat_tpu_torch.distill import ka
 
     b, f = x.shape
     dname = str(x.dtype).split(".")[-1]
-    if ka._gram_path(b, f, x.dtype, x.data_ptr() % 16 == 0) != "blocked":
-        fail(f"gram {dname} B = {b}: the blocked dispatch was not selected")
-    n = -(-b // 64)
-    before = ka.launches
+    path = "f32tma_pairs" if x.dtype == torch.float32 else "tma_pairs"
+    if ka._gram_path(b, f, x.dtype, x.data_ptr() % 16 == 0) != path:
+        fail(f"gram {dname} B = {b}: the {path!r} kernel was not selected")
+    copy = ka._pair_copy_width(f, x.dtype, x.data_ptr() % 16 == 0)
+    before, on_path = ka.launches, ka.path_launches[path]
     got = ka.gram_cuda(x)
     torch.cuda.synchronize()
     launches = ka.launches - before
-    if launches != n * (n - 1) // 2:
-        fail(f"gram {dname} B = {b}: {launches} launches, expected {n * (n - 1) // 2}")
+    if launches != 1 or ka.path_launches[path] - on_path != 1:
+        fail(f"gram {dname} B = {b}: {launches} launches, expected one of {path!r}")
     if not torch.equal(got, got.T):
-        fail(f"gram {dname} B = {b}: the blocked result is not exactly symmetric")
-    err = _check_gram(got, ka.gram_plain(x), f"{dname} blocked B = {b}")
+        fail(f"gram {dname} B = {b}: the {path} result is not exactly symmetric")
+    if not torch.equal(got, ka.gram_cuda(x)):
+        fail(f"gram {dname} B = {b}: two calls of the {path} kernel differ")
+    err = _check_gram(got, ka.gram_pairs_plain(x), f"{dname} {path} B = {b} F = {f}")
     del got
+    where = "in place" if copy is None else f"a zero-padded copy of width {copy}"
+    if not time_it:
+        log(f"gram {path} {dname} B={b} F={f} ({where}): one launch, max|err| {err:.3g}, "
+            f"G == Gᵀ exactly, two calls bit-identical")
+        return None
     if x.dtype == torch.float32:
         lib_name, library = "torch.matmul(x, x.T)", lambda: torch.matmul(x, x.T)
     else:
         lib_name = "torch.mm(x, x.T, out_dtype=float32)"
         library = lambda: torch.mm(x, x.T, out_dtype=torch.float32)  # noqa: E731
-    ms = timed(lambda: ka.gram_cuda(x), flush=flush, iters=5)
-    plain = timed(lambda: ka.gram_plain(x), flush=flush, iters=5)
-    lib = timed(library, flush=flush, iters=5)
+    # in turns, kernel first and last
+    ms = timed(lambda: ka.gram_cuda(x), flush=flush)
+    lib = timed(library, flush=flush)
+    plain = timed(lambda: ka.gram_pairs_plain(x), flush=flush, iters=5)
+    ms2 = timed(lambda: ka.gram_cuda(x), flush=flush)
     bytes_ms = 1e3 * (b * f * x.element_size() + b * b * 4) / HBM_BYTES_PER_S
     ops_ms = 1e3 * b * (b + 1) * f / PEAK_FLOPS[dname]
     bound = max(bytes_ms, ops_ms)
-    log(f"gram blocked {dname:8s} B={b} F={f}: {launches} launches, kernels {ms:.4f} ms "
+    log(f"gram {path} {dname:8s} B={b} F={f} ({where}): kernel {ms:.4f}, {ms2:.4f} ms "
         f"({100 * bound / ms:.1f}% of bound), plain {plain:.4f} ms, {lib_name} {lib:.4f} ms, "
         f"bound {bound:.4f} ms ({'bytes' if bytes_ms >= ops_ms else 'ops'}), max|err| "
-        f"{err:.3g}, G == Gᵀ exactly [{card}]")
-    return {"launches_per_call": launches, "ms": ms, "plain_ms": plain, "library_ms": lib,
-            "bound_ms": bound, "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": err}
+        f"{err:.3g}, one launch, G == Gᵀ exactly, two calls bit-identical [{card}]")
+    return {"b": b, "f": f, "launches_per_call": launches, "ms": ms, "ms_again": ms2,
+            "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bound, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "err": err}
 
 
 def check_kernels(dev, t_channels, s_channels, card):
@@ -289,11 +310,18 @@ def check_kernels(dev, t_channels, s_channels, card):
             fail(f"gram: {dtype} with F = {f} did not select the {path!r} kernel")
         err = _check_gram(ka.gram_cuda(x), ka.gram_plain(x), f"{dtype} {path} F = {f}")
         log(f"gram {path} kernel on {tuple(x.shape)} {dtype}: max|err| {err:.3g}")
-    # a batch past the kernels' 128 rows, on the teacher tap's F
+    # batches past 128 rows: the pair kernels at B = 256 on both taps'
+    # shapes, the teacher's timed; B = 300 (a ragged last block of 44 rows),
+    # in place and, with F % 8 != 0, on the padded copy, for correctness only
     for dtype in (torch.bfloat16, torch.float32):
-        x = torch.randn(BLOCKED_BATCH, TEACHER_F, generator=gen, device=dev).relu_().to(dtype)
-        out[("gram_blocked", str(dtype).split(".")[-1])] = gram_blocked_numbers(x, flush, card)
-        del x
+        for b, f, time_it in ((PAIRS_BATCH, 64 * 64 * bc[0], True),
+                              (PAIRS_BATCH, 64 * 64 * bc[1], False),
+                              (300, 64 * 64 * bc[0], False), (300, 4096 * 3 + 2, False)):
+            x = torch.randn(b, f, generator=gen, device=dev).relu_().to(dtype)
+            res = gram_pairs_numbers(x, flush, card, time_it)
+            if time_it:
+                out[("gram_pairs", str(dtype).split(".")[-1])] = res
+            del x
 
     # --- instance norm + affine + relu at stem / down0 / down1, both nets
     planes = [(c, SIZE >> j) for channels in (t_channels, s_channels)
@@ -346,13 +374,15 @@ def check_kernels(dev, t_channels, s_channels, card):
 # ---------------------------------------------------------------------------
 
 
-def reference_check(dev):
+def reference_check(dev, batch=2):
     """One float32 step at a tiny size on the card and on the CPU, from the
     same weights and batch: the kernels in context against the plain
-    versions."""
+    versions.  Returns the card step's Gram launches by path (batch > 128:
+    the f32 pair kernel; the CPU takes ``gram_pairs_plain``)."""
     import torch
 
     from cat_tpu_torch.core.config import InceptionGeneratorConfig, NLayerDiscriminatorConfig
+    from cat_tpu_torch.distill import ka
     from cat_tpu_torch.distill.inception_distiller import DistillHParams, InceptionDistiller
     from cat_tpu_torch.models.generator import InceptionGenerator
 
@@ -364,19 +394,29 @@ def reference_check(dev):
     hp = DistillHParams(dataset_mode="unaligned", gan_mode="lsgan", lambda_recon=5.0,
                         mapping_layers=("encode", "block1"), fused_norms=True,
                         packed_blocks=False)
-    x = torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(2))
-    batch = {"A": x, "B": x.flip(0)}
+    x = torch.randn(batch, 3, 32, 32, generator=torch.Generator().manual_seed(2))
+    batch_ = {"A": x, "B": x.flip(0)}
     losses = []
     for d in (dev, torch.device("cpu")):
         dist = InceptionDistiller(cfg(8), cfg(4), NLayerDiscriminatorConfig(ndf=8), hp, d)
         state, tp = dist.init_state(teacher.state_dict(), seed=3)
-        _, m = dist.train_step(state, tp, {k: v.to(d) for k, v in batch.items()}, LR)
+        if d == dev:
+            torch.cuda.synchronize()
+            ka.launches = 0
+            ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
+        _, m = dist.train_step(state, tp, {k: v.to(d) for k, v in batch_.items()}, LR)
+        if d == dev:
+            torch.cuda.synchronize()
+            counts = {"gram": ka.launches, **{p: n for p, n in ka.path_launches.items() if n}}
         losses.append({k: float(v) for k, v in m.items()})
     for k in losses[1]:
         # float32 throughout (TF32 off): sums in another order only
         if not math.isclose(losses[0][k], losses[1][k], rel_tol=1e-4, abs_tol=1e-5):
-            fail(f"tiny f32 step, {k}: card {losses[0][k]!r} vs CPU {losses[1][k]!r}")
-    log(f"reference: tiny f32 step on the card matches the CPU's (rtol 1e-4): {losses[0]}")
+            fail(f"tiny f32 step at batch {batch}, {k}: card {losses[0][k]!r} vs CPU "
+                 f"{losses[1][k]!r}")
+    log(f"reference: tiny f32 step at batch {batch} on the card matches the CPU's (rtol 1e-4), "
+        f"Gram launches {counts}: {losses[0]}")
+    return counts
 
 
 def flagship():
@@ -408,7 +448,7 @@ def flagship():
 
 
 def run_steps(dev, teacher_cfg, teacher_sd, student_cfg, fused, n_steps, card,
-              profile_steps=0):
+              profile_steps=0, batch_size=BATCH, compute_dtype="bfloat16"):
     import torch
 
     from cat_tpu_torch.distill import ka
@@ -416,12 +456,12 @@ def run_steps(dev, teacher_cfg, teacher_sd, student_cfg, fused, n_steps, card,
     from cat_tpu_torch.ops import instance_norm as inorm
 
     hp = DistillHParams(dataset_mode="unaligned", gan_mode="lsgan", distill_loss_type="ka",
-                        lambda_recon=5.0, lambda_distill=1.0, compute_dtype="bfloat16",
+                        lambda_recon=5.0, lambda_distill=1.0, compute_dtype=compute_dtype,
                         fused_norms=fused, packed_blocks=True)
     dist = InceptionDistiller(teacher_cfg, student_cfg, hp=hp, device=dev)
     state, tparams = dist.init_state(teacher_sd, seed=0)
     gen = torch.Generator(device=dev).manual_seed(1)
-    batch = {k: torch.randn(BATCH, 3, SIZE, SIZE, generator=gen, device=dev) for k in "AB"}
+    batch = {k: torch.randn(batch_size, 3, SIZE, SIZE, generator=gen, device=dev) for k in "AB"}
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
@@ -435,6 +475,8 @@ def run_steps(dev, teacher_cfg, teacher_sd, student_cfg, fused, n_steps, card,
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     counts = {"gram": ka.launches, "gram_tma": ka.path_launches["tma"],
+              "gram_tma_pairs": ka.path_launches["tma_pairs"],
+              "gram_f32tma_pairs": ka.path_launches["f32tma_pairs"],
               "instance_norm_act": inorm.launches}
 
     vals = {k: float(v) for k, v in metrics.items()}
@@ -929,8 +971,13 @@ def main() -> None:
     teacher_cfg, teacher_sd, res = flagship()
     kern = check_kernels(dev, teacher_cfg.ds_channels, res.config.ds_channels, card)
 
-    # --- 3. a small step against the CPU
+    # --- 3. small steps against the CPU: batch 2, and batch 130 through the
+    # f32 pair kernel (4 launches: two taps, teacher and student)
     reference_check(dev)
+    ref_pairs = reference_check(dev, REF_PAIRS_BATCH)
+    if ref_pairs.get("f32tma_pairs", 0) != 4 or ref_pairs["gram"] != 4:
+        fail(f"tiny f32 step at batch {REF_PAIRS_BATCH}: Gram launches {ref_pairs}, expected 4, "
+             "all 'f32tma_pairs'")
 
     # --- 4. the flagship step
     log(f"flagship step at batch {BATCH} (as bench.py), {SIZE} px, bf16, packed blocks")
@@ -948,6 +995,34 @@ def main() -> None:
         log(f"flagship: device idle {100 * max(0.0, 1 - busy_ms / (step_s * 1e3)):.1f}% "
             "(profiled device-busy time per step against the unprofiled step time)")
     gram_launches = counts["gram"]
+
+    # --- 4b. the flagship step at batch 256: its Grams take the bf16 pair kernel
+    times_p, counts_p, vals_p, mem_p, _ = run_steps(dev, teacher_cfg, teacher_sd, res.config,
+                                                    False, PAIRS_STEPS, card,
+                                                    batch_size=PAIRS_BATCH)
+    if counts_p["gram"] != 8 * PAIRS_STEPS or counts_p["gram_tma_pairs"] != counts_p["gram"]:
+        fail(f"batch-{PAIRS_BATCH} step: Gram kernels launched {counts_p['gram']} times in "
+             f"{PAIRS_STEPS} steps, {counts_p['gram_tma_pairs']} of them the pair kernel; "
+             "expected 8 per step, all 'tma_pairs'")
+    step_p = sum(times_p[1:]) / (PAIRS_STEPS - 1)
+    log(f"flagship at batch {PAIRS_BATCH}: {step_p * 1e3:.1f} ms/step, "
+        f"{PAIRS_BATCH / step_p:.1f} images/s (warm-up step {times_p[0] * 1e3:.0f} ms), peak "
+        f"memory {mem_p / 2**30:.2f} GiB, launches {counts_p}, losses {vals_p} [{card}]")
+
+    # --- 4c. the same in float32: its Grams take the float32 pair kernel
+    torch.cuda.empty_cache()
+    times_q, counts_q, vals_q, mem_q, _ = run_steps(dev, teacher_cfg, teacher_sd, res.config,
+                                                    False, PAIRS_STEPS, card,
+                                                    batch_size=PAIRS_BATCH,
+                                                    compute_dtype="float32")
+    if counts_q["gram"] != 8 * PAIRS_STEPS or counts_q["gram_f32tma_pairs"] != counts_q["gram"]:
+        fail(f"float32 batch-{PAIRS_BATCH} step: Gram kernels launched {counts_q['gram']} times "
+             f"in {PAIRS_STEPS} steps, {counts_q['gram_f32tma_pairs']} of them the pair kernel; "
+             "expected 8 per step, all 'f32tma_pairs'")
+    step_q = sum(times_q[1:]) / (PAIRS_STEPS - 1)
+    log(f"flagship at batch {PAIRS_BATCH}, float32 (TF32 off): {step_q * 1e3:.1f} ms/step, "
+        f"{PAIRS_BATCH / step_q:.1f} images/s (warm-up step {times_q[0] * 1e3:.0f} ms), peak "
+        f"memory {mem_q / 2**30:.2f} GiB, launches {counts_q}, losses {vals_q} [{card}]")
 
     # --- 5. the fused-norm step
     times_f, counts_f, vals_f, _, _ = run_steps(dev, teacher_cfg, teacher_sd, res.config,
@@ -982,11 +1057,12 @@ def main() -> None:
 
     gram_src = ("cat_tpu_torch/csrc/gram.cu", "cat_tpu/distill/ka.py:51")
     per = f"one training step's launches at batch {BATCH}, bf16"
+    pairs = {d: kern[("gram_pairs", d)] for d in ("bfloat16", "float32")}
     rows = [
         {**row("gram", *gram_src, gram_launches, kern[("gram", "bfloat16")], per),
          "mma_sync_ms": kern[("gram", "bfloat16")]["mma_sync_ms"],
          "bound_full_square_ms": kern[("gram", "bfloat16")]["bound_full_square_ms"],
-         "blocked_b256": kern[("gram_blocked", "bfloat16")]},
+         "pairs_b256": pairs["bfloat16"]},
         row("instance_norm_act", "cat_tpu_torch/csrc/instance_norm.cu",
             "cat_tpu/ops/pallas_norm.py:35", counts_f["instance_norm_act"],
             kern[("instance_norm_act", "bfloat16")], per),
@@ -1003,7 +1079,15 @@ def main() -> None:
                        f"four taps' launches at batch {BATCH}, float32 (phase 2's operands; "
                        f"launches are the f32tma kernel's in phase 6 (a))"),
                  "fma_ms": f32["fma_ms"], "bound_full_square_ms": f32["bound_full_square_ms"],
-                 "blocked_b256": kern[("gram_blocked", "float32")]})
+                 "pairs_b256": pairs["float32"]})
+    # the pair kernels: one call at B = 256 on the teacher tap's F; launches
+    # from phase 4b's (bf16) and 4c's (float32) steps at batch 256
+    for dname, n, phase in (("bfloat16", counts_p["gram_tma_pairs"], "4b"),
+                            ("float32", counts_q["gram_f32tma_pairs"], "4c")):
+        k = pairs[dname]
+        rows.append(row(f"gram pairs ({dname}, B > 128)", *gram_src, n, k,
+                        f"one call at B = {k['b']}, F = {k['f']} (the teacher tap); launches: "
+                        f"phase {phase}'s {PAIRS_STEPS} steps at batch {PAIRS_BATCH}"))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -140,15 +140,54 @@ def test_gram_f32_fma_kernel_matches_plain(cuda, b, f):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b, f", [(129, 64 * 64 * 40), (256, 64 * 64 * 58), (300, 4096 * 3 + 4)])
 def test_gram_past_128_rows_goes_through_the_kernels(cuda, b, f, dtype):
-    """B > 128: n(n-1)/2 launches of the kernels on pairs of 64-row blocks,
-    the plain version's result within float32 rounding, exactly symmetric."""
+    """B > 128: one launch of the pair kernel of the dtype (all pairs of
+    128-row blocks), the plain versions' result within float32 rounding,
+    exactly symmetric."""
     gen = torch.Generator(device=cuda).manual_seed(b)
     x = torch.randn(b, f, generator=gen, device=cuda).to(dtype)
-    before = tka.launches
+    path = "f32tma_pairs" if dtype == torch.float32 else "tma_pairs"
+    before, on_path = tka.launches, tka.path_launches[path]
     got = tka.gram_cuda(x)
     torch.cuda.synchronize()
-    n = -(-b // 64)
-    assert tka.launches == before + n * (n - 1) // 2
+    assert tka.launches == before + 1 and tka.path_launches[path] == on_path + 1
+    assert torch.equal(got, got.T)
+    _assert_gram_close(got, x)
+    # the pair kernels' own plain version: the same blocks, the same mirroring
+    ref = tka.gram_pairs_plain(x)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [129, 256, 300])
+def test_gram_pair_kernels_are_bit_reproducible_and_symmetric(cuda, b, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(b + 1)
+    x = torch.randn(b, 64 * 64 * 40, generator=gen, device=cuda).to(dtype)
+    first = tka.gram_cuda(x)
+    second = tka.gram_cuda(x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, first.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, f", [(torch.bfloat16, 4096 * 3 + 4), (torch.float32, 4096 * 3 + 2),
+                                      (torch.bfloat16, 4096), (torch.float32, 4096)])
+def test_gram_pair_kernels_take_a_padded_copy(cuda, dtype, f):
+    """An operand TMA cannot map at B > 128 (a row of F·itemsize bytes not a
+    multiple of 16, or a base not 16-byte aligned) is copied zero-padded
+    and goes to the same pair kernel, once."""
+    b = 200
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    flat = torch.randn(b * f + 8, generator=gen, device=cuda).to(dtype)
+    # F % 8 == 0: take X one element past an aligned base
+    x = flat[:b * f].view(b, f) if f % 8 else flat[1:1 + b * f].view(b, f)
+    assert tka._pair_copy_width(f, dtype, x.data_ptr() % 16 == 0) is not None
+    path = "f32tma_pairs" if dtype == torch.float32 else "tma_pairs"
+    before = tka.path_launches[path]
+    got = tka.gram_cuda(x)
+    torch.cuda.synchronize()
+    assert tka.path_launches[path] == before + 1
     assert torch.equal(got, got.T)
     _assert_gram_close(got, x)
 

@@ -115,9 +115,12 @@ _BF16, _F32 = torch.bfloat16, torch.float32
     (80, 64 * 64 * 58, _F32, True, "f32tma"),   # and its student tap
     (80, 4096 * 3 + 2, _F32, True, "f32"),      # row stride not a multiple of 16 bytes
     (80, 4096, _F32, False, "f32"),             # base address not 16-byte aligned
-    (129, 4096, _F32, True, "blocked"),         # B past 128: pairs of 64-row blocks
-    (129, 4096, _BF16, True, "blocked"),
-    (300, 4096 * 3 + 2, _F32, False, "blocked"),
+    (129, 4096, _F32, True, "f32tma_pairs"),    # B past 128: pairs of 128-row blocks
+    (129, 4096, _BF16, True, "tma_pairs"),
+    (300, 4096 * 3 + 2, _F32, False, "f32tma_pairs"),
+    (256, 64 * 64 * 256, _BF16, True, "tma_pairs"),  # the teacher's tap at batch 256
+    (200, 4096 * 3 + 4, _BF16, True, "tma_pairs"),   # ragged F: a padded copy
+    (256, 4096, _BF16, False, "tma_pairs"),          # unaligned base: a padded copy
     (0, 4096, _BF16, True, ValueError),
     (16, 4096, torch.float16, True, ValueError),
 ])
@@ -145,38 +148,76 @@ def test_f32_tma_plan(b, bp, groups, warps):
     assert -(-blocks * groups // 32) == warps
 
 
+@pytest.mark.parametrize("b, f, dtype, aligned, width", [
+    (256, 64 * 64 * 256, _BF16, True, None),     # read in place
+    (129, 4096 * 3 + 4, _F32, True, None),       # f32 needs F % 4 == 0 only
+    (200, 4096 * 3 + 4, _BF16, True, 4096 * 3 + 8),
+    (300, 4096 * 3 + 2, _F32, True, 4096 * 3 + 8),
+    (256, 4096, _BF16, False, 4096),             # unaligned base: copied, same width
+    (300, 4096 * 3 + 2, _F32, False, 4096 * 3 + 8),
+])
+def test_pair_operand_copy_rules(b, f, dtype, aligned, width):
+    """Past 128 rows an operand TMA cannot map is copied once, zero-padded
+    to a width that is a multiple of 8, and goes to the same pair kernel."""
+    assert tka._gram_path(b, f, dtype, aligned) in tka._PAIR_PATHS
+    assert tka._pair_copy_width(f, dtype, aligned) == width
+
+
+@pytest.mark.parametrize("b, sms, ctas", [
+    (129, 132, 132),   # 2 blocks: 33 CTAs per diagonal pair, 66 for the other
+    (256, 132, 132),
+    (300, 132, 126),   # 3 blocks: 14 CTAs per unit of weight
+    (300, 8, 9),       # fewer SMs than n²: one per diagonal pair, two per other
+    (1500, 132, 144),  # 12 blocks: more CTAs than SMs, in two waves
+])
+def test_pair_plan_covers_every_tile_once(b, sms, ctas):
+    """The pair kernels' work units (one CTA each): every (pair, 64-column
+    tile) exactly once, pairs in order p = i(i+1)/2 + j with their units
+    contiguous, an off-diagonal pair twice a diagonal pair's units, and the
+    same plan on every call."""
+    units, starts = tka._pair_plan(b, sms)
+    assert len(units) == ctas and starts[-1] == ctas
+    assert (units, starts) == tka._pair_plan(b, sms)
+    n = -(-b // 128)
+    pairs = [(i, j) for i in range(n) for j in range(i + 1)]
+    assert len(starts) == len(pairs) + 1
+    ntiles = 1000  # not a multiple of any stride
+    for p, (i, j) in enumerate(pairs):
+        mine = units[starts[p]:starts[p + 1]]
+        assert all((u[0], u[1]) == (i, j) for u in mine)
+        assert len(mine) == (1 if i == j else 2) * len(units[starts[0]:starts[1]])
+        tiles = sorted(t for u in mine for t in range(u[2], ntiles, u[3]))
+        assert tiles == list(range(ntiles))
+
+
 @pytest.mark.parametrize("dtype", [_F32, _BF16])
 @pytest.mark.parametrize("b", [129, 200, 256, 300])
 def test_gram_blocked_dispatch(rng, b, dtype):
-    """B > 128: the Gram from one launch per pair of 64-row blocks, each on
-    a contiguous operand of at most 128 rows; X·Xᵀ within float32 rounding
-    (rtol 1e-5), exactly symmetric, n(n-1)/2 launches for n = ⌈B/64⌉."""
+    """B > 128 on the CPU (``gram``'s path for a CPU tensor, the pair
+    kernels' plain version): X·Xᵀ against float64 within float32 rounding
+    (rtol 1e-5), exactly symmetric, reproducible."""
     x = torch.from_numpy(rng.randn(b, 96).astype(np.float32)).to(dtype)
-    seen = []
-
-    def launch(op):
-        assert op.shape[0] <= 128 and op.is_contiguous() and op.dtype == dtype
-        seen.append(op.shape[0])
-        return tka.gram_plain(op)
-
-    got = tka.gram_blocked(x, launch)
-    n = -(-b // 64)
-    assert len(seen) == n * (n - 1) // 2
+    got = tka.gram(x)
     assert got.dtype == torch.float32 and torch.equal(got, got.T)
     xd = x.double()
     np.testing.assert_allclose(got.numpy(), (xd @ xd.T).numpy(), rtol=1e-5, atol=1e-4)
-    assert torch.equal(tka.gram_blocked(x, launch), got)  # reproducible
+    assert torch.equal(tka.gram(x), got)  # reproducible
 
 
-def test_ka_past_128_rows_matches_pallas_interpret(rng):
-    """KA at B = 130 through the blocked dispatch (the plain version per
-    launch on the CPU) against the JAX package's Pallas Gram, which takes any
-    B, in interpret mode."""
-    x = rng.randn(130, 40).astype(np.float32)
-    y = rng.randn(130, 24).astype(np.float32)
+@pytest.mark.parametrize("b", [129, 130, 200, 256, 300])
+def test_ka_past_128_rows_matches_pallas_interpret(rng, b):
+    """Past 128 rows, the pair kernels' plain version (the CPU's path)
+    against the JAX package's Pallas Gram in interpret mode (one (B, B)
+    accumulator over the whole batch), with a ragged last block and F not a
+    multiple of the tile; KA of two such operands against the JAX package's
+    at rtol 1e-5."""
+    x = rng.randn(b, 36).astype(np.float32)
+    y = rng.randn(b, 20).astype(np.float32)
     gx_j, gy_j = jax_gram_pair(jnp.asarray(x), jnp.asarray(y), interpret=True)
-    for got, ref in ((tka.gram_blocked(torch.from_numpy(x), tka.gram_plain), gx_j),
-                     (tka.gram_blocked(torch.from_numpy(y), tka.gram_plain), gy_j)):
+    for a, ref in ((x, gx_j), (y, gy_j)):
+        got = tka.gram_pairs_plain(torch.from_numpy(a))
+        assert torch.equal(got, got.T)
+        # f32 sums in another order: rtol 1e-5
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-4)
     val_j = jax_ka(jnp.asarray(x), jnp.asarray(y), use_pallas="no")
     np.testing.assert_allclose(float(tka.ka(torch.from_numpy(x), torch.from_numpy(y))),

@@ -1,15 +1,19 @@
 """Command-line interface of the port's verbs (port of ``cat_tpu/cli.py``):
-every flag of the JAX package's distill, profile, get_real_stat and KID
-parsers, with the same name, type, choices and default, so the reference
-recipes run as they are; and the configs and the judge built from them.
+every flag of the JAX package's train, distill, profile, get_real_stat and
+KID parsers, with the same name, type, choices and default, so the
+reference recipes run as they are; and the configs and the judge built from
+them.
 
 Flags whose code path is not ported yet raise ``NotImplementedError``
 naming the ROADMAP.md item that brings it, when set away from their default
-(``check_ported``).  Flags the JAX package accepts and leaves inert on this
-verb (--netG/--teacher_netG/--student_netG/--pretrained_netG,
+(``check_ported``, ``check_train_ported``).  Flags the JAX package accepts
+and leaves inert on a verb are inert here too: on distill,
+--netG/--teacher_netG/--student_netG/--pretrained_netG,
 --pretrained_ngf/--teacher_ngf, --prune_continue, --prune_logging_verbose,
---restore_O_path; and the SPADE, evaluation-only and teacher-training flags
-the inception distiller does not read) are inert here too.
+--restore_O_path, and the SPADE, evaluation-only and teacher-training flags
+the inception distiller does not read; on train, --netG, --restore_D_path,
+the distill-step dtypes and EMA flags, and the SPADE flags (``--model
+spade`` raises).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from cat_tpu_torch.core.config import (
     InceptionGeneratorConfig,
     NLayerDiscriminatorConfig,
     NormConfig,
+    PixelDiscriminatorConfig,
 )
 
 # ---------------------------------------------------------------------------
@@ -42,7 +47,7 @@ def base_arguments(parser: argparse.ArgumentParser):
     p.add_argument("--norm", type=str, default="instance",
                    choices=["instance", "batch", "syncbatch", "none"])
     p.add_argument("--remat", type=int, default=0, choices=[0, 1],
-                   help="rematerialise the student forward inside the distill step "
+                   help="rematerialise generator forwards inside the train or distill step "
                         "(torch.utils.checkpoint): more generator FLOPs for less activation "
                         "memory")
     p.add_argument("--remat_policy", type=str, default="",
@@ -250,6 +255,29 @@ def test_arguments(parser: argparse.ArgumentParser):
     return p
 
 
+def train_parser() -> argparse.ArgumentParser:
+    """The train verb's flags: base, train and SPADE arguments, as the JAX
+    package's ``train.py``."""
+    parser = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    base_arguments(parser)
+    train_arguments(parser)
+    spade_arguments(parser)
+    return parser
+
+
+# the reference's per-model defaults (models/cycle_gan_model.py:102-109), set
+# where a flag was left at its parser default
+TRAIN_MODEL_DEFAULTS = {
+    "cycle_gan": dict(norm="instance", dataset_mode="unaligned", gan_mode="lsgan", ndf=64),
+}
+
+
+def apply_train_defaults(opt, parser: argparse.ArgumentParser) -> None:
+    for k, v in TRAIN_MODEL_DEFAULTS.get(opt.model, {}).items():
+        if getattr(opt, k) == parser.get_default(k):
+            setattr(opt, k, v)
+
+
 def distill_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     base_arguments(parser)
@@ -288,21 +316,36 @@ def kid_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def check_ported(opt) -> None:
-    """Raise for a flag whose code path is not ported yet, set away from
-    its default, naming the ROADMAP.md item (queue 1) that brings it.  The
-    other unported paths raise where they would run: the int8 teacher and
-    wgangp in the distiller, batch norm in ``Norm2d``, Cityscapes in the data
-    path, the pixel D in ``discriminator_config``, mIoU in the entry."""
-    for what, asked, item in (
-        ("--distiller spade", opt.distiller == "spade", "15, SPADE family"),
+def _multi_gpu(opt):
+    return (
         ("--n_devices != 1", opt.n_devices != 1, "16, Multi-GPU"),
         ("--n_spatial != 1", opt.n_spatial != 1, "16, Multi-GPU"),
         ("--multihost / --num_processes > 1", bool(opt.multihost) or opt.num_processes > 1,
          "16, Multi-GPU"),
-    ):
+    )
+
+
+def _raise_unported(checks) -> None:
+    for what, asked, item in checks:
         if asked:
             raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1, item {item}")
+
+
+def check_train_ported(opt) -> None:
+    """The train verb's ``check_ported``: SPADE and multi-GPU raise."""
+    _raise_unported((("--model spade", opt.model == "spade", "15, SPADE family"),
+                     *_multi_gpu(opt)))
+
+
+def check_ported(opt) -> None:
+    """Raise for a flag whose code path is not ported yet, set away from
+    its default, naming the ROADMAP.md item (queue 1) that brings it.  The
+    other unported paths raise where they would run: the int8 teacher in
+    the distiller, Cityscapes in the data path, mIoU in the entry; the pixel
+    D, which the JAX package's tasks cannot build either, raises in the
+    tasks."""
+    _raise_unported((("--distiller spade", opt.distiller == "spade", "15, SPADE family"),
+                     *_multi_gpu(opt)))
 
 
 # ---------------------------------------------------------------------------
@@ -331,14 +374,14 @@ def generator_config(opt, ngf: int) -> InceptionGeneratorConfig:
     )
 
 
-def discriminator_config(opt, input_nc: int) -> NLayerDiscriminatorConfig:
+def discriminator_config(opt, input_nc: int):
+    norm = norm_config(opt, opt.norm_affine_D)
     if opt.netD == "n_layers":
         return NLayerDiscriminatorConfig(input_nc=input_nc, ndf=opt.ndf, n_layers=opt.n_layers_D,
-                                         norm=norm_config(opt, opt.norm_affine_D),
-                                         active_fn=opt.active_fn_D)
+                                         norm=norm, active_fn=opt.active_fn_D)
     if opt.netD == "pixel":
-        raise NotImplementedError("--netD pixel is not ported yet: ROADMAP.md queue 1, "
-                                  "item 14, Teacher training")
+        return PixelDiscriminatorConfig(input_nc=input_nc, ndf=opt.ndf, norm=norm,
+                                        active_fn=opt.active_fn_D)
     raise NotImplementedError(f"netD [{opt.netD}] for this task")
 
 
@@ -393,7 +436,8 @@ def load_generator_checkpoint(path: str, norm: NormConfig):
     cfg = ckpt.read_config(path)
     if cfg is None:
         raise FileNotFoundError(f"{path}: no .json config beside it")
-    return cfg, generator_state_dict(ckpt.load_pytree(path)["params"], cfg)
+    tree = ckpt.load_pytree(path)
+    return cfg, generator_state_dict(tree["params"], cfg, tree.get("batch_stats"))
 
 
 def make_fid_judge(opt, device):

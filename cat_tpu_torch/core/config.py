@@ -192,6 +192,16 @@ class NLayerDiscriminatorConfig:
     active_fn: str = "leaky_relu"
 
 
+@dataclass(frozen=True)
+class PixelDiscriminatorConfig:
+    """1x1 PixelGAN (reference: discriminators.py:82-126)."""
+
+    input_nc: int = 3
+    ndf: int = 64
+    norm: NormConfig = NormConfig(kind="instance", affine=False)
+    active_fn: str = "leaky_relu"
+
+
 # ---------------------------------------------------------------------------
 # JSON round-trip
 # ---------------------------------------------------------------------------
@@ -203,6 +213,7 @@ _CONFIG_TYPES = {
         InceptionBlockConfig,
         InceptionGeneratorConfig,
         NLayerDiscriminatorConfig,
+        PixelDiscriminatorConfig,
     )
 }
 

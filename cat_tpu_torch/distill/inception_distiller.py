@@ -7,7 +7,8 @@ One ``train_step`` does what the JAX package's ``_step`` does:
   * the student runs forward once and its graph is kept (with ``remat``,
     only its inputs are kept and ``torch.utils.checkpoint`` recomputes the
     forward in the backward);
-  * D updates first, on the detached fake (0.5·(fake + real) GAN loss);
+  * D updates first, on the detached fake (0.5·(fake + real) GAN loss,
+    plus the gradient penalty under wgangp);
   * the G loss goes through the *updated* D, and only the student's
     parameters and the adaptors take its gradient;
   * G loss = GAN + λ_recon · recon (target: the teacher's output when
@@ -18,6 +19,12 @@ One ``train_step`` does what the JAX package's ``_step`` does:
     parameter group);
   * with ``ema_decay`` > 0, an exponential moving average of the student's
     weights follows every G step and is what evaluation and deployment use.
+
+Under batch norm the forwards that move running statistics are the JAX
+package's mutable ones: the student's forward and D's fake and real
+forwards.  The G loss's D forward, the penalty's and a remat recompute run
+under ``ops/nn.py::frozen_stats``; the teacher normalises with its own
+running statistics.
 
 Mixed precision follows the JAX placement, not ``torch.autocast``: float32
 masters; parameters and inputs cast to the compute dtype inside the forward
@@ -39,13 +46,14 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
-from cat_tpu_torch import import_stdlib_profile, resolve_device
+from cat_tpu_torch import resolve_device
 from cat_tpu_torch.core.config import InceptionGeneratorConfig, NLayerDiscriminatorConfig
 from cat_tpu_torch.distill.ka import ka
-from cat_tpu_torch.models.discriminators import NLayerDiscriminator
+from cat_tpu_torch.models.discriminators import NLayerDiscriminator, check_task_discriminator
 from cat_tpu_torch.models.generator import DEFAULT_MAPPING_LAYERS, InceptionGenerator
-from cat_tpu_torch.models.losses import gan_loss, recon_loss
-from cat_tpu_torch.train.common import GANTrainState, NetState, cast_floats
+from cat_tpu_torch.models.losses import gan_loss, gradient_penalty, recon_loss
+from cat_tpu_torch.ops.nn import frozen_stats
+from cat_tpu_torch.train.common import GANTrainState, NetState, cast_floats, checkpointed
 from cat_tpu_torch.train.optim import Adam
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -75,13 +83,9 @@ class DistillHParams:
 def _check_ported(hp: DistillHParams) -> None:
     """Raise for the hyperparameters whose code paths are not ported yet,
     naming the ROADMAP.md item that brings them."""
-    for what, asked, item in (
-        ("teacher_compute_dtype=int8", hp.teacher_compute_dtype.startswith("int8"), "18, Extras"),
-        ("gan_mode='wgangp' (gradient penalty)", hp.gan_mode == "wgangp",
-         "14, Teacher training"),
-    ):
-        if asked:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1, item {item}")
+    if hp.teacher_compute_dtype.startswith("int8"):
+        raise NotImplementedError("teacher_compute_dtype=int8 is not ported yet: ROADMAP.md "
+                                  "queue 1, item 18, Extras")
     if hp.distill_loss_type not in ("ka", "mse"):
         raise NotImplementedError(hp.distill_loss_type)
     if hp.compute_dtype not in _DTYPES:
@@ -112,6 +116,7 @@ class InceptionDistiller:
         device=None,
     ):
         _check_ported(hp)
+        check_task_discriminator(disc_cfg)
         self.device = resolve_device(device)
         self.teacher_cfg = teacher_cfg
         self.student_cfg = student_cfg
@@ -181,8 +186,10 @@ class InceptionDistiller:
         state = GANTrainState(
             step=0,
             # one Adam over {G, A}, as the JAX package's G parameter group
-            g=NetState(g_params, Adam([*g_params.values(), *a_params.values()], self.hp.beta1)),
-            d=NetState(d_params, Adam(d_params.values(), self.hp.beta1)),
+            g=NetState(g_params, Adam([*g_params.values(), *a_params.values()], self.hp.beta1),
+                       dict(self.netG_student.named_buffers())),
+            d=NetState(d_params, Adam(d_params.values(), self.hp.beta1),
+                       dict(self.netD.named_buffers())),
             rng=torch.Generator(device=self.device).manual_seed(seed),
             adaptors=a_params,
             extra=extra,
@@ -239,13 +246,11 @@ class InceptionDistiller:
             )
         t_fake, t_acts = up(t_fake), up_acts(t_acts)
 
-        # --- student forward once, graph kept ---
+        # --- student forward once, graph kept; it alone moves the student's
+        # running statistics ---
         s_params = state.g.params
-        rng_start = state.rng.get_state() if hp.remat else None
 
         def s_forward():
-            if rng_start is not None:  # the recompute draws the same dropout masks
-                state.rng.set_state(rng_start)
             fake, acts = functional_call(
                 self.netG_student, down(s_params), (real_A,),
                 {"train": True, "taps": taps, "generator": state.rng},
@@ -253,11 +258,7 @@ class InceptionDistiller:
             return up(fake), up_acts(acts)
 
         if hp.remat:
-            from torch.utils.checkpoint import checkpoint
-
-            import_stdlib_profile()  # torch.utils.checkpoint reaches TorchDynamo
-            s_fake, s_acts = checkpoint(s_forward, use_reentrant=False)
-            rng_end = state.rng.get_state()
+            s_fake, s_acts = checkpointed(s_forward, self.netG_student, state.rng)
         else:
             s_fake, s_acts = s_forward()
 
@@ -270,18 +271,30 @@ class InceptionDistiller:
             fake_in, real_in = fake_d, down(real_B)
         d_params = state.d.params
         d_down = down(d_params)
-        l_d_fake = gan_loss(up(functional_call(self.netD, d_down, (fake_in,))), False,
-                            hp.gan_mode, True)
-        l_d_real = gan_loss(up(functional_call(self.netD, d_down, (real_in,))), True,
-                            hp.gan_mode, True)
-        d_grads = torch.autograd.grad(0.5 * (l_d_fake + l_d_real), list(d_params.values()))
+
+        def d_apply(params, x):
+            return up(functional_call(self.netD, params, (x,), {"train": True}))
+
+        # the fake, then the real forward move D's running statistics
+        l_d_fake = gan_loss(d_apply(d_down, fake_in), False, hp.gan_mode, True)
+        l_d_real = gan_loss(d_apply(d_down, real_in), True, hp.gan_mode, True)
+        d_loss = 0.5 * (l_d_fake + l_d_real)
+        if hp.gan_mode == "wgangp":
+            # the Lipschitz penalty, as the JAX package applies it (the
+            # reference defines it and never calls it)
+            with frozen_stats(self.netD):
+                l_d_gp, _ = gradient_penalty(lambda x: d_apply(d_down, x), real_in, fake_in,
+                                             generator=state.rng)
+            d_loss = d_loss + l_d_gp
+        d_grads = torch.autograd.grad(d_loss, list(d_params.values()))
         state.d.opt.step(d_grads, lr)
 
         # --- generator + adaptor update through the updated D (no gradient into D) ---
         recon_target = real_B if aligned else t_fake
         d_in = torch.cat([real_A, down(s_fake)], 1) if aligned else down(s_fake)
         d_frozen = down({k: v.detach() for k, v in d_params.items()})
-        pred = functional_call(self.netD, d_frozen, (d_in,))
+        with frozen_stats(self.netD):
+            pred = functional_call(self.netD, d_frozen, (d_in,), {"train": True})
         l_g_gan = gan_loss(up(pred), True, hp.gan_mode, False) * hp.lambda_gan
         l_g_rec = recon_loss(s_fake, recon_target, hp.recon_loss_type) * hp.lambda_recon
         if hp.lambda_distill > 0:
@@ -291,10 +304,10 @@ class InceptionDistiller:
             l_g_dis, dis_parts = torch.zeros((), device=self.device), {}
         g_group = [*s_params.values(), *state.adaptors.values()]
         # an adaptor is unused when lambda_distill is 0
+        rng_now = state.rng.get_state()
         g_grads = torch.autograd.grad(l_g_gan + l_g_rec + l_g_dis, g_group,
                                       allow_unused=True, materialize_grads=True)
-        if hp.remat:
-            state.rng.set_state(rng_end)  # the recompute may stop early
+        state.rng.set_state(rng_now)  # a remat recompute rewound it
         state.g.opt.step(g_grads, lr)
 
         if hp.ema_decay > 0:

@@ -1,5 +1,11 @@
 """The verbs end to end (port of the inception half of ``cat_tpu/entry.py``:
-distill, profile and get_real_stat; and of ``tools/kid_score.py``).
+train, distill, profile and get_real_stat; and of ``tools/kid_score.py``).
+
+``train_main`` trains a pix2pix or CycleGAN teacher from the JAX package's
+train flags (``train/pix2pix.py``, ``train/cyclegan.py``), with FID at the
+trainer's cadence where a judge and statistics are given, and writes the
+checkpoints the distill verb restores (``G``/``D``, or ``G_A``, ``G_B``,
+``D_A``, ``D_B``).
 
 ``distill_main`` parses the JAX package's distill flags, builds the loader,
 restores the teacher, shrinks it to the student architecture
@@ -58,20 +64,20 @@ def _ema_decay(opt) -> float:
     return float(d)
 
 
-def _maybe_restore_state(opt, state, dist):
-    """--restore_state_path: resume the full train state (parameters, Adam
-    moments, step, RNG) that every save writes as <tag>_state.pth, or the
-    JAX package's <tag>_state.msgpack (all but its RNG); pair it with
+def _maybe_restore_state(opt, state, convert):
+    """--restore_state_path: resume the full train state (parameters,
+    running statistics, Adam moments, step, pools, RNG) that every save
+    writes as <tag>_state.pth, or the JAX package's <tag>_state.msgpack
+    through ``convert(tree)`` (all but its RNG); pair it with
     --epoch_base/--iter_base to continue the schedule.  --restore_O_path is
     subsumed by the full-state restore."""
     p = getattr(opt, "restore_state_path", None)
     if p:
         sd = ckpt.load_pytree(p)
         if p.endswith(".msgpack"):
-            sd = jax_import.distill_state_dict(sd, dist.student_cfg, dist.disc_cfg,
-                                               adaptors=bool(state.adaptors))
-            print("WARNING: the dropout RNG of a JAX package train state does not carry "
-                  "over; it stays seeded from --seed.")
+            sd = convert(sd)
+            print("WARNING: the RNG of a JAX package train state does not carry over; it "
+                  "stays seeded from --seed.")
         load_train_state_dict(state, sd)
         print(f"restored full train state from {p}")
     if getattr(opt, "restore_O_path", None):
@@ -162,9 +168,10 @@ def shrink_preamble(opt, teacher_cfg, teacher_sd, logger) -> Tuple[Any, Optional
 
 def _load_net(path: str, convert, what: str) -> Dict[str, torch.Tensor]:
     """A network's state_dict from a ``.pth`` of this package, or from a
-    JAX package ``.msgpack`` through ``convert(params)``."""
+    JAX package ``.msgpack`` through ``convert(tree)`` (the file's whole
+    tree: ``params`` and the running statistics)."""
     tree = ckpt.load_pytree(path)
-    sd = convert(tree["params"]) if path.endswith(".msgpack") else tree
+    sd = convert(tree) if path.endswith(".msgpack") else tree
     print(f"restored {what} from {path}")
     return sd
 
@@ -268,11 +275,11 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
         # warm-start D from a teacher-training checkpoint (weights only,
         # fresh optimiser), as the shipped student recipes do
         disc_sd = _load_net(opt.restore_D_path,
-                            lambda p: jax_import.nlayer_discriminator_state_dict(p, disc_cfg),
-                            "D")
+                            lambda t: jax_import.discriminator_net_state_dict(t, disc_cfg), "D")
     state, teacher_params = dist.init_state(teacher_sd, student_sd, disc_sd, seed=opt.seed)
     if opt.restore_A_path:
-        a_sd = _load_net(opt.restore_A_path, jax_import.adaptor_state_dict, "adaptors")
+        a_sd = _load_net(opt.restore_A_path, lambda t: jax_import.adaptor_state_dict(t["params"]),
+                         "adaptors")
         if not state.adaptors:
             print("WARNING: --restore_A_path: adaptors are used only by "
                   "--distill_G_loss_type mse; ignored.")
@@ -280,7 +287,8 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
             with torch.no_grad():
                 for k, v in state.adaptors.items():
                     v.copy_(a_sd[k])
-    state = _maybe_restore_state(opt, state, dist)
+    state = _maybe_restore_state(opt, state, lambda t: jax_import.distill_state_dict(
+        t, dist.student_cfg, dist.disc_cfg, adaptors=bool(state.adaptors)))
     with open(os.path.join(opt.log_dir, "student_config.json"), "w") as f:
         f.write(config_to_json(student_cfg))
     if opt.prune_only:
@@ -307,13 +315,14 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
         # with --moving_average_decay (the raw weights then go to net_G_raw),
         # else the trained weights
         eval_params = dist.student_eval_params(state)
-        ckpt.save_net(save_dir, tag, "G", eval_params, student_cfg)
+        ckpt.save_net(save_dir, tag, "G", {**eval_params, **state.g.stats}, student_cfg)
         if eval_params is not state.g.params:
-            ckpt.save_net(save_dir, tag, "G_raw", state.g.params, student_cfg)
+            ckpt.save_net(save_dir, tag, "G_raw", {**state.g.params, **state.g.stats},
+                          student_cfg)
         else:
             ckpt.remove_stale(save_dir, tag, "net_G_raw.pth")
             ckpt.remove_stale(save_dir, tag, "net_G_raw.json")
-        ckpt.save_net(save_dir, tag, "D", state.d.params, disc_cfg)
+        ckpt.save_net(save_dir, tag, "D", {**state.d.params, **state.d.stats}, disc_cfg)
         if state.adaptors:
             ckpt.save_net(save_dir, tag, "A", state.adaptors)
         if opt.save_full_state:
@@ -344,6 +353,145 @@ def distill_main(argv: Optional[List[str]] = None, device=None) -> DistillRun:
     try:
         if run.trainer is not None:
             run.state = run.trainer.fit(run.state)
+    finally:
+        run.close()
+    return run
+
+
+# ---------------------------------------------------------------------------
+# train verb (teacher training: pix2pix and CycleGAN)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class TrainRun:
+    """What ``setup_train`` builds; ``train_main`` returns it with the
+    state after training."""
+
+    trainer: Trainer
+    state: Any
+    task: Any
+    gen_cfg: Any
+    disc_cfg: Any
+    loader: Any
+    logger: Logger
+
+    close = DistillRun.close
+
+
+def setup_train(opt, device=None, loader=None) -> TrainRun:
+    """The train verb's task, state, evaluators and checkpoints (the JAX
+    package's ``setup_train`` for pix2pix and CycleGAN).  ``loader`` as in
+    ``setup_distill_inception``."""
+    from cat_tpu_torch.data.datasets import create_eval_dataloader
+    from cat_tpu_torch.train.evaluation import FIDEvaluator, combine_evaluators
+
+    cli.check_train_ported(opt)
+    device = resolve_device(device)
+    cli.set_seed(opt.seed)
+    _check_no_miou(opt)
+    spec = cli.transform_spec(opt)
+    if loader is None:
+        loader = _make_train_loader(opt, spec, device)
+    logger = Logger(opt.log_dir, opt.tensorboard_dir)
+    save_dir = os.path.join(opt.log_dir, "checkpoints")
+    gen_cfg = cli.generator_config(opt, opt.ngf)
+    judge = cli.make_fid_judge(opt, device)
+    state_box = []
+
+    if opt.model == "pix2pix":
+        from cat_tpu_torch.train.pix2pix import Pix2PixHParams, Pix2PixTask
+
+        hp = Pix2PixHParams(
+            gan_mode=opt.gan_mode, recon_loss_type=opt.recon_loss_type,
+            lambda_gan=opt.lambda_gan, lambda_recon=opt.lambda_recon, beta1=opt.beta1,
+            init_type=opt.init_type, init_gain=opt.init_gain, packed_blocks=_packed(opt, True),
+            remat=bool(opt.remat))
+        d_cfg = cli.discriminator_config(opt, opt.input_nc + opt.output_nc)
+        task = Pix2PixTask(gen_cfg, d_cfg, hp, device)
+        g_sd = None
+        if opt.restore_G_path:
+            g_sd = _load_net(opt.restore_G_path, lambda t: jax_import.generator_state_dict(
+                t["params"], gen_cfg, t.get("batch_stats")), "G")
+        state = task.init_state(opt.seed, g_sd)
+        state = _maybe_restore_state(opt, state, lambda t: jax_import.train_state_dict(
+            t, "pix2pix", gen_cfg, d_cfg))
+        evaluators = {}
+        stats = _real_stats(opt.real_stat_path)
+        if judge is not None and stats is not None:
+            eval_loader = create_eval_dataloader(opt.dataset_mode, opt.dataroot,
+                                                 opt.eval_batch_size, spec, opt.direction)
+            evaluators[""] = FIDEvaluator(lambda x: task.generate(state_box[0], x), eval_loader,
+                                          judge, stats, opt.log_dir, opt.eval_batch_size,
+                                          device=device)
+        nets = {"G": (task.netG, gen_cfg), "D": (task.netD, d_cfg)}
+    elif opt.model == "cycle_gan":
+        from cat_tpu_torch.train.cyclegan import CycleGANHParams, CycleGANTask
+
+        hp = CycleGANHParams(
+            gan_mode=opt.gan_mode, lambda_A=opt.lambda_A, lambda_B=opt.lambda_B,
+            lambda_identity=opt.lambda_identity, pool_size=opt.pool_size, beta1=opt.beta1,
+            init_type=opt.init_type, init_gain=opt.init_gain, packed_blocks=_packed(opt, True),
+            remat=bool(opt.remat))
+        d_cfg = cli.discriminator_config(opt, opt.output_nc)
+        task = CycleGANTask(gen_cfg, d_cfg, hp, device)
+        if opt.restore_G_path:
+            print("WARNING: --restore_G_path is read by pix2pix only, as in the JAX package; "
+                  "ignored.")
+        state = task.init_state(opt.crop_size, opt.crop_size, opt.seed)
+        state = _maybe_restore_state(opt, state, lambda t: jax_import.train_state_dict(
+            t, "cycle_gan", gen_cfg, d_cfg))
+        # G_A's FID against B's statistics flags best_A, G_B's against A's best_B
+        evaluators = {}
+        for name, stat_path in (("A", opt.real_stat_B_path), ("B", opt.real_stat_A_path)):
+            stats = _real_stats(stat_path)
+            if judge is None or stats is None:
+                continue
+            direction = "AtoB" if name == "A" else "BtoA"
+            eval_loader = create_eval_dataloader("unaligned", opt.dataroot,
+                                                 opt.eval_batch_size, spec, direction)
+            evaluators[name] = FIDEvaluator(
+                lambda x, d=direction: task.generate(state_box[0], x, d), eval_loader, judge,
+                stats, opt.log_dir, opt.eval_batch_size, device=device,
+                name=f"fid_{'B' if name == 'A' else 'A'}")
+        nets = {f"{kind}_{n}": (net[n], cfg) for kind, net, cfg in
+                (("G", task.netG, gen_cfg), ("D", task.netD, d_cfg)) for n in "AB"}
+    else:
+        raise NotImplementedError(f"model [{opt.model}]")
+    state_box.append(state)
+
+    def save_fn(state, tag):
+        for name, (net, cfg) in nets.items():
+            ckpt.save_net(save_dir, tag, name, net.state_dict(), cfg)
+        if opt.save_full_state:
+            ckpt.save_train_state(save_dir, tag, train_state_dict(state))
+        else:
+            ckpt.remove_stale(save_dir, tag, "state.pth")
+
+    def step_fn(state, batch, lr):
+        state, metrics = task.train_step(state, batch, lr)
+        state_box[0] = state
+        return state, metrics
+
+    trainer = Trainer(step_fn, loader, cli.trainer_config(opt),
+                      combine_evaluators(**evaluators) if evaluators else None, save_fn, logger,
+                      device=device, copy_tag_fn=lambda s, d: ckpt.copy_tag(save_dir, s, d))
+    return TrainRun(trainer, state, task, gen_cfg, d_cfg, loader, logger)
+
+
+def train_main(argv: Optional[List[str]] = None, device=None) -> TrainRun:
+    """``python -m cat_tpu_torch train <flags>``: the JAX package's train
+    flags, with its per-model defaults (``cli.TRAIN_MODEL_DEFAULTS``); runs
+    on CUDA unless ``device`` says otherwise."""
+    parser = cli.train_parser()
+    opt = parser.parse_args(argv)
+    cli.apply_train_defaults(opt, parser)
+    cli.check_train_ported(opt)
+    device = resolve_device(device)
+    cli.print_options(opt, parser)
+    run = setup_train(opt, device)
+    try:
+        run.state = run.trainer.fit(run.state)
     finally:
         run.close()
     return run

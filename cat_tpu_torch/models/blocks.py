@@ -33,15 +33,17 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
 
 
 def conv_norm_act(x: torch.Tensor, conv: nn.Conv2d, norm: Norm2d, act: str,
-                  fused: bool, pad: int = 0, pad_mode: str = "reflect") -> torch.Tensor:
+                  fused: bool, pad: int = 0, pad_mode: str = "reflect",
+                  train: bool = False) -> torch.Tensor:
     """pad -> conv -> norm -> activation.  ``fused`` routes affine instance
     norm + relu through the fused kernel (``ops/instance_norm.py``); other
-    norms and activations take the plain path, as in the JAX package."""
+    norms and activations take the plain path, as in the JAX package.
+    ``train`` reaches the norm (batch statistics)."""
     x = conv(spatial_pad(x, pad, pad_mode))
     if fused and norm.cfg.kind == "instance" and norm.cfg.affine and act in ("relu", "nn.ReLU"):
         return fused_instance_norm_act(x, norm.weight.float(), norm.bias.float(),
                                        norm.cfg.eps, "relu")
-    return activation(act)(norm(x))
+    return activation(act)(norm(x, train))
 
 
 class ConvNormAct(nn.Sequential):
@@ -58,9 +60,9 @@ class ConvNormAct(nn.Sequential):
         )
         self.act, self.pad, self.pad_mode, self.fused = act, pad, pad_mode, fused
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         return conv_norm_act(x, self[0], self[1], self.act, self.fused, self.pad,
-                             self.pad_mode)
+                             self.pad_mode, train)
 
 
 def center_pad_kernel(w: torch.Tensor, k: int) -> torch.Tensor:
@@ -133,14 +135,14 @@ class InceptionBlock(nn.Module):
 
         total = None
         for (_, _, k), ops in zip(cfg.active_res, self.res_ops):
-            h = dropout(ops[1](x), self.dropout_rate, train, generator)
+            h = dropout(ops[1](x, train), self.dropout_rate, train, generator)
             h = ops[4](spatial_pad(h, (k - 1) // 2, self.padding_type))
             total = h if total is None else total + h
         for ops in self.dw_ops:
-            h = ops[2](ops[0](x))
+            h = ops[2](ops[0](x, train), train)
             h = ops[4](dropout(h, self.dropout_rate, train, generator))
             total = h if total is None else total + h
-        return x + self.pw_bn(total)
+        return x + self.pw_bn(total, train)
 
     # ------------------------------------------------------------- packed
 

@@ -67,15 +67,17 @@ class InceptionGenerator(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False, taps: Sequence[str] = (),
                 generator: Optional[torch.Generator] = None):
         """NCHW image -> NCHW image in [-1, 1]; with ``taps``, also a dict of
-        the named intermediate activations."""
+        the named intermediate activations.  ``train``: dropout on, and batch
+        norms normalise with batch statistics (and move their running ones,
+        unless ``ops/nn.py::frozen_stats`` holds them)."""
         cfg = self.cfg
         acts: Dict[str, torch.Tensor] = {}
         ds = self.down_sampling
         h = conv_norm_act(x, ds[1], ds[2], cfg.active_fn, self.fused_norms, 3,
-                          cfg.padding_type)
+                          cfg.padding_type, train)
         for j in range(len(cfg.ds_channels) - 1):
             h = conv_norm_act(h, ds[4 + 3 * j], ds[5 + 3 * j], cfg.active_fn,
-                              self.fused_norms)
+                              self.fused_norms, train=train)
         if "encode" in taps:
             acts["encode"] = h
 
@@ -87,7 +89,7 @@ class InceptionGenerator(nn.Module):
         us = self.up_sampling
         act = activation(cfg.active_fn)
         for j in range(len(cfg.us_channels)):
-            h = act(us[3 * j + 1](us[3 * j](h)))
+            h = act(us[3 * j + 1](us[3 * j](h), train))
         y = torch.tanh(us[-1](spatial_pad(h, 3, cfg.padding_type)))
         if taps:
             return y, acts

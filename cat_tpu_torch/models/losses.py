@@ -1,9 +1,9 @@
-"""GAN and reconstruction objectives (port of ``cat_tpu/models/losses.py``;
-``gradient_penalty`` is not ported yet)."""
+"""GAN and reconstruction objectives and the WGAN-GP gradient penalty (port
+of ``cat_tpu/models/losses.py``)."""
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +43,52 @@ def gan_loss(prediction: Pred, target_is_real: bool, mode: str = "lsgan",
             raise ValueError("hinge generator loss is only defined for real targets")
         return -torch.mean(prediction)
     raise NotImplementedError(f"gan mode {mode} not implemented")
+
+
+def mixing_weights(n: int, generator: Optional[torch.Generator],
+                   like: torch.Tensor) -> torch.Tensor:
+    """Per-sample interpolation weights α ~ U[0, 1) of the mixed penalty,
+    shaped (n, 1, 1, 1) to broadcast over an NCHW batch."""
+    return torch.rand((n,) + (1,) * (like.dim() - 1), generator=generator,
+                      device=like.device, dtype=like.dtype)
+
+
+def _leaves(out):
+    if isinstance(out, (list, tuple)):
+        return [leaf for o in out for leaf in _leaves(o)]
+    return [out]
+
+
+def gradient_penalty(d_apply: Callable, real: torch.Tensor, fake: torch.Tensor,
+                     generator: Optional[torch.Generator] = None, gp_type: str = "mixed",
+                     constant: float = 1.0, lambda_gp: float = 10.0):
+    """WGAN-GP gradient penalty (reference models/modules/loss.py:100-147):
+    ``mean((||dD/dx||_2 - constant)²) · lambda_gp``, the per-sample norm over
+    the flattened non-batch dims, with the reference's ``+ 1e-16`` shift.
+    ``d_apply`` maps an image batch to logits (a tensor, or nested lists of
+    them, all summed).  The gradient keeps its graph, so the penalty
+    differentiates back into D's parameters.  ``real`` and ``fake`` are
+    taken as constants.  Returns ``(penalty, gradients)``; ``(0, None)``
+    when ``lambda_gp <= 0``."""
+    if lambda_gp <= 0.0:
+        return torch.zeros((), device=real.device), None
+    real, fake = real.detach(), fake.detach()
+    if gp_type == "real":
+        x = real
+    elif gp_type == "fake":
+        x = fake
+    elif gp_type == "mixed":
+        alpha = mixing_weights(real.shape[0], generator, real)
+        x = alpha * real + (1.0 - alpha) * fake
+    else:
+        raise NotImplementedError(f"gradient penalty type {gp_type!r}")
+    x = x.requires_grad_(True)
+    total = sum(leaf.sum() for leaf in _leaves(d_apply(x)))
+    (grads,) = torch.autograd.grad(total, x, create_graph=True)
+    # the norm in float32: under bf16 the 1e-16 shift would underflow to 0
+    flat = (grads.float() + 1e-16).reshape(real.shape[0], -1)
+    norm = flat.square().sum(dim=1).sqrt()
+    return (norm - constant).square().mean() * lambda_gp, grads
 
 
 def recon_loss(x: torch.Tensor, y: torch.Tensor, kind: str = "l1") -> torch.Tensor:

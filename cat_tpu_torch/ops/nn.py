@@ -1,13 +1,14 @@
 """Low-level neural-net ops: padding, activations, normalisation, init.
 
 Tensors are NCHW (PyTorch's layout); the JAX package keeps NHWC.  The
-numerics follow ``cat_tpu/ops/nn.py``: instance statistics are
+numerics follow ``cat_tpu/ops/nn.py``: instance and batch statistics are
 E[x²] - mean² in float32, and the result is cast back to the input dtype.
 """
 
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Callable, Optional
 
 import torch
@@ -135,30 +136,82 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 
 class Norm2d(nn.Module):
-    """Instance / no normalisation over NCHW, with the JAX package's
-    numerics: float32 statistics var = E[x²] - mean² (not
-    ``F.instance_norm``'s formula), affine in float32, cast back to the
-    input dtype.  Parameters are named ``weight``/``bias`` as in torch."""
+    """Instance / batch / sync-batch / no normalisation over NCHW, with the
+    JAX package's numerics: float32 statistics var = E[x²] - mean² (not
+    ``F.instance_norm``'s or ``F.batch_norm``'s formula), affine in float32,
+    cast back to the input dtype.  Parameters are named ``weight``/``bias``
+    and running statistics ``running_mean``/``running_var``, as in torch.
+
+    Batch norm (``syncbatch`` on one device is ``batch``): with ``train``
+    the batch statistics over (N, H, W) normalise, with the biased variance;
+    with tracked statistics they also move the running estimates,
+    ``running = (1-m)·running + m·batch`` with the *unbiased* variance,
+    unless ``update_stats`` is off (``frozen_stats``).  Without ``train``
+    the running statistics normalise when they are tracked, else the batch
+    statistics do.  A reference ``num_batches_tracked`` entry is ignored on
+    load."""
 
     def __init__(self, cfg: NormConfig, channels: int):
         super().__init__()
-        if cfg.is_batch_like:
-            raise NotImplementedError(
-                "batch-like norms are not ported yet: "
-                "ROADMAP.md queue 1, item 14, Teacher training"
-            )
         self.cfg = cfg
+        self.update_stats = True
         if cfg.has_scale:
             self.weight = nn.Parameter(torch.ones(channels))
             self.bias = nn.Parameter(torch.zeros(channels))
         else:
             self.register_parameter("weight", None)
             self.register_parameter("bias", None)
+        if cfg.is_batch_like and cfg.track_running_stats:
+            self.register_buffer("running_mean", torch.zeros(channels))
+            self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.cfg.kind == "none":
+    @property
+    def tracks_stats(self) -> bool:
+        return self.cfg.is_batch_like and self.cfg.track_running_stats
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.kind == "none":
             return x
-        return instance_norm(x, self.weight, self.bias, self.cfg.eps)
+        if cfg.kind == "instance":
+            return instance_norm(x, self.weight, self.bias, cfg.eps)
+        xf = x.float()
+        if train or not self.tracks_stats:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+            if train and self.tracks_stats and self.update_stats:
+                n = x.shape[0] * x.shape[2] * x.shape[3]
+                m = cfg.momentum
+                with torch.no_grad():
+                    unbiased = var * (n / max(n - 1, 1))
+                    self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+                    self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean[:, None, None]) * torch.rsqrt(var + cfg.eps)[:, None, None]
+        if self.weight is not None:
+            y = y * self.weight.float()[:, None, None] + self.bias.float()[:, None, None]
+        return y.to(x.dtype)
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        state_dict.pop(prefix + "num_batches_tracked", None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+@contextmanager
+def frozen_stats(*nets: nn.Module):
+    """Within the block, the batch norms under ``nets`` normalise with batch
+    statistics in train mode but leave their running statistics as they
+    are: the JAX package's forwards that do not take ``mutable_stats``."""
+    norms = [m for net in nets for m in net.modules() if isinstance(m, Norm2d)]
+    saved = [m.update_stats for m in norms]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, s in zip(norms, saved):
+            m.update_stats = s
 
 
 def instance_norm_f32(xf: torch.Tensor, weight: Optional[torch.Tensor],

@@ -8,12 +8,16 @@ and their optimisers, and a step updates them in place.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Dict, List
 
 import torch
 
+from cat_tpu_torch import import_stdlib_profile
+from cat_tpu_torch.ops.nn import frozen_stats
 from cat_tpu_torch.train.optim import Adam
+from cat_tpu_torch.utils.image_pool import ImagePool
 
 
 def cast_floats(tree: Any, dtype: torch.dtype) -> Any:
@@ -27,12 +31,14 @@ def cast_floats(tree: Any, dtype: torch.dtype) -> Any:
 
 @dataclass
 class NetState:
-    """Parameters (name -> float32 tensor) and their optimiser.  The JAX
-    package also carries batch-norm statistics here; the port has no batch
-    norm yet."""
+    """Parameters (name -> float32 tensor), their optimiser, and the
+    networks' batch-norm running statistics (name -> buffer; empty when no
+    norm tracks them).  The tensors are the modules' own, so a step updates
+    them in place."""
 
     params: Dict[str, torch.Tensor]
     opt: Adam
+    stats: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
 @dataclass
@@ -43,6 +49,33 @@ class GANTrainState:
     rng: torch.Generator  # dropout masks
     adaptors: Dict[str, torch.Tensor] = field(default_factory=dict)  # mse distillation
     extra: Dict[str, Any] = field(default_factory=dict)  # e.g. {"ema_G": params}
+    pools: Dict[str, ImagePool] = field(default_factory=dict)  # CycleGAN: fake_A, fake_B
+
+
+def net_state(net: torch.nn.Module, beta1: float) -> NetState:
+    """A network's parameters, an Adam over them, and its running
+    statistics, all the module's own tensors."""
+    params = dict(net.named_parameters())
+    return NetState(params, Adam(params.values(), beta1), dict(net.named_buffers()))
+
+
+def checkpointed(fn, net: torch.nn.Module, rng: torch.Generator):
+    """``fn()`` under ``torch.utils.checkpoint``: only its inputs are kept,
+    and the backward recomputes it with the same dropout masks and without
+    moving ``net``'s running statistics a second time.  The recompute
+    rewinds ``rng``: keep its state around the backward."""
+    from torch.utils.checkpoint import checkpoint
+
+    import_stdlib_profile()  # torch.utils.checkpoint reaches TorchDynamo
+    start, calls = rng.get_state(), []
+
+    def run():
+        rng.set_state(start)
+        with frozen_stats(net) if calls else nullcontext():
+            calls.append(1)
+            return fn()
+
+    return checkpoint(run, use_reentrant=False)
 
 
 def _g_names(state: GANTrainState) -> List[str]:
@@ -51,13 +84,17 @@ def _g_names(state: GANTrainState) -> List[str]:
 
 def train_state_dict(state: GANTrainState) -> Dict[str, Any]:
     """Everything a resume needs, as a nested dict of tensors and ints:
-    parameters, Adam moments and counts, the step and the dropout RNG."""
+    parameters, running statistics, Adam moments and counts, the step, the
+    image pools and the dropout RNG."""
     return {
         "step": state.step,
-        "g": {"params": state.g.params, "opt": state.g.opt.state_dict(_g_names(state))},
-        "d": {"params": state.d.params, "opt": state.d.opt.state_dict(list(state.d.params))},
+        "g": {"params": state.g.params, "stats": state.g.stats,
+              "opt": state.g.opt.state_dict(_g_names(state))},
+        "d": {"params": state.d.params, "stats": state.d.stats,
+              "opt": state.d.opt.state_dict(list(state.d.params))},
         "adaptors": state.adaptors,
         "extra": state.extra,
+        "pools": {k: p.state_dict() for k, p in state.pools.items()},
         "rng": state.rng.get_state(),
     }
 
@@ -65,7 +102,8 @@ def train_state_dict(state: GANTrainState) -> Dict[str, Any]:
 @torch.no_grad()
 def load_train_state_dict(state: GANTrainState, sd: Dict[str, Any]) -> GANTrainState:
     """Restore ``train_state_dict``'s output into ``state`` in place (the
-    dropout RNG only where ``sd`` has one)."""
+    dropout RNG only where ``sd`` has one).  A checkpoint without running
+    statistics or pools loads into nets that have none."""
 
     def copy(dst: Dict[str, torch.Tensor], src: Dict[str, torch.Tensor], what: str):
         if dst.keys() != src.keys():
@@ -75,7 +113,14 @@ def load_train_state_dict(state: GANTrainState, sd: Dict[str, Any]) -> GANTrainS
 
     copy(state.g.params, sd["g"]["params"], "G parameters")
     copy(state.d.params, sd["d"]["params"], "D parameters")
+    copy(state.g.stats, sd["g"].get("stats", {}), "G running statistics")
+    copy(state.d.stats, sd["d"].get("stats", {}), "D running statistics")
     copy(state.adaptors, sd["adaptors"], "adaptor parameters")
+    pools = sd.get("pools", {})
+    if state.pools.keys() != pools.keys():
+        raise ValueError("train state: the image pools do not match the checkpoint's")
+    for k, pool in state.pools.items():
+        pool.load_state_dict(pools[k])
     if state.extra.keys() != sd["extra"].keys():
         raise ValueError("train state: the EMA setting does not match the checkpoint's")
     for k, tree in state.extra.items():

@@ -71,7 +71,9 @@ class FIDEvaluator:
     images; the dumps go to ``<log_dir>/eval/<step>/``.  ``inception_model``
     and ``real_stats`` may be None: the sweep still runs and dumps
     input/Sfake/Tfake(/real) images (the profile verb's contract, which holds
-    without judge weights), and no metric is returned."""
+    without judge weights), and no metric is returned.  ``name`` names the
+    metric (``metric/<name>``): CycleGAN's two directions are fid_B and
+    fid_A."""
 
     def __init__(
         self,
@@ -84,6 +86,7 @@ class FIDEvaluator:
         dump_images: int = 10,
         teacher_generate: Optional[Callable] = None,
         device=None,
+        name: str = "fid",
     ):
         self.generate = generate
         self.eval_loader = eval_loader
@@ -93,6 +96,7 @@ class FIDEvaluator:
         self.eval_batch_size = eval_batch_size
         self.dump_images = dump_images
         self.teacher_generate = teacher_generate
+        self.name = name
         self.device = torch.device("cpu" if device is None else device)
         self.tracker = MetricTracker(larger_is_better=False)
 
@@ -125,14 +129,14 @@ class FIDEvaluator:
                                    os.path.join(save_dir, "real", f"{base}.png"))
                     dumped += 1
         if dumped:
-            write_eval_index(save_dir, f"fid eval @ step {step}")
+            write_eval_index(save_dir, f"{self.name} eval @ step {step}")
         if self.inception_model is None or self.real_stats is None:
             return {}, {}
         fid = get_fid(np.concatenate(fakes, axis=0), self.inception_model, self.real_stats,
                       batch_size=self.eval_batch_size)
         improved = self.tracker.update(fid)
-        metrics = {"metric/fid": fid, "metric/fid-mean": self.tracker.mean,
-                   "metric/fid-best": self.tracker.best}
+        metrics = {f"metric/{self.name}": fid, f"metric/{self.name}-mean": self.tracker.mean,
+                   f"metric/{self.name}-best": self.tracker.best}
         return metrics, {"is_best": improved}
 
 

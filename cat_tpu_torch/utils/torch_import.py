@@ -70,6 +70,9 @@ def recover_generator_config(
 def load_torch_generator(path: str, **kwargs) -> Tuple[InceptionGeneratorConfig,
                                                        Dict[str, torch.Tensor]]:
     """(config recovered from shapes, state_dict) of a reference ``.pth``;
-    ``kwargs`` go to ``recover_generator_config``."""
+    ``kwargs`` go to ``recover_generator_config``.  The batch norms'
+    ``num_batches_tracked`` counters, which nothing here reads, are
+    dropped."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}
     return recover_generator_config(sd, **kwargs), sd

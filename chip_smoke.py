@@ -59,7 +59,24 @@ Phases, in order; any failure exits non-zero before the result line:
      against the CPU's for 4 images.  Prints the statistics' images/s, the
      evaluations' seconds split into generator sweep, judge and Fréchet
      distance on the host, and the profile's prune time, latency and peak
-     memory.
+     memory;
+  8. teacher training: (a) two tiny float32 steps of pix2pix with tracked
+     batch norm, pix2pix under wgangp (the penalty's α fixed on both sides)
+     and CycleGAN, on the card and on the CPU, losses and running
+     statistics compared; (b) ``entry.train_main`` with
+     ``scripts/cycle_gan/horse2zebra/train_inception_teacher.sh``'s flags
+     (batch 32) over phase 6's unaligned PNGs for 2 epochs (10 steps), fid_B
+     against phase 7's statistics (with ``--remat 1`` where batch 32 does not
+     fit the card without it, said on a line): the pools hold 50 after step
+     2, G_A, G_B, D_A, D_B and the state are written, the reloaded G_A gives
+     the in-memory G_A's output exactly; (c) the same with
+     ``scripts/pix2pix/map2sat/train_inception_teacher.sh``'s flags (tracked
+     batch norm, BtoA) over 160 seeded aligned 512x256 PNGs and 40 val: the
+     running statistics moved from (0, 1), the reloaded G gives the eval-mode
+     output exactly; both print the median step and iteration, images/s,
+     the loader wait, peak memory and the evaluations' seconds; (d)
+     ``entry.distill_main`` with the horse2zebra student recipe for 2 steps
+     from (b)'s G_A and D_A, 8 Gram launches a step.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -562,27 +579,11 @@ class _TimedLoader:
             yield batch
 
 
-def run_verb(root, label, extra, expect_path, dev, card, epochs=VERB_EPOCHS):
-    """``entry.distill_main`` with the recipe's flags, ``extra`` and
-    ``epochs`` epochs; checks launches, checkpoints, reload and losses, and
-    returns the run's numbers and the distill run."""
-    import numpy as np
+def _instrumented(setup, steps, starts, waits, after_step=None):
+    """``setup`` (an entry's ``setup_distill``/``setup_train``) whose trainer
+    times each step (host clock, ending in a synchronize), each fetch from
+    the loader, and calls ``after_step(state)``."""
     import torch
-
-    from cat_tpu_torch import entry
-    from cat_tpu_torch.distill import ka
-    from cat_tpu_torch.models.generator import InceptionGenerator
-    from cat_tpu_torch.utils import checkpoint as ckpt
-
-    log_dir = os.path.join(root, f"log_{label}")
-    teacher = os.path.join(root, "teacher")
-    argv = ["--dataroot", os.path.join(root, "data"), "--log_dir", log_dir,
-            "--restore_teacher_G_path", os.path.join(teacher, "best_A_net_G_A.pth"),
-            "--restore_pretrained_G_path", os.path.join(teacher, "best_A_net_G_A.pth"),
-            "--restore_D_path", os.path.join(teacher, "best_A_net_D_A.pth"),
-            *RECIPE, "--nepochs", str(epochs), "--save_epoch_freq", str(epochs), *extra]
-    steps, starts, waits = [], [], []
-    setup = entry.setup_distill
 
     def instrumented(opt, device=None, loader=None):
         run = setup(opt, device, loader)
@@ -594,14 +595,80 @@ def run_verb(root, label, extra, expect_path, dev, card, epochs=VERB_EPOCHS):
             torch.cuda.synchronize()
             starts.append(t0)
             steps.append(time.perf_counter() - t0)
+            if after_step is not None:
+                after_step(out[0])
             return out
 
         run.trainer.step_fn = timed_step
         run.trainer.dataloader = _TimedLoader(run.trainer.dataloader, waits)
         return run
 
+    return instrumented
+
+
+def _loop_numbers(steps, starts, waits, batch, mem, wall):
+    """The median step (steps 2 on) and iteration, images/s of both, the
+    host's wait on the loader and peak memory."""
+    import numpy as np
+
+    step_ms = 1e3 * float(np.median(steps[1:]))
+    # from one step's start to the next: the step, the loader wait, logging
+    iter_ms = 1e3 * float(np.median(np.diff(starts)))
+    return {"steps": len(steps), "step_ms_median": step_ms,
+            "step_ms": [round(1e3 * t, 1) for t in steps],
+            "images_per_s": batch / (step_ms / 1e3), "iteration_ms_median": iter_ms,
+            "images_per_s_with_loader": batch / (iter_ms / 1e3),
+            "loader_wait_ms_per_step": 1e3 * sum(waits[1:]) / max(len(waits) - 1, 1),
+            "loader_wait_ms_first": 1e3 * waits[0], "wall_s": wall,
+            "peak_memory_gib": mem / 2 ** 30}
+
+
+def _loop_line(out):
+    return (f"median step {out['step_ms_median']:.1f} ms over steps 2-{out['steps']}, "
+            f"{out['images_per_s']:.1f} images/s; median iteration "
+            f"{out['iteration_ms_median']:.1f} ms, {out['images_per_s_with_loader']:.1f} "
+            f"images/s; host wait on the loader {out['loader_wait_ms_per_step']:.1f} ms per step "
+            f"(first fetch {out['loader_wait_ms_first']:.0f} ms), peak memory "
+            f"{out['peak_memory_gib']:.2f} GiB")
+
+
+def _same_output(net_a, net_b, x) -> bool:
+    """Whether two networks give bit-identical outputs (cuDNN deterministic)."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with torch.no_grad():
+            return torch.equal(net_a(x), net_b(x))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def run_verb(root, label, extra, expect_path, dev, card, epochs=VERB_EPOCHS,
+             teacher_g=None, teacher_d=None):
+    """``entry.distill_main`` with the recipe's flags, ``extra`` and
+    ``epochs`` epochs, from the teacher ``teacher_g`` and D ``teacher_d``
+    (phase 6's by default); checks launches, checkpoints, reload and losses,
+    and returns the run's numbers and the distill run."""
+    import torch
+
+    from cat_tpu_torch import entry
+    from cat_tpu_torch.distill import ka
+    from cat_tpu_torch.models.generator import InceptionGenerator
+    from cat_tpu_torch.utils import checkpoint as ckpt
+
+    log_dir = os.path.join(root, f"log_{label}")
+    teacher_g = teacher_g or os.path.join(root, "teacher", "best_A_net_G_A.pth")
+    teacher_d = teacher_d or os.path.join(root, "teacher", "best_A_net_D_A.pth")
+    argv = ["--dataroot", os.path.join(root, "data"), "--log_dir", log_dir,
+            "--restore_teacher_G_path", teacher_g, "--restore_pretrained_G_path", teacher_g,
+            "--restore_D_path", teacher_d,
+            *RECIPE, "--nepochs", str(epochs), "--save_epoch_freq", str(epochs), *extra]
+    steps, starts, waits = [], [], []
+    setup = entry.setup_distill
     n_steps = epochs * VERB_IMAGES // VERB_BATCH
-    entry.setup_distill = instrumented
+    entry.setup_distill = _instrumented(setup, steps, starts, waits)
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -637,35 +704,14 @@ def run_verb(root, label, extra, expect_path, dev, card, epochs=VERB_EPOCHS):
     sd, cfg = ckpt.load_net(save_dir, "latest", "G")
     gen = InceptionGenerator(cfg, packed_blocks=run.distiller.hp.packed_blocks).to(dev)
     gen.load_state_dict(sd)
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        with torch.no_grad():
-            same = torch.equal(gen(x[:4]), run.distiller.generate_student(run.state, x[:4]))
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-    if not same:
+    if not _same_output(gen, lambda y: run.distiller.generate_student(run.state, y), x[:4]):
         fail(f"verb ({label}): the reloaded student's output differs from the in-memory one")
 
-    step_ms = 1e3 * float(np.median(steps[1:]))
-    # from one step's start to the next: the step, the loader wait, logging
-    iter_ms = 1e3 * float(np.median(np.diff(starts)))
-    out = {"label": label, "steps": len(steps), "step_ms_median": step_ms,
-           "step_ms": [round(1e3 * t, 1) for t in steps],
-           "images_per_s": VERB_BATCH / (step_ms / 1e3), "iteration_ms_median": iter_ms,
-           "images_per_s_with_loader": VERB_BATCH / (iter_ms / 1e3),
-           "loader_wait_ms_per_step": 1e3 * sum(waits[1:]) / max(len(waits) - 1, 1),
-           "loader_wait_ms_first": 1e3 * waits[0], "wall_s": wall,
-           "peak_memory_gib": mem / 2 ** 30, "gram_launches": launches,
-           "gram_path": expect_path, "last_losses": {k: v for k, v in rows[-1].items()
-                                                    if "loss" in k}}
-    log(f"verb ({label}): median step {step_ms:.1f} ms over steps 2-{len(steps)}, "
-        f"{out['images_per_s']:.1f} images/s; median iteration {iter_ms:.1f} ms, "
-        f"{out['images_per_s_with_loader']:.1f} images/s; host wait on the loader "
-        f"{out['loader_wait_ms_per_step']:.1f} ms per step (first fetch "
-        f"{out['loader_wait_ms_first']:.0f} ms), peak memory {out['peak_memory_gib']:.2f} GiB, "
-        f"{launches} Gram launches ({expect_path}), fit {wall:.1f} s, steps {out['step_ms']} "
-        f"[{card}]")
+    out = {"label": label, **_loop_numbers(steps, starts, waits, VERB_BATCH, mem, wall),
+           "gram_launches": launches, "gram_path": expect_path,
+           "last_losses": {k: v for k, v in rows[-1].items() if "loss" in k}}
+    log(f"verb ({label}): {_loop_line(out)}, {launches} Gram launches ({expect_path}), fit "
+        f"{wall:.1f} s, steps {out['step_ms']} [{card}]")
     return out, run, x
 
 
@@ -880,6 +926,252 @@ def evaluation(dev, card, root):
             "kid": [kid_mean, kid_std], "kid_s": kid_s, "judge_card_vs_cpu_max_abs": diff}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: teacher training
+# ---------------------------------------------------------------------------
+
+TEACHER_BATCH = 32  # both teacher recipes' batch
+TEACHER_EPOCHS = 2  # 160 images a side at batch 32: 5 steps an epoch, 10 steps
+MAPS_TRAIN, MAPS_VAL = VERB_IMAGES, 40
+ALPHA = (0.3, 0.8)  # 8a's fixed weights of the mixed gradient penalty
+
+# scripts/cycle_gan/horse2zebra/train_inception_teacher.sh, but for the
+# paths and the schedule (2 epochs, losses printed every step)
+H2Z_TEACHER = ["--model", "cycle_gan", "--batch_size", str(TEACHER_BATCH), "--norm_affine",
+               "--norm_affine_D", "--channels_reduction_factor", "6", "--kernel_sizes", "1", "3",
+               "5", "--nepochs", str(TEACHER_EPOCHS), "--nepochs_decay", "0", "--print_freq",
+               "1"]
+# scripts/pix2pix/map2sat/train_inception_teacher.sh, the same cuts
+MAPS_TEACHER = ["--model", "pix2pix", "--batch_size", str(TEACHER_BATCH), "--lambda_recon", "10",
+                "--nepochs", str(TEACHER_EPOCHS), "--nepochs_decay", "0", "--norm", "batch",
+                "--norm_affine", "--norm_affine_D", "--norm_track_running_stats",
+                "--channels_reduction_factor", "6", "--kernel_sizes", "1", "3", "5",
+                "--save_epoch_freq", "50", "--save_latest_freq", "20000", "--eval_batch_size",
+                "16", "--direction", "BtoA", "--print_freq", "1"]
+
+
+def teacher_reference(dev):
+    """8a: two tiny float32 steps of each teacher task on the card and on
+    the CPU from the same weights and batches (pix2pix with tracked batch
+    norm; pix2pix under wgangp with the penalty's α fixed on both; CycleGAN),
+    losses and running statistics compared.  Each step starts both sides
+    from the card's state: Adam turns float32 noise in near-zero gradients
+    into whole ±lr steps (ROADMAP queue 3), which a second step would
+    compound into the losses."""
+    import torch
+
+    from cat_tpu_torch.train.common import load_train_state_dict, train_state_dict
+
+    from cat_tpu_torch.core.config import (InceptionGeneratorConfig, NLayerDiscriminatorConfig,
+                                           NormConfig)
+    from cat_tpu_torch.models import losses
+    from cat_tpu_torch.train.cyclegan import CycleGANHParams, CycleGANTask
+    from cat_tpu_torch.train.pix2pix import Pix2PixHParams, Pix2PixTask
+
+    def cfgs(kind, d_in):
+        norm = NormConfig(kind=kind, affine=True, track_running_stats=kind == "batch")
+        return (InceptionGeneratorConfig.make(ngf=8, channels_reduction_factor=2,
+                                              kernel_sizes=(1, 3, 5), n_blocks=3, norm=norm),
+                NLayerDiscriminatorConfig(input_nc=d_in, ndf=8, norm=norm))
+
+    def pix2pix(mode):
+        def make(d):
+            task = Pix2PixTask(*cfgs("batch", 6), Pix2PixHParams(gan_mode=mode), d)
+            return task, task.init_state(3)
+        return make
+
+    def cyclegan(d):
+        task = CycleGANTask(*cfgs("instance", 3), CycleGANHParams(), d)
+        return task, task.init_state(32, 32, 3)
+
+    mixing = losses.mixing_weights
+    losses.mixing_weights = lambda n, generator, like: torch.tensor(
+        ALPHA, dtype=like.dtype, device=like.device).reshape(n, 1, 1, 1)
+    gen = torch.Generator().manual_seed(4)
+    batches = [{k: torch.randn(2, 3, 32, 32, generator=gen) for k in "AB"} for _ in range(2)]
+    try:
+        for name, make in (("pix2pix, tracked batch norm, hinge", pix2pix("hinge")),
+                           ("pix2pix, tracked batch norm, wgangp (α fixed)", pix2pix("wgangp")),
+                           ("CycleGAN, instance norm, lsgan", cyclegan)):
+            sides = [make(d) for d in (dev, torch.device("cpu"))]
+            card_l, cpu_l = [], []
+            for b in batches:
+                sd = train_state_dict(sides[0][1])
+                del sd["rng"]  # a card generator's state is no CPU generator's
+                load_train_state_dict(sides[1][1], sd)
+                for (task, state), ls in zip(sides, (card_l, cpu_l)):
+                    d = task.device
+                    _, m = task.train_step(state, {k: v.to(d) for k, v in b.items()}, LR)
+                    ls.append({k: float(v) for k, v in m.items()})
+            card_s, cpu_s = ({f"{net}.{k}": v.cpu() for net, ns in (("G", st.g), ("D", st.d))
+                              for k, v in ns.stats.items()} for _, st in sides)
+            for i, (a, b) in enumerate(zip(card_l, cpu_l)):
+                for k in b:
+                    if not math.isclose(a[k], b[k], rel_tol=1e-4, abs_tol=1e-5):
+                        fail(f"8a {name}, step {i + 1}, {k}: card {a[k]!r} vs CPU {b[k]!r}")
+            stat_err = max((float((card_s[k] - v).abs().max()) for k, v in cpu_s.items()),
+                           default=0.0)
+            if not all(torch.allclose(card_s[k], v, rtol=1e-4, atol=1e-5)
+                       for k, v in cpu_s.items()):
+                fail(f"8a {name}: running statistics differ from the CPU's by {stat_err:g}")
+            log(f"teacher 8a: {name}: 2 f32 steps on the card match the CPU's, each from the "
+                f"card's state (losses rtol 1e-4; {len(cpu_s)} running statistics, max |diff| "
+                f"{stat_err:.3g}): {card_l[-1]}")
+    finally:
+        losses.mixing_weights = mixing
+
+
+def write_maps_inputs(root) -> str:
+    """An aligned dataset of seeded 512x256 A|B PNGs (maps' layout: each
+    half resized to 286 and cropped to 256) in train and val, and the val
+    set's A halves alone, for their statistics; returns that folder."""
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(1)
+    val_a = os.path.join(root, "maps_valA")
+    os.makedirs(val_a)
+    for split, n in (("train", MAPS_TRAIN), ("val", MAPS_VAL)):
+        d = os.path.join(root, "maps", split)
+        os.makedirs(d)
+        for i in range(n):
+            ab = rs.randint(0, 256, (SIZE, 2 * SIZE, 3), dtype=np.uint8)
+            Image.fromarray(ab).save(os.path.join(d, f"{i}.png"))
+            if split == "val":
+                Image.fromarray(ab[:, :SIZE]).save(os.path.join(val_a, f"{i}.png"))
+    return val_a
+
+
+def run_train_verb(root, label, argv, dev, card, nets):
+    """``entry.train_main`` with ``argv`` (its FID evaluations timed),
+    checks the checkpoints of ``nets`` and the logged losses and FID;
+    returns the run's numbers, the run, the pools' fill after each step and
+    the FID values."""
+    import torch
+
+    from cat_tpu_torch import entry
+    from cat_tpu_torch.train.evaluation import FIDEvaluator
+
+    log_dir = os.path.join(root, f"log_{label}")
+    steps, starts, waits, pool_fill = [], [], [], []
+    setup = entry.setup_train
+    entry.setup_train = _instrumented(
+        setup, steps, starts, waits,
+        lambda state: pool_fill.append([p.count for p in state.pools.values()]))
+    timer = _Timer(FIDEvaluator, "__call__", sync=True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = entry.train_main(["--log_dir", log_dir, *argv])
+        wall = time.perf_counter() - t0
+    finally:
+        entry.setup_train = setup
+        timer.restore()
+    mem = torch.cuda.max_memory_allocated()
+    n_steps = TEACHER_EPOCHS * VERB_IMAGES // TEACHER_BATCH  # both data sets: 160 a side
+    save_dir = os.path.join(log_dir, "checkpoints")
+    missing = [f for f in [f"latest_net_{n}.{e}" for n in nets for e in ("pth", "json")]
+               + ["latest_state.pth"] if not os.path.exists(os.path.join(save_dir, f))]
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        rows = list(map(json.loads, f))
+    losses = [v for r in rows for k, v in r.items() if "loss" in k]
+    fids = [v for r in rows for k, v in r.items()
+            if k.startswith("metric/fid") and not k.endswith(("-mean", "-best"))]
+    if (len(steps) != n_steps or missing or not all(math.isfinite(v) for v in losses + fids)
+            or len(fids) != 2):
+        fail(f"teacher {label}: {len(steps)} steps (expected {n_steps}), missing {missing}, "
+             f"FID {fids} (expected 2, the startup probe and the end), losses finite: "
+             f"{all(math.isfinite(v) for v in losses)}")
+    last = [r for r in rows if any("loss" in k for k in r)][-1]
+    out = {"label": label, **_loop_numbers(steps, starts, waits, TEACHER_BATCH, mem, wall),
+           "eval_s": timer.total, "fid": fids,
+           "last_losses": {k: v for k, v in last.items() if "loss" in k}}
+    log(f"teacher {label}: {_loop_line(out)}; two evaluations {timer.total:.2f} s (FID {fids}), "
+        f"fit {wall:.1f} s, steps {out['step_ms']} [{card}]")
+    return out, run, pool_fill
+
+
+def train_h2z(dev, card, root, judge, stats):
+    """8b: the horse2zebra CycleGAN teacher recipe at batch 32 over phase 6's
+    unaligned PNGs for 10 steps, fid_B against phase 7's statistics; with
+    --remat 1 where batch 32 does not fit the card without it."""
+    import gc
+
+    import torch
+
+    from cat_tpu_torch.models.generator import InceptionGenerator
+    from cat_tpu_torch.utils import checkpoint as ckpt
+
+    argv = ["--dataroot", os.path.join(root, "data"), *H2Z_TEACHER, "--inception_path", judge,
+            "--real_stat_B_path", stats]
+    nets = ["G_A", "G_B", "D_A", "D_B"]
+    oom = None
+    try:
+        res = run_train_verb(root, "8b", argv, dev, card, nets)
+    except RuntimeError as e:  # torch.cuda.OutOfMemoryError, or a library's allocation
+        if not (isinstance(e, torch.cuda.OutOfMemoryError) or "out of memory" in str(e)):
+            raise
+        oom = str(e).splitlines()[0]
+    if oom is not None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"teacher 8b: batch {TEACHER_BATCH} without --remat does not fit the card "
+            f"({oom}); running the recipe with --remat 1, the JAX package's own flag, at the "
+            f"same batch")
+        shutil.rmtree(os.path.join(root, "log_8b"), ignore_errors=True)
+        res = run_train_verb(root, "8b", [*argv, "--remat", "1"], dev, card, nets)
+    out, run, pool_fill = res
+    out["remat"] = oom is not None
+    full = min(50, 2 * TEACHER_BATCH)  # the recipe's pool of 50 is full after step 2
+    if pool_fill[1] != [full, full]:
+        fail(f"teacher 8b: the pools hold {pool_fill[1]} after step 2, expected {full} each")
+    x = next(iter(run.loader))["A"][:4].to(dev)
+    sd, cfg = ckpt.load_net(os.path.join(root, "log_8b", "checkpoints"), "latest", "G_A")
+    gen = InceptionGenerator(cfg, packed_blocks=True).to(dev)
+    gen.load_state_dict(sd)
+    if not _same_output(gen, lambda y: run.task.generate(run.state, y, "AtoB"), x):
+        fail("teacher 8b: the reloaded G_A's output differs from the in-memory G_A's")
+    log(f"teacher 8b: pools {pool_fill[1]} after step 2; G_A, G_B, D_A, D_B and the state "
+        f"written; the reloaded G_A gives the in-memory G_A's output exactly")
+    return out
+
+
+def train_maps(dev, card, root, judge):
+    """8c: the map2sat pix2pix teacher recipe (tracked batch norm, BtoA) at
+    batch 32 over seeded aligned 512x256 PNGs for 10 steps, FID of G's A
+    images against the val set's A halves."""
+    import torch
+
+    from cat_tpu_torch import entry
+    from cat_tpu_torch.models.generator import InceptionGenerator
+    from cat_tpu_torch.utils import checkpoint as ckpt
+
+    val_a = write_maps_inputs(root)
+    stats = os.path.join(root, "real_stat_maps_A.npz")
+    entry.real_stat_main(["--dataroot", val_a, "--inception_path", judge, "--output_path",
+                          stats])
+    argv = ["--dataroot", os.path.join(root, "maps"), *MAPS_TEACHER, "--inception_path", judge,
+            "--real_stat_path", stats]
+    out, run, _ = run_train_verb(root, "8c", argv, dev, card, ["G", "D"])
+    stats_now = {f"{n}.{k}": v for n, ns in (("G", run.state.g), ("D", run.state.d))
+                 for k, v in ns.stats.items()}
+    moved = [k for k, v in stats_now.items()
+             if not torch.equal(v, torch.zeros_like(v) if k.endswith("mean") else
+                                torch.ones_like(v))]
+    if not stats_now or len(moved) != len(stats_now):
+        fail(f"teacher 8c: {len(moved)} of {len(stats_now)} running statistics moved from (0, 1)")
+    x = next(iter(run.loader))["A"][:4].to(dev)
+    sd, cfg = ckpt.load_net(os.path.join(root, "log_8c", "checkpoints"), "latest", "G")
+    gen = InceptionGenerator(cfg, packed_blocks=True).to(dev)
+    gen.load_state_dict(sd)
+    if not _same_output(gen, lambda y: run.task.generate(run.state, y), x):
+        fail("teacher 8c: the reloaded G's eval-mode output differs from the in-memory G's")
+    log(f"teacher 8c: all {len(stats_now)} running statistics of G and D moved from (0, 1); "
+        f"the reloaded G gives the in-memory G's eval-mode output exactly")
+    return out
+
+
 _KERNEL_GROUPS = (  # (group, substrings of the lower-cased kernel name), first match wins
     ("gram (csrc/gram.cu)", ("gram_partial", "gram_reduce")),
     ("instance_norm_act (csrc/instance_norm.cu)", ("inorm_act",)),
@@ -1045,6 +1337,22 @@ def main() -> None:
         log("verb: " + json.dumps(verb))
         ev = evaluation(dev, card, root)
         log("eval: " + json.dumps(ev))
+
+        # --- 8. teacher training: tiny steps against the CPU, both teacher
+        # recipes through the train verb, and 8b's teacher into the distill verb
+        t0 = time.perf_counter()
+        teacher_reference(dev)
+        judge, stats = os.path.join(root, "judge.pth"), os.path.join(root, "real_stat_B.npz")
+        h2z = train_h2z(dev, card, root, judge, stats)
+        maps = train_maps(dev, card, root, judge)
+        trained = os.path.join(root, "log_8b", "checkpoints")
+        hand, _, _ = run_verb(root, "8d", [], "f32tma", dev, card, epochs=1,
+                              teacher_g=os.path.join(trained, "latest_net_G_A.pth"),
+                              teacher_d=os.path.join(trained, "latest_net_D_A.pth"))
+        log(f"teacher 8d: the distill verb restored 8b's G_A and D_A and ran "
+            f"{hand['steps']} steps, {hand['gram_launches']} Gram launches ({hand['gram_path']})")
+        log("teacher: " + json.dumps({"8b": h2z, "8c": maps, "8d": hand,
+                                      "seconds": time.perf_counter() - t0}))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -291,7 +291,7 @@ def test_jax_msgpack_generator_and_d_load_into_the_port(tmp_path, rng):
 
     disc = NLayerDiscriminator(to_port(dcfg))
     dsd = _load_net(str(tmp_path / "best_A_net_D_A.msgpack"),
-                    lambda p: jax_import.nlayer_discriminator_state_dict(p, to_port(dcfg)), "D")
+                    lambda t: jax_import.discriminator_net_state_dict(t, to_port(dcfg)), "D")
     disc.load_state_dict(dsd)
     with torch.no_grad():
         d_out = disc(torch.from_numpy(x)).numpy()

@@ -218,8 +218,7 @@ def test_bf16_step_keeps_float32_masters(rng):
 
 
 @pytest.mark.parametrize("kw", [{"teacher_compute_dtype": "int8"},
-                                {"teacher_compute_dtype": "int8_static"},
-                                {"gan_mode": "wgangp"}])
+                                {"teacher_compute_dtype": "int8_static"}])
 def test_unported_hyperparameters_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InceptionDistiller(to_port(_gen_cfg(8)), to_port(_gen_cfg(4)),

@@ -12,8 +12,8 @@ and leaves inert on a verb are inert here too: on distill,
 --pretrained_ngf/--teacher_ngf, --prune_continue, --prune_logging_verbose,
 --restore_O_path, and the SPADE, evaluation-only and teacher-training flags
 the inception distiller does not read; on train, --netG, --restore_D_path,
-the distill-step dtypes and EMA flags, and the SPADE flags (``--model
-spade`` raises).
+the distill-step dtypes and EMA flags, the SPADE flags with pix2pix and
+CycleGAN, and the inception flags with ``--model spade``.
 """
 
 from __future__ import annotations
@@ -153,7 +153,7 @@ def train_arguments(parser: argparse.ArgumentParser):
                         "int8 teachers are not ported yet)")
     p.add_argument("--vgg_compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help='dtype of the VGG19 perceptual sweep (SPADE family, not ported yet)')
+                   help="dtype of the VGG19 perceptual sweep (SPADE family)")
     p.add_argument("--gan_mode", type=str, default="hinge",
                    choices=["vanilla", "lsgan", "wgangp", "hinge"])
     p.add_argument("--pool_size", type=int, default=50)
@@ -332,20 +332,19 @@ def _raise_unported(checks) -> None:
 
 
 def check_train_ported(opt) -> None:
-    """The train verb's ``check_ported``: SPADE and multi-GPU raise."""
-    _raise_unported((("--model spade", opt.model == "spade", "15, SPADE family"),
-                     *_multi_gpu(opt)))
+    """The train verb's ``check_ported``: multi-GPU raises."""
+    _raise_unported(_multi_gpu(opt))
 
 
 def check_ported(opt) -> None:
     """Raise for a flag whose code path is not ported yet, set away from
     its default, naming the ROADMAP.md item (queue 1) that brings it.  The
     other unported paths raise where they would run: the int8 teacher in
-    the distiller, Cityscapes in the data path, mIoU in the entry; the pixel
-    D, which the JAX package's tasks cannot build either, raises in the
-    tasks."""
-    _raise_unported((("--distiller spade", opt.distiller == "spade", "15, SPADE family"),
-                     *_multi_gpu(opt)))
+    the distiller, the SPADE family's Cityscapes data in the inception
+    verbs' loader; the pixel D, which the JAX package's tasks cannot build
+    either, raises in the tasks."""
+    _raise_unported((("--distiller spade", opt.distiller == "spade",
+                      "15b, SPADE distillation"), *_multi_gpu(opt)))
 
 
 # ---------------------------------------------------------------------------
@@ -438,6 +437,47 @@ def load_generator_checkpoint(path: str, norm: NormConfig):
         raise FileNotFoundError(f"{path}: no .json config beside it")
     tree = ckpt.load_pytree(path)
     return cfg, generator_state_dict(tree["params"], cfg, tree.get("batch_stats"))
+
+
+def semantic_nc(opt) -> int:
+    """input_nc + dontcare + instance edge (reference base_options.py:211-215)."""
+    return (opt.input_nc + (1 if opt.contain_dontcare_label else 0)
+            + (0 if opt.no_instance else 1))
+
+
+def parse_param_free_norm(norm_g: str) -> str:
+    """'spade(syncbatch)3x3', optionally 'spectral'-prefixed -> the norm kind."""
+    import re
+
+    m = re.search(r"spade(\D+)(\d)x\d", norm_g.replace("spectral", ""))
+    if not m:
+        raise ValueError(f"unrecognised norm_G {norm_g!r}")
+    return m.group(1)
+
+
+def spade_generator_config(opt, ngf: int, norm_g: str):
+    from cat_tpu_torch.core.spade_config import SPADEGeneratorConfig
+
+    return SPADEGeneratorConfig.make(
+        semantic_nc=semantic_nc(opt), ngf=ngf,
+        channels=tuple(opt.channels) if opt.channels else None,
+        channels_reduction_factor=opt.channels_reduction_factor,
+        kernel_sizes=tuple(opt.kernel_sizes), num_upsampling_layers=opt.num_upsampling_layers,
+        crop_size=opt.crop_size, aspect_ratio=opt.aspect_ratio,
+        param_free_norm=parse_param_free_norm(norm_g), spectral="spectral" in norm_g,
+        active_fn="leaky_relu")
+
+
+def make_vgg(opt, device):
+    """The VGG19 of the perceptual loss on ``device``, or None (with a
+    warning, and the loss off) when its weights are absent."""
+    if opt.lambda_vgg > 0 and opt.vgg_path and os.path.exists(opt.vgg_path):
+        from cat_tpu_torch.models.vgg import load_vgg19
+
+        return load_vgg19(opt.vgg_path, device)
+    if opt.lambda_vgg > 0:
+        print(f"WARNING: VGG19 weights not found at {opt.vgg_path!r}; perceptual loss disabled.")
+    return None
 
 
 def make_fid_judge(opt, device):

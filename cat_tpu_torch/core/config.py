@@ -218,6 +218,14 @@ _CONFIG_TYPES = {
 }
 
 
+def register_config(cls):
+    """Make a config class of another module round-trip through
+    ``config_to_json``/``config_from_json`` (``core/spade_config.py``, which
+    ``core/__init__.py`` imports)."""
+    _CONFIG_TYPES[cls.__name__] = cls
+    return cls
+
+
 def _to_dict(obj: Any) -> Any:
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         d = {"__type__": type(obj).__name__}

@@ -1,6 +1,7 @@
 """Datasets: aligned (pix2pix AB pairs), unaligned (CycleGAN), single (eval)
-(port of ``cat_tpu/data/datasets.py``; the Cityscapes dataset comes with
-the SPADE family).
+(port of ``cat_tpu/data/datasets.py``); ``create_dataloader``'s
+``cityscapes`` mode builds ``data/cityscapes.py``'s dataset of the SPADE
+family.
 
 The same files, random draws (in the same order) and PIL calls as the JAX
 package, so the two give the same samples from the same folder and seed.
@@ -261,10 +262,15 @@ def create_dataloader(
                               load_in_memory)
     elif dataset_mode == "single":
         ds = SingleDataset(dataroot, phase, spec, max_size)
+    elif dataset_mode == "cityscapes":
+        from cat_tpu_torch.data.cityscapes import CityscapesDataset
+
+        spec = spec or TransformSpec()
+        ds = CityscapesDataset(dataroot, phase, spec.load_size, spec.crop_size,
+                               spec.aspect_ratio, max_size=max_size,
+                               load_in_memory=load_in_memory)
     else:
-        raise NotImplementedError(f"dataset mode [{dataset_mode}] is not ported yet"
-                                  + (": ROADMAP.md queue 1, item 15, SPADE family"
-                                     if dataset_mode == "cityscapes" else ""))
+        raise NotImplementedError(f"dataset mode [{dataset_mode}] not implemented")
     return DataLoader(ds, batch_size, shuffle=not serial_batches, seed=seed,
                       drop_last=drop_last, num_workers=num_workers, worker_mode=worker_mode)
 

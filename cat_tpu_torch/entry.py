@@ -1,11 +1,12 @@
 """The verbs end to end (port of the inception half of ``cat_tpu/entry.py``:
 train, distill, profile and get_real_stat; and of ``tools/kid_score.py``).
 
-``train_main`` trains a pix2pix or CycleGAN teacher from the JAX package's
-train flags (``train/pix2pix.py``, ``train/cyclegan.py``), with FID at the
-trainer's cadence where a judge and statistics are given, and writes the
-checkpoints the distill verb restores (``G``/``D``, or ``G_A``, ``G_B``,
-``D_A``, ``D_B``).
+``train_main`` trains a pix2pix, CycleGAN or GauGAN (SPADE) teacher from
+the JAX package's train flags (``train/pix2pix.py``, ``train/cyclegan.py``,
+``train/spade_model.py``), with FID (and, on Cityscapes, mIoU) at the
+trainer's cadence where their files are given, and writes the checkpoints
+the distill verb restores (``G``/``D``, or ``G_A``, ``G_B``, ``D_A``,
+``D_B``).
 
 ``distill_main`` parses the JAX package's distill flags, builds the loader,
 restores the teacher, shrinks it to the student architecture
@@ -15,8 +16,10 @@ full train state where asked, and hands a step, save, copy and evaluate
 function to the ``Trainer``.  With the judge's weights (``--inception_path``)
 and the real statistics (``--real_stat_path``) present, it evaluates FID at
 the trainer's cadence and tags the best checkpoints; without them it warns
-and trains without FID, as the JAX package does.  mIoU (Cityscapes, BtoA)
-is not ported yet (ROADMAP.md queue 1, item 13b) and raises.
+and trains without FID, as the JAX package does.  On Cityscapes photos
+(a dataroot naming cityscapes, BtoA) it also evaluates mIoU with the DRN
+judge (``--drn_path``, ``--table_path``, ``--cityscapes_path``), and warns
+and goes without where their files are absent.
 
 ``profile_main`` times the shrink, counts the student's MACs and parameters,
 times its forward at batch 1 and sweeps the val set with every image
@@ -86,20 +89,29 @@ def _maybe_restore_state(opt, state, convert):
     return state
 
 
-def _check_no_miou(opt) -> None:
-    """mIoU is not ported yet.  The JAX package judges generated Cityscapes
-    photos (dataroot naming cityscapes, direction BtoA) when the DRN weights
-    and the table file exist: raise there; warn, as it does, when they are
-    absent."""
+def make_miou_evaluator(opt, generate, eval_loader, device, input_key: Optional[str] = "A"):
+    """The mIoU evaluator of generated Cityscapes photos, where the JAX
+    package makes one (a dataroot naming cityscapes, direction BtoA;
+    reference distillers/inception_distiller.py:262-279), or None; warns, as
+    it does, when the DRN weights or the table file are absent."""
     if "cityscapes" not in opt.dataroot or opt.direction != "BtoA":
-        return
+        return None
+    return _miou_judge(opt, generate, eval_loader, device, input_key)
+
+
+def _miou_judge(opt, generate, eval_loader, device, input_key):
     if not (opt.drn_path and os.path.exists(opt.drn_path)):
         print(f"WARNING: DRN weights not found at {opt.drn_path!r}; mIoU disabled.")
-    elif not os.path.exists(opt.table_path):
+        return None
+    if not os.path.exists(opt.table_path):
         print(f"WARNING: table file not found at {opt.table_path!r}; mIoU disabled.")
-    else:
-        raise NotImplementedError("mIoU evaluation is not ported yet: ROADMAP.md queue 1, "
-                                  "item 13b, mIoU")
+        return None
+    from cat_tpu_torch.metrics.drn import load_drnseg
+    from cat_tpu_torch.train.evaluation import MIoUEvaluator
+
+    return MIoUEvaluator(generate, eval_loader, load_drnseg(opt.drn_path, device=device),
+                         opt.table_path, data_dir=opt.cityscapes_path,
+                         batch_size=opt.eval_batch_size, input_key=input_key, device=device)
 
 
 def _real_stats(path: Optional[str]) -> Optional[Dict[str, np.ndarray]]:
@@ -115,6 +127,10 @@ def _make_train_loader(opt, spec, device: torch.device):
     """Host DataLoader, or the device-resident bank with --on_device_data
     (unaligned resize_and_crop without --serial_batches; other modes fall
     back to the host loader, as in the JAX package)."""
+    if opt.dataset_mode == "cityscapes":
+        raise NotImplementedError(
+            "--dataset_mode cityscapes feeds the SPADE family: the train verb's --model spade, "
+            "and --distiller spade, which is not ported yet: ROADMAP.md queue 1, item 15b")
     if opt.on_device_data:
         if (opt.dataset_mode == "unaligned" and spec.preprocess == "resize_and_crop"
                 and not spec.grayscale and not opt.serial_batches):
@@ -213,7 +229,6 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
 
     device = resolve_device(device)
     cli.set_seed(opt.seed)
-    _check_no_miou(opt)
     spec = cli.transform_spec(opt)
     if loader is None:
         loader = _make_train_loader(opt, spec, device)
@@ -295,20 +310,26 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
         logger.print_info("prune_only: student architecture emitted; exiting.")
         return DistillRun(None, state, dist, teacher_params, student_cfg, loader, logger)
 
-    # FID of the student's eval weights over the val set, at the trainer's
-    # cadence; the evaluator reads the newest state from the box
+    # FID (and mIoU of Cityscapes photos) of the student's eval weights over
+    # the val set, at the trainer's cadence; the evaluators read the newest
+    # state from the box
     judge = cli.make_fid_judge(opt, device)
     stats = _real_stats(opt.real_stat_path)
     state_box = [state]
-    evaluate_fn = None
+    eval_loader = create_eval_dataloader(opt.dataset_mode, opt.dataroot, opt.eval_batch_size,
+                                         spec, opt.direction)
+    evs = []
     if judge is not None and stats is not None:
-        eval_loader = create_eval_dataloader(opt.dataset_mode, opt.dataroot,
-                                             opt.eval_batch_size, spec, opt.direction)
-        evaluate_fn = combine_evaluators(**{"": FIDEvaluator(
+        evs.append(FIDEvaluator(
             lambda x: dist.generate_student(state_box[0], x), eval_loader, judge, stats,
             opt.log_dir, opt.eval_batch_size,
             teacher_generate=lambda x: dist.generate_teacher(teacher_params, x),
-            device=device)})
+            device=device))
+    miou = make_miou_evaluator(opt, lambda x: dist.generate_student(state_box[0], x),
+                               eval_loader, device)
+    if miou is not None:
+        evs.append(miou)
+    evaluate_fn = combine_evaluators(**{"": evs}) if evs else None
 
     def save_fn(state, tag):
         # net_G holds what evaluation and deployment use: the EMA weights
@@ -359,7 +380,7 @@ def distill_main(argv: Optional[List[str]] = None, device=None) -> DistillRun:
 
 
 # ---------------------------------------------------------------------------
-# train verb (teacher training: pix2pix and CycleGAN)
+# train verb (teacher training: pix2pix, CycleGAN and GauGAN)
 # ---------------------------------------------------------------------------
 
 
@@ -381,15 +402,16 @@ class TrainRun:
 
 def setup_train(opt, device=None, loader=None) -> TrainRun:
     """The train verb's task, state, evaluators and checkpoints (the JAX
-    package's ``setup_train`` for pix2pix and CycleGAN).  ``loader`` as in
-    ``setup_distill_inception``."""
+    package's ``setup_train``; ``setup_train_spade`` for ``--model
+    spade``).  ``loader`` as in ``setup_distill_inception``."""
     from cat_tpu_torch.data.datasets import create_eval_dataloader
     from cat_tpu_torch.train.evaluation import FIDEvaluator, combine_evaluators
 
     cli.check_train_ported(opt)
+    if opt.model == "spade":
+        return setup_train_spade(opt, device, loader)
     device = resolve_device(device)
     cli.set_seed(opt.seed)
-    _check_no_miou(opt)
     spec = cli.transform_spec(opt)
     if loader is None:
         loader = _make_train_loader(opt, spec, device)
@@ -416,14 +438,19 @@ def setup_train(opt, device=None, loader=None) -> TrainRun:
         state = task.init_state(opt.seed, g_sd)
         state = _maybe_restore_state(opt, state, lambda t: jax_import.train_state_dict(
             t, "pix2pix", gen_cfg, d_cfg))
-        evaluators = {}
         stats = _real_stats(opt.real_stat_path)
+        eval_loader = create_eval_dataloader(opt.dataset_mode, opt.dataroot,
+                                             opt.eval_batch_size, spec, opt.direction)
+        evs = []
         if judge is not None and stats is not None:
-            eval_loader = create_eval_dataloader(opt.dataset_mode, opt.dataroot,
-                                                 opt.eval_batch_size, spec, opt.direction)
-            evaluators[""] = FIDEvaluator(lambda x: task.generate(state_box[0], x), eval_loader,
-                                          judge, stats, opt.log_dir, opt.eval_batch_size,
-                                          device=device)
+            evs.append(FIDEvaluator(lambda x: task.generate(state_box[0], x), eval_loader,
+                                    judge, stats, opt.log_dir, opt.eval_batch_size,
+                                    device=device))
+        miou = make_miou_evaluator(opt, lambda x: task.generate(state_box[0], x), eval_loader,
+                                   device)
+        if miou is not None:
+            evs.append(miou)
+        evaluators = {"": evs} if evs else {}
         nets = {"G": (task.netG, gen_cfg), "D": (task.netD, d_cfg)}
     elif opt.model == "cycle_gan":
         from cat_tpu_torch.train.cyclegan import CycleGANHParams, CycleGANTask
@@ -475,6 +502,97 @@ def setup_train(opt, device=None, loader=None) -> TrainRun:
 
     trainer = Trainer(step_fn, loader, cli.trainer_config(opt),
                       combine_evaluators(**evaluators) if evaluators else None, save_fn, logger,
+                      device=device, copy_tag_fn=lambda s, d: ckpt.copy_tag(save_dir, s, d))
+    return TrainRun(trainer, state, task, gen_cfg, d_cfg, loader, logger)
+
+
+def _spade_evaluators(opt, generate, device):
+    """FID and mIoU over the Cityscapes val split for SPADE training
+    (reference spade_model.evaluate_model:217-288), each where its files
+    exist; the combined evaluate function, or None."""
+    from cat_tpu_torch.data.cityscapes import create_cityscapes_dataloader
+    from cat_tpu_torch.train.evaluation import FIDEvaluator, combine_evaluators
+
+    judge = None if opt.no_fid else cli.make_fid_judge(opt, device)
+    stats = _real_stats(opt.real_stat_path)
+    want_miou = (opt.drn_path and os.path.exists(opt.drn_path)
+                 and os.path.exists(opt.table_path))
+    if not ((judge is not None and stats is not None) or want_miou):
+        return None
+    eval_loader = create_cityscapes_dataloader(
+        opt.dataroot, opt.eval_batch_size, phase="val", shuffle=False, drop_last=False,
+        load_size=opt.load_size, crop_size=opt.crop_size, aspect_ratio=opt.aspect_ratio,
+        no_instance=opt.no_instance, pairing_check=not opt.no_pairing_check,
+        num_workers=opt.num_threads)
+    evs = []
+    if judge is not None and stats is not None:
+        evs.append(FIDEvaluator(generate, eval_loader, judge, stats, opt.log_dir,
+                                opt.eval_batch_size, device=device, input_key=None))
+    if want_miou:
+        evs.append(_miou_judge(opt, generate, eval_loader, device, input_key=None))
+    return combine_evaluators(**{"": evs})
+
+
+def setup_train_spade(opt, device=None, loader=None) -> TrainRun:
+    """GauGAN teacher training (reference models/spade_model.py; the JAX
+    package's ``setup_train_spade``): the Cityscapes loader (shuffled unless
+    --serial_batches), ``SPADETask`` with TTUR, FID and mIoU at the
+    trainer's cadence where their files exist, and the G, D and state
+    checkpoints."""
+    from cat_tpu_torch.core.spade_config import MultiscaleDiscriminatorConfig
+    from cat_tpu_torch.data.cityscapes import create_cityscapes_dataloader
+    from cat_tpu_torch.train.spade_model import SPADEHParams, SPADETask
+
+    device = resolve_device(device)
+    cli.set_seed(opt.seed)
+    logger = Logger(opt.log_dir, opt.tensorboard_dir)
+    save_dir = os.path.join(opt.log_dir, "checkpoints")
+    gen_cfg = cli.spade_generator_config(opt, opt.ngf, opt.norm_G)
+    d_cfg = MultiscaleDiscriminatorConfig(input_nc=gen_cfg.semantic_nc + gen_cfg.output_nc,
+                                          ndf=opt.ndf, n_layers=opt.n_layers_D, num_D=opt.num_D,
+                                          norm_D=opt.norm_D)
+    hp = SPADEHParams(
+        gan_mode=opt.gan_mode, lambda_gan=opt.lambda_gan, lambda_feat=opt.lambda_feat,
+        lambda_vgg=opt.lambda_vgg, no_TTUR=opt.no_TTUR,
+        beta1=opt.beta1 if opt.no_TTUR else 0.0, beta2=opt.beta2 if opt.no_TTUR else 0.9,
+        compute_dtype=opt.compute_dtype, vgg_compute_dtype=opt.vgg_compute_dtype,
+        init_type=opt.init_type, init_gain=opt.init_gain, remat=bool(opt.remat))
+    logger.print_info("SPADE blocks: the port evaluates every branch on its own (the JAX "
+                      "package's packed layout, --packed_blocks, computes the same function).")
+    task = SPADETask(gen_cfg, d_cfg, hp, vgg=cli.make_vgg(opt, device), input_nc=opt.input_nc,
+                     contain_dontcare=opt.contain_dontcare_label, device=device)
+    g_sd = None
+    if opt.restore_G_path:
+        g_sd = _load_net(opt.restore_G_path,
+                         lambda t: jax_import.spade_net_state_dict(t, gen_cfg), "G")
+    state = task.init_state(opt.seed, g_sd)
+    state = _maybe_restore_state(opt, state, lambda t: jax_import.train_state_dict(
+        t, "spade", gen_cfg, d_cfg))
+    if loader is None:
+        loader = create_cityscapes_dataloader(
+            opt.dataroot, opt.batch_size, phase=opt.phase, shuffle=not opt.serial_batches,
+            seed=opt.seed, load_size=opt.load_size, crop_size=opt.crop_size,
+            aspect_ratio=opt.aspect_ratio, no_instance=opt.no_instance,
+            pairing_check=not opt.no_pairing_check, max_size=opt.max_dataset_size,
+            load_in_memory=opt.load_in_memory, num_workers=opt.num_threads,
+            worker_mode=opt.data_backend)
+    state_box = [state]
+    evaluate_fn = _spade_evaluators(opt, lambda b: task.generate_raw(state_box[0], b), device)
+
+    def save_fn(state, tag):
+        ckpt.save_net(save_dir, tag, "G", task.netG.state_dict(), gen_cfg)
+        ckpt.save_net(save_dir, tag, "D", task.netD.state_dict(), d_cfg)
+        if opt.save_full_state:
+            ckpt.save_train_state(save_dir, tag, train_state_dict(state))
+        else:
+            ckpt.remove_stale(save_dir, tag, "state.pth")
+
+    def step_fn(state, batch, lr):
+        state, metrics = task.train_step(state, batch, lr)
+        state_box[0] = state
+        return state, metrics
+
+    trainer = Trainer(step_fn, loader, cli.trainer_config(opt), evaluate_fn, save_fn, logger,
                       device=device, copy_tag_fn=lambda s, d: ckpt.copy_tag(save_dir, s, d))
     return TrainRun(trainer, state, task, gen_cfg, d_cfg, loader, logger)
 
@@ -534,7 +652,7 @@ def _profile_eval_sweep(opt, logger, device, gen_s, gen_t) -> Dict[str, float]:
     """The profile verb's final evaluation (reference profiler.py:154-164,
     ``evaluate(0, 0, save_image=True)``): sweep the val set, dump every
     input/Sfake/Tfake image to <results_dir>/eval/latest/ (the KID tool's
-    input), and report FID."""
+    input), and report FID (and mIoU of Cityscapes photos, BtoA)."""
     from cat_tpu_torch.data.datasets import create_eval_dataloader
     from cat_tpu_torch.train.evaluation import FIDEvaluator
 
@@ -547,6 +665,9 @@ def _profile_eval_sweep(opt, logger, device, gen_s, gen_t) -> Dict[str, float]:
     ev = FIDEvaluator(gen_s, eval_loader, judge, stats, results_dir, opt.eval_batch_size,
                       dump_images=10 ** 9, teacher_generate=gen_t, device=device)
     metrics, _ = ev("latest")
+    miou = None if opt.no_mIoU else make_miou_evaluator(opt, gen_s, eval_loader, device)
+    if miou is not None:
+        metrics.update(miou("latest")[0])
     dump_dir = os.path.join(results_dir, "eval", "latest")
     logger.print_info("evaluation: "
                       + (", ".join(f"{k}: {v:.4f}" for k, v in metrics.items()) or "(no judges)")
@@ -559,8 +680,6 @@ def profile_distill(opt, device=None) -> Dict[str, Any]:
     the student's forward latency at batch 1, and the full evaluation sweep
     (reference profiler.py:38-164)."""
     device = resolve_device(device)
-    if not opt.no_mIoU:
-        _check_no_miou(opt)
     logger = Logger(opt.log_dir)
     try:
         teacher_norm = cli.norm_config(opt, opt.norm_affine)

@@ -31,6 +31,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cat_tpu_torch import resolve_device
+
+
 @contextlib.contextmanager
 def _no_tf32():
     """float32 convolutions in float32, not TF32, inside the block."""
@@ -229,11 +232,12 @@ def _judge_layout(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor
 def load_inception(path: str, output_blocks: Sequence[int] = (3,),
                    device=None) -> InceptionV3FID:
     """The judge from a ``pt_inception-2015-12-05``-layout ``.pth``, loaded
-    strictly, on ``device`` (the CPU by default)."""
+    strictly, on ``device`` (CUDA unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     state_dict = torch.load(path, map_location="cpu", weights_only=True)
     model = InceptionV3FID(output_blocks)
     model.load_state_dict(_judge_layout(state_dict))
-    return model.to(device or "cpu")
+    return model.to(device)
 
 
 def random_judge_state_dict(seed: int = 233) -> Dict[str, torch.Tensor]:

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cat_tpu_torch.core.config import NormConfig
+from cat_tpu_torch.ops.spectral import SpectralConv2d
 
 # ---------------------------------------------------------------------------
 # Padding
@@ -99,12 +100,17 @@ def norm_scale_init(norm: NormConfig, init_gain: float = 0.02):
 def init_weights(module: nn.Module, init_type: str = "normal", init_gain: float = 0.02,
                  generator: Optional[torch.Generator] = None) -> nn.Module:
     """Initialise every conv and norm under ``module`` in place: kernels by
-    ``init_type``, biases to zero, norm scales by ``norm_scale_init``."""
+    ``init_type``, biases to zero, norm scales by ``norm_scale_init``, a
+    spectral conv's ``u`` at random."""
     kernel_init = conv_kernel_init(init_type, init_gain)
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-            w = m.weight.transpose(0, 1) if isinstance(m, nn.ConvTranspose2d) else m.weight
-            kernel_init(w, generator)
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, SpectralConv2d)):
+            if isinstance(m, SpectralConv2d):
+                kernel_init(m.weight_orig, generator)
+                m.reset_u(generator)
+            else:
+                kernel_init(m.weight.transpose(0, 1) if isinstance(m, nn.ConvTranspose2d)
+                            else m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, Norm2d) and m.weight is not None:
@@ -202,8 +208,9 @@ class Norm2d(nn.Module):
 def frozen_stats(*nets: nn.Module):
     """Within the block, the batch norms under ``nets`` normalise with batch
     statistics in train mode but leave their running statistics as they
-    are: the JAX package's forwards that do not take ``mutable_stats``."""
-    norms = [m for net in nets for m in net.modules() if isinstance(m, Norm2d)]
+    are, and spectral convs iterate without writing ``u``: the JAX package's
+    forwards that do not take ``mutable_stats``."""
+    norms = [m for net in nets for m in net.modules() if hasattr(m, "update_stats")]
     saved = [m.update_stats for m in norms]
     for m in norms:
         m.update_stats = False

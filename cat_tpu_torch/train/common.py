@@ -8,7 +8,6 @@ and their optimisers, and a step updates them in place.
 
 from __future__ import annotations
 
-from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Dict, List
 
@@ -16,6 +15,7 @@ import torch
 
 from cat_tpu_torch import import_stdlib_profile
 from cat_tpu_torch.ops.nn import frozen_stats
+from cat_tpu_torch.ops.spectral import SpectralConv2d
 from cat_tpu_torch.train.optim import Adam
 from cat_tpu_torch.utils.image_pool import ImagePool
 
@@ -61,19 +61,33 @@ def net_state(net: torch.nn.Module, beta1: float) -> NetState:
 
 def checkpointed(fn, net: torch.nn.Module, rng: torch.Generator):
     """``fn()`` under ``torch.utils.checkpoint``: only its inputs are kept,
-    and the backward recomputes it with the same dropout masks and without
-    moving ``net``'s running statistics a second time.  The recompute
+    and the backward recomputes it with the same dropout masks, from the
+    spectral ``u`` the first forward started from, and without writing
+    ``net``'s running statistics or ``u`` a second time.  The recompute
     rewinds ``rng``: keep its state around the backward."""
     from torch.utils.checkpoint import checkpoint
 
     import_stdlib_profile()  # torch.utils.checkpoint reaches TorchDynamo
     start, calls = rng.get_state(), []
+    spectral = [m for m in net.modules() if isinstance(m, SpectralConv2d)]
+    u_start = [m.weight_u.clone() for m in spectral]
 
     def run():
         rng.set_state(start)
-        with frozen_stats(net) if calls else nullcontext():
+        if not calls:
             calls.append(1)
             return fn()
+        u_now = [m.weight_u.clone() for m in spectral]
+        with torch.no_grad():
+            for m, u in zip(spectral, u_start):
+                m.weight_u.copy_(u)
+        try:
+            with frozen_stats(net):
+                return fn()
+        finally:
+            with torch.no_grad():
+                for m, u in zip(spectral, u_now):
+                    m.weight_u.copy_(u)
 
     return checkpoint(run, use_reentrant=False)
 

@@ -1,11 +1,12 @@
-"""The FID evaluator with best-checkpoint tracking (port of the FID half of
+"""The FID and mIoU evaluators with best-checkpoint tracking (port of
 ``cat_tpu/train/evaluation.py``).
 
 Reference: pix2pix_model.evaluate_model:209-281, cycle_gan_model:310-365,
-inception_distiller:204-281: sweep the eval loader, dump sample images,
-compute FID against cached real statistics, track the best value and the
-mean of the last three.  The mIoU evaluator waits for ROADMAP.md queue 1,
-item 13b.
+inception_distiller:204-281, spade_model.evaluate_model:217-288: sweep the
+eval loader, dump sample images, compute FID against cached real statistics
+or the Cityscapes mIoU of the generated photos, track the best value and the
+mean of the last three.  The evaluators run on CUDA unless their caller
+passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -16,8 +17,9 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from cat_tpu_torch import resolve_device
 from cat_tpu_torch.metrics.fid import get_fid
-from cat_tpu_torch.utils.image import save_image, tensor2im
+from cat_tpu_torch.utils.image import save_image, tensor2im, tensor2label
 
 
 def write_eval_index(save_dir: str, title: str = "") -> Optional[str]:
@@ -63,21 +65,36 @@ class MetricTracker:
         return sum(self.history) / len(self.history)
 
 
+def _generator_input(batch: Dict, input_key: Optional[str], device: torch.device):
+    """What ``generate`` takes from an eval batch: ``batch[input_key]`` on
+    the device, or with ``input_key`` None (SPADE's raw label and instance
+    maps) the batch with its tensors on the device."""
+    if input_key:
+        return batch[input_key].to(device)
+    return {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+
+
+def _sample_names(batch: Dict, n: int):
+    paths = batch.get("A_paths") or batch.get("path") or [str(i) for i in range(n)]
+    return [os.path.splitext(os.path.basename(p))[0] for p in paths]
+
+
 class FIDEvaluator:
     """Generator sweep over the eval loader, and FID against cached
     statistics; dumps the first ``dump_images`` samples.
 
-    ``generate`` maps a [-1, 1] NCHW input batch on ``device`` to generated
-    images; the dumps go to ``<log_dir>/eval/<step>/``.  ``inception_model``
-    and ``real_stats`` may be None: the sweep still runs and dumps
-    input/Sfake/Tfake(/real) images (the profile verb's contract, which holds
-    without judge weights), and no metric is returned.  ``name`` names the
-    metric (``metric/<name>``): CycleGAN's two directions are fid_B and
-    fid_A."""
+    ``generate`` maps an input batch on ``device`` (``batch[input_key]``, a
+    [-1, 1] NCHW image batch; with ``input_key`` None the whole batch, as
+    SPADE's label and instance maps) to generated images; the dumps go to
+    ``<log_dir>/eval/<step>/``.  ``inception_model`` and ``real_stats`` may
+    be None: the sweep still runs and dumps input/Sfake/Tfake(/real) images
+    (the profile verb's contract, which holds without judge weights), and no
+    metric is returned.  ``name`` names the metric (``metric/<name>``):
+    CycleGAN's two directions are fid_B and fid_A."""
 
     def __init__(
         self,
-        generate: Callable[[torch.Tensor], torch.Tensor],
+        generate: Callable,
         eval_loader,
         inception_model,
         real_stats: Optional[Dict[str, np.ndarray]],
@@ -87,6 +104,7 @@ class FIDEvaluator:
         teacher_generate: Optional[Callable] = None,
         device=None,
         name: str = "fid",
+        input_key: Optional[str] = "A",
     ):
         self.generate = generate
         self.eval_loader = eval_loader
@@ -97,33 +115,37 @@ class FIDEvaluator:
         self.dump_images = dump_images
         self.teacher_generate = teacher_generate
         self.name = name
-        self.device = torch.device("cpu" if device is None else device)
+        self.input_key = input_key
+        self.device = resolve_device(device)
         self.tracker = MetricTracker(larger_is_better=False)
 
     def __call__(self, step) -> Tuple[Dict[str, float], Dict[str, bool]]:
         fakes = []
         dumped = 0
         save_dir = os.path.join(self.log_dir, "eval", str(step))
+        key = self.input_key
         for batch in self.eval_loader:
-            inp = batch["A"].to(self.device)
+            inp = _generator_input(batch, key, self.device)
             fake = self.generate(inp).float().cpu().numpy()
             fakes.append(fake)
             if dumped < self.dump_images:
                 tfake = (self.teacher_generate(inp).float().cpu().numpy()
                          if self.teacher_generate else None)
-                paths = batch.get("A_paths") or [str(i) for i in range(len(fake))]
-                for j in range(len(fake)):
+                for j, base in enumerate(_sample_names(batch, len(fake))):
                     if dumped >= self.dump_images:
                         break
-                    base = os.path.splitext(os.path.basename(paths[j]))[0]
-                    save_image(tensor2im(batch["A"][j]),
-                               os.path.join(save_dir, "input", f"{base}.png"))
+                    if key:
+                        save_image(tensor2im(batch[key][j]),
+                                   os.path.join(save_dir, "input", f"{base}.png"))
+                    elif "label" in batch:
+                        save_image(tensor2label(batch["label"][j]),
+                                   os.path.join(save_dir, "input", f"{base}.png"))
                     save_image(tensor2im(fake[j]), os.path.join(
                         save_dir, "Sfake" if tfake is not None else "fake", f"{base}.png"))
                     if tfake is not None:
                         save_image(tensor2im(tfake[j]),
                                    os.path.join(save_dir, "Tfake", f"{base}.png"))
-                    if "B" in batch:
+                    if key and "B" in batch:
                         # aligned ground truth (reference inception_distiller.py:238-243)
                         save_image(tensor2im(batch["B"][j]),
                                    os.path.join(save_dir, "real", f"{base}.png"))
@@ -136,6 +158,75 @@ class FIDEvaluator:
                       batch_size=self.eval_batch_size)
         improved = self.tracker.update(fid)
         metrics = {f"metric/{self.name}": fid, f"metric/{self.name}-mean": self.tracker.mean,
+                   f"metric/{self.name}-best": self.tracker.best}
+        return metrics, {"is_best": improved}
+
+
+class MIoUEvaluator:
+    """Cityscapes mIoU of generated street photos (reference
+    metric/mIoU_score.py:209-247, and the SegList table pairing :66-108).
+
+    ``table_path`` rows are ``<name> <label_path> <photo_path>``; a sample
+    is scored against the label of the row whose name is its file's stem, or
+    whose photo path ends in it, read under ``data_dir``; a sample without
+    such a row (or whose label file is missing) is left out.  Labels are
+    trainId maps at the judge's resolution.  ``input_key`` as in
+    ``FIDEvaluator`` (None for SPADE's raw batches)."""
+
+    def __init__(
+        self,
+        generate: Callable,
+        eval_loader,
+        drn_model,
+        table_path: str,
+        data_dir: str = "",
+        batch_size: int = 2,
+        name: str = "mIoU",
+        input_key: Optional[str] = "A",
+        device=None,
+    ):
+        self.generate = generate
+        self.eval_loader = eval_loader
+        self.drn_model = drn_model
+        self.batch_size = batch_size
+        self.name = name
+        self.data_dir = data_dir
+        self.input_key = input_key
+        self.device = resolve_device(device)
+        self.tracker = MetricTracker(larger_is_better=True)
+        self.table = []
+        with open(table_path) as f:
+            for line in f:
+                parts = line.strip().split(" ")
+                if len(parts) >= 3:
+                    self.table.append(parts)
+
+    def _label_for(self, sample_name: str) -> Optional[str]:
+        for item in self.table:
+            if item[0] == sample_name or item[2][: -len(".png")].endswith(sample_name):
+                return os.path.join(self.data_dir, item[1])
+        return None
+
+    def __call__(self, step) -> Tuple[Dict[str, float], Dict[str, bool]]:
+        from PIL import Image
+
+        from cat_tpu_torch.metrics.drn import get_miou
+
+        fakes, labels = [], []
+        for batch in self.eval_loader:
+            fake = self.generate(_generator_input(batch, self.input_key, self.device))
+            for j, name in enumerate(_sample_names(batch, fake.shape[0])):
+                label_path = self._label_for(name)
+                if label_path is None or not os.path.exists(label_path):
+                    continue
+                fakes.append(fake[j].float())
+                labels.append(np.asarray(Image.open(label_path)))
+        if not fakes:
+            return {}, {}
+        miou = get_miou(torch.stack(fakes), labels, self.drn_model, batch_size=self.batch_size,
+                        target_hw=labels[0].shape[:2])
+        improved = self.tracker.update(miou)
+        metrics = {f"metric/{self.name}": miou, f"metric/{self.name}-mean": self.tracker.mean,
                    f"metric/{self.name}-best": self.tracker.best}
         return metrics, {"is_best": improved}
 

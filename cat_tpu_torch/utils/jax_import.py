@@ -1,13 +1,16 @@
 """Carry weights of the JAX package into the port.
 
-A JAX generator, NLayer- or pixel-discriminator or distillation-adaptor
-parameter tree, given as nested dicts of numpy arrays (``variables["params"]``,
-as ``utils/checkpoint.py::read_msgpack`` returns it from a ``.msgpack`` file),
+A JAX generator (inception or SPADE), NLayer-, pixel- or multiscale
+discriminator, DRN judge or distillation-adaptor parameter tree, given as
+nested dicts of numpy arrays (``variables["params"]``, as
+``utils/checkpoint.py::read_msgpack`` returns it from a ``.msgpack`` file),
 with its batch-norm statistics tree (``variables["batch_stats"]``, the same
 paths as the parameters), becomes the port's state_dict in the reference CAT
 key layout, so ``cat_tpu/utils/torch_import.py::import_inception_generator``
-carries the port's generator weights back unchanged.  So do whole train
-states of the JAX distiller, pix2pix and CycleGAN tasks.
+carries the port's generator weights back unchanged (and
+``cat_tpu/utils/spade_import.py::import_spade_generator`` a SPADE
+generator's).  So do whole train states of the JAX distiller, pix2pix,
+CycleGAN and SPADE tasks.
 
 Layouts:
   conv       HWIO (kh, kw, in, out)  -> OIHW  kernel.transpose(3, 2, 0, 1)
@@ -19,6 +22,8 @@ Layouts:
              running_var (a tracked norm without statistics in the tree
              starts at 0 / 1, as a fresh one does)
   pool       (pool_size, H, W, C) -> (pool_size, C, H, W)
+  spectral   kernel / bias -> weight_orig / bias; the ``spectral``
+             collection's u -> weight_u, and weight_v = l2norm(Wᵀu)
 """
 
 from __future__ import annotations
@@ -180,7 +185,8 @@ def _net_state(ns: Dict, convert, params_key=None) -> Dict:
 
 
 def _stats_only(sd: Dict) -> Dict:
-    return {k: v for k, v in sd.items() if k.endswith(("running_mean", "running_var"))}
+    return {k: v for k, v in sd.items()
+            if k.endswith(("running_mean", "running_var", "weight_u", "weight_v"))}
 
 
 def _split_stats(ns: Dict) -> Dict:
@@ -241,11 +247,12 @@ def _prefixed(group: Dict[str, Dict]) -> Dict:
 
 def train_state_dict(tree: Dict, model: str, gen_cfg: InceptionGeneratorConfig,
                      disc_cfg) -> Dict:
-    """The port's train-state dict from a JAX pix2pix (``model`` "pix2pix")
-    or CycleGAN ("cycle_gan") task's ``<tag>_state.msgpack``: parameters,
-    running statistics, Adam moments and counts, step and, for CycleGAN,
-    the image pools (their draws' generator stays seeded).  The RNG does not
-    carry over."""
+    """The port's train-state dict from a JAX pix2pix (``model`` "pix2pix"),
+    CycleGAN ("cycle_gan") or SPADE ("spade") task's
+    ``<tag>_state.msgpack``: parameters, running statistics and spectral
+    vectors, Adam moments and counts, step and, for CycleGAN, the image
+    pools (their draws' generator stays seeded).  The RNG does not carry
+    over."""
     def gen(t, s):
         return generator_state_dict(t, gen_cfg, s)
 
@@ -253,9 +260,16 @@ def train_state_dict(tree: Dict, model: str, gen_cfg: InceptionGeneratorConfig,
         return (pixel_discriminator_state_dict if isinstance(disc_cfg, PixelDiscriminatorConfig)
                 else nlayer_discriminator_state_dict)(t, disc_cfg, s)
 
+    if model == "spade":
+        def gen(t, s):
+            return spade_generator_state_dict(t, gen_cfg, s)
+
+        def disc(t, s):
+            return multiscale_discriminator_state_dict(t, disc_cfg, s)
+
     g, d = tree["g"], tree["d"]
     out = {"step": int(np.asarray(tree["step"])), "adaptors": {}, "extra": {}, "pools": {}}
-    if model == "pix2pix":
+    if model in ("pix2pix", "spade"):
         out["g"] = _split_stats(_net_state(g, gen))
         out["d"] = _split_stats(_net_state(d, disc))
         return out
@@ -272,3 +286,146 @@ def train_state_dict(tree: Dict, model: str, gen_cfg: InceptionGeneratorConfig,
         out["pools"][name] = {"buffer": _t(np.asarray(pool["buffer"]).transpose(0, 3, 1, 2)),
                               "count": int(np.asarray(pool["count"]))}
     return out
+
+
+def drnseg_state_dict(tree: Dict, layers) -> Dict[str, torch.Tensor]:
+    """The port's ``DRNSeg`` state_dict (the reference checkpoint's layout)
+    from a JAX ``DRNSeg``'s variables ``{"params": ...}`` (its frozen batch
+    norms keep their statistics as parameters ``bn_mean``/``bn_var``); the
+    inverse of ``cat_tpu/metrics/drn.py::convert_torch_drnseg``."""
+    params = tree["params"]
+    base = params["base"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def conv_bn(conv_key, bn_key, kernel, bn):
+        sd[f"{conv_key}.weight"] = _t(np.asarray(kernel).transpose(3, 2, 0, 1))
+        for ours, theirs in (("weight", "bn_scale"), ("bias", "bn_bias"),
+                             ("running_mean", "bn_mean"), ("running_var", "bn_var")):
+            sd[f"{bn_key}.{ours}"] = _t(bn[theirs])
+        sd[f"{bn_key}.num_batches_tracked"] = torch.tensor(0)
+
+    conv_bn("base.0.0", "base.0.1", base["layer0_conv"]["kernel"], base["layer0_bn"])
+    for li in (1, 2, 7, 8):
+        for i in range(layers[li - 1]):
+            p = base[f"layer{li}_conv{i}"]
+            conv_bn(f"base.{li}.{3 * i}", f"base.{li}.{3 * i + 1}", p["conv"]["kernel"],
+                    p["bn"])
+    for li in (3, 4, 5, 6):
+        for b in range(layers[li - 1]):
+            p, key = base[f"layer{li}_block{b}"], f"base.{li}.{b}"
+            for ci in (1, 2, 3):
+                conv_bn(f"{key}.conv{ci}", f"{key}.bn{ci}", p[f"c{ci}"]["conv"]["kernel"],
+                        p[f"c{ci}"]["bn"])
+            if "down" in p:
+                conv_bn(f"{key}.downsample.0", f"{key}.downsample.1", p["down"]["conv"]["kernel"],
+                        p["down"]["bn"])
+    _conv(sd, "seg", params["seg"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# SPADE
+# ---------------------------------------------------------------------------
+
+
+def _sconv(sd: Dict, key: str, p: Dict, spectral: bool, u=None) -> None:
+    """A conv, spectrally normalised where ``spectral`` (torch's
+    spectral_norm names; ``u`` where the tree has it)."""
+    if not spectral:
+        _conv(sd, key, p)
+        return
+    w = np.asarray(p["kernel"], np.float32).transpose(3, 2, 0, 1)
+    sd[f"{key}.weight_orig"] = _t(w)
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
+    if u is not None:
+        u = np.asarray(u, np.float32)
+        v = w.reshape(w.shape[0], -1).T @ u
+        sd[f"{key}.weight_u"] = _t(u)
+        sd[f"{key}.weight_v"] = _t(v / (np.linalg.norm(v) + 1e-12))
+
+
+def spade_generator_state_dict(params: Dict, cfg, stats: Optional[Dict] = None
+                               ) -> Dict[str, torch.Tensor]:
+    """The port's ``SPADEGenerator`` state_dict (the reference's layout)
+    from a JAX SPADE generator's ``params`` and its state collections
+    ``stats`` (``{"batch_stats": ..., "spectral": ...}``, either may be
+    absent); the inverse of ``cat_tpu/utils/spade_import.py::import_spade_generator``.
+    Branches are numbered by position among those that exist."""
+    from cat_tpu_torch.models.spade import _norm_cfg
+
+    bs = (stats or {}).get("batch_stats")
+    sp = (stats or {}).get("spectral")
+    sd: Dict[str, torch.Tensor] = {}
+    free = _norm_cfg(cfg.param_free_norm, affine=False)
+    affine = _norm_cfg(cfg.param_free_norm, affine=True)
+    branch = _norm_cfg("syncbatch", affine=True)
+    _conv(sd, "fc", params["fc"])
+    _norm(sd, "fc_norm", params.get("fc_norm"), _sub(bs, "fc_norm"), affine, cfg.fc_channels)
+    for name, bcfg in zip(cfg.block_names, cfg.blocks):
+        p, spectral = params.get(name, {}), bcfg.spectral
+
+        def cna(key, mod, norm, ch, scope=(name,)):
+            _sconv(sd, f"{key}.conv", _sub(p, *scope[1:], mod, "conv"), spectral and
+                   len(scope) == 1, _sub(sp, *scope, mod, "conv", "u"))
+            _norm(sd, f"{key}.norm", _sub(p, *scope[1:], mod, "norm"),
+                  _sub(bs, *scope, mod, "norm"), norm, ch)
+
+        def out(key, mod):
+            _sconv(sd, f"{key}.conv", p[mod]["conv"], spectral, _sub(sp, name, mod, "conv", "u"))
+
+        for pos, (b, mid, _) in enumerate(bcfg.active_res):
+            cna(f"{name}.res_ops.{pos}.0", f"res{b}_in", affine, mid)
+            out(f"{name}.res_ops.{pos}.1", f"res{b}_out")
+        for pos, (b, mid, _) in enumerate(bcfg.active_dw):
+            cna(f"{name}.dw_ops.{pos}.0", f"dw{b}_in", affine, mid)
+            cna(f"{name}.dw_ops.{pos}.1", f"dw{b}_mid", free, mid)
+            out(f"{name}.dw_ops.{pos}.2", f"dw{b}_out")
+        if bcfg.learned_shortcut:
+            _norm(sd, f"{name}.shortcut.0", p.get("shortcut_norm"),
+                  _sub(bs, name, "shortcut_norm"), affine, bcfg.fin)
+            out(f"{name}.shortcut.1", "shortcut_conv")
+        if bcfg.is_empty:
+            continue
+        scfg, key = bcfg.spade, f"{name}.spade"
+        _norm(sd, f"{key}.param_free_norm", None, _sub(bs, name, "spade", "param_free_norm"),
+              _norm_cfg(scfg.param_free_norm, affine=False), scfg.norm_nc)
+        scope = (name, "spade")
+        for pos, (b, mid, _) in enumerate(scfg.active_res):
+            cna(f"{key}.res_ops.{pos}.0", f"res{b}_in", branch, mid, scope)
+            _conv(sd, f"{key}.res_ops.{pos}.1", p["spade"][f"res{b}_out"])
+        for pos, (b, mid, _) in enumerate(scfg.active_dw):
+            cna(f"{key}.dw_ops.{pos}.0", f"dw{b}_in", branch, mid, scope)
+            cna(f"{key}.dw_ops.{pos}.1", f"dw{b}_mid", branch, mid, scope)
+            _conv(sd, f"{key}.dw_ops.{pos}.2", p["spade"][f"dw{b}_out"])
+    _conv(sd, "conv_img", params["conv_img"])
+    return sd
+
+
+def multiscale_discriminator_state_dict(params: Dict, cfg, stats: Optional[Dict] = None
+                                        ) -> Dict[str, torch.Tensor]:
+    """The port's ``MultiscaleDiscriminator`` state_dict from a JAX one's
+    ``params`` and state collections (``{"spectral": {...}}`` holds each
+    spectral conv's ``u``)."""
+    sp = (stats or {}).get("spectral")
+    spectral = cfg.norm_D.startswith("spectral")
+    nested = (cfg.norm_D.replace("spectral", "") or "instance") != "none"
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(cfg.num_D):
+        p, pre = params[f"discriminator_{i}"], f"discriminator_{i}"
+        _conv(sd, f"{pre}.model0.0", p["layer0_conv"])
+        for n in range(1, cfg.n_layers):
+            _sconv(sd, f"{pre}.model{n}.0" + (".0" if nested else ""), p[f"layer{n}_conv"],
+                   spectral, _sub(sp, pre, f"layer{n}_conv", "u"))
+        _conv(sd, f"{pre}.model{cfg.n_layers}.0", p["layer_out_conv"])
+    return sd
+
+
+def spade_net_state_dict(tree: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """A SPADE G or D checkpoint of the JAX package's train verb:
+    ``{"params": ..., "batch_stats": ..., "spectral": ...}``, as its
+    ``save_fn`` spreads a net's state collections beside its parameters."""
+    stats = {k: v for k, v in tree.items() if k != "params"}
+    if hasattr(cfg, "num_D"):
+        return multiscale_discriminator_state_dict(tree["params"], cfg, stats)
+    return spade_generator_state_dict(tree["params"], cfg, stats)

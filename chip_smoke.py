@@ -76,7 +76,29 @@ Phases, in order; any failure exits non-zero before the result line:
      output exactly; both print the median step and iteration, images/s,
      the loader wait, peak memory and the evaluations' seconds; (d)
      ``entry.distill_main`` with the horse2zebra student recipe for 2 steps
-     from (b)'s G_A and D_A, 8 Gram launches a step.
+     from (b)'s G_A and D_A, 8 Gram launches a step;
+  9. Cityscapes: (a) a reduced DRN judge and ``get_miou`` at 64x128 on the
+     card against the CPU (the same argmax everywhere), and two tiny float32
+     SPADE teacher steps (ngf 16, 64x32, batch 2, VGG, spectral multiscale D)
+     on the card and on the CPU, each from the card's state: losses, the
+     parameters each step writes (within Adam's one-step bound), running
+     statistics and spectral ``u``; (b) the pix2pix Cityscapes recipes with
+     mIoU (a full-spec DRN-D-105 with seeded weights in the reference .pth
+     layout at 2048x1024, trainId maps and a table under a cityscapes-origin
+     tree) and FID (phase 7's judge and statistics) over 80 + 10 seeded
+     aligned 512x256 PNGs: the teacher recipe for 4 steps at batch 32, the
+     5.6e9-MAC student recipe from its best G and D for 2 steps at batch 80
+     (8 float32 Gram launches a step, the kernel held against its plain
+     version on the run's own taps; mIoU alone), the evaluate recipe's
+     profile; (c) the GauGAN teacher recipe at full width (ngf 64, 512x256,
+     batch 16, 35 labels + dontcare + edges, VGG with seeded torchvision-layout
+     weights, xavier, float32) over 48 + 10 seeded samples in Cityscapes'
+     layout (2048x1024 photos) for 9 steps with FID and mIoU (with
+     ``--remat 1`` where batch 16 does not fit, said on a line), and the
+     eval-mode output's spread and movement at each evaluation.  Each run
+     prints its median step and iteration, loader wait and peak memory, and
+     its evaluations' seconds split into generator sweeps, FID judge, host
+     ``sqrtm``, DRN judge and histograms.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -579,14 +601,17 @@ class _TimedLoader:
             yield batch
 
 
-def _instrumented(setup, steps, starts, waits, after_step=None):
+def _instrumented(setup, steps, starts, waits, after_step=None, on_run=None):
     """``setup`` (an entry's ``setup_distill``/``setup_train``) whose trainer
     times each step (host clock, ending in a synchronize), each fetch from
-    the loader, and calls ``after_step(state)``."""
+    the loader, and calls ``after_step(state)``; ``on_run(run)`` sees the
+    run once it is set up."""
     import torch
 
     def instrumented(opt, device=None, loader=None):
         run = setup(opt, device, loader)
+        if on_run is not None:
+            on_run(run)
         step_fn = run.trainer.step_fn
 
         def timed_step(state, batch, lr):
@@ -904,7 +929,7 @@ def evaluation(dev, card, root):
     log(f"kid_score: {kid_mean:.6f} +/- {kid_std:.6f} in {kid_s:.2f} s [{card}]")
 
     # --- the judge on the card against the CPU
-    cpu_judge, card_judge = load_inception(judge), load_inception(judge, device=dev)
+    cpu_judge, card_judge = load_inception(judge, device="cpu"), load_inception(judge, device=dev)
     x = torch.from_numpy(np.stack([np.asarray(Image.open(os.path.join(data, "valB", f"{i}.png"))
                                               .convert("RGB")) for i in range(4)])
                          .transpose(0, 3, 1, 2).copy()).float() / 255
@@ -1172,6 +1197,520 @@ def train_maps(dev, card, root, judge):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: Cityscapes (mIoU in the pix2pix recipes, GauGAN teacher training)
+# ---------------------------------------------------------------------------
+
+CITY_LABEL_HW = (1024, 2048)  # the trainId maps: the DRN judge's resolution
+CITY_PHOTO = (2048, 1024)  # a leftImg8bit photo's (w, h)
+P2P_CITY_BATCH, P2P_CITY_STUDENT_BATCH, GAUGAN_BATCH = 32, 80, 16  # the recipes' batches
+P2P_CITY_TRAIN, P2P_CITY_VAL = 80, 10  # 2 teacher steps and 1 student step an epoch
+GAUGAN_TRAIN, GAUGAN_VAL, GAUGAN_EPOCHS = 48, 10, 3  # 3 steps an epoch, 9 steps
+DRN_SPEC_9A = dict(layers=(1, 1, 1, 1, 2, 1, 1, 1), channels=(4, 8, 8, 16, 16, 32, 32, 32),
+                   classes=5)  # tests/fixtures/drn_fixture.npz's reduced DRN
+
+# scripts/pix2pix/cityscapes/*_inception_*.sh, but for the paths and the schedule
+P2P_CITY_NORMS = ["--norm", "batch", "--norm_affine", "--norm_affine_D",
+                  "--norm_track_running_stats", "--channels_reduction_factor", "6",
+                  "--kernel_sizes", "1", "3", "5", "--direction", "BtoA"]
+P2P_CITY_TEACHER = ["--model", "pix2pix", "--batch_size", str(P2P_CITY_BATCH), "--lr", "0.0002",
+                    "--nepochs", "2", "--nepochs_decay", "0", "--save_epoch_freq", "25",
+                    "--save_latest_freq", "25000", "--print_freq", "1", *P2P_CITY_NORMS]
+P2P_CITY_STUDENT = ["--distiller", "inception", "--nepochs", "2", "--nepochs_decay", "0",
+                    "--save_epoch_freq", "25", "--save_latest_freq", "25000", "--teacher_ngf",
+                    "64", "--student_ngf", "32", "--eval_batch_size", "2", "--batch_size",
+                    str(P2P_CITY_STUDENT_BATCH),
+                    "--lambda_distill", "0.5", "--prune_cin_lb", "16", "--target_flops", "5.6e9",
+                    "--distill_G_loss_type", "ka", "--print_freq", "1", *P2P_CITY_NORMS]
+P2P_CITY_EVAL = ["--distiller", "inception", "--eval_batch_size", "2", "--prune_cin_lb", "16",
+                 "--target_flops", "5.6e9", *P2P_CITY_NORMS]
+# scripts/gaugan/cityscapes/train_inception_teacher.sh, the same cuts
+GAUGAN_TEACHER = ["--model", "spade", "--dataset_mode", "cityscapes", "--input_nc", "35",
+                  "--contain_dontcare_label", "--preprocess", "scale_width", "--load_size",
+                  "512", "--crop_size", "512", "--aspect_ratio", "2", "--ngf", "64",
+                  "--batch_size", str(GAUGAN_BATCH), "--init_type", "xavier", "--nepochs",
+                  str(GAUGAN_EPOCHS), "--nepochs_decay", "0", "--norm_G", "spadesyncbatch3x3",
+                  "--netD", "multi_scale", "--channels_reduction_factor", "6", "--kernel_sizes",
+                  "1", "3", "5", "--print_freq", "1"]
+
+
+def city_reference(dev, card):
+    """9a: a reduced DRN's logits and ``get_miou`` at a small size on the
+    card against the CPU; two tiny float32 SPADE teacher steps (ngf 16,
+    64x32, batch 2, VGG and the spectral multiscale D) on the card and on the
+    CPU, each from the card's state: losses at rtol 1e-4, the parameters
+    each optimizer step writes within twice the most one Adam step can move
+    them at each net's TTUR rate, G's running statistics and D's ``u``."""
+    import numpy as np
+    import torch
+
+    from cat_tpu_torch.core.spade_config import (MultiscaleDiscriminatorConfig,
+                                                 SPADEGeneratorConfig)
+    from cat_tpu_torch.metrics import drn
+    from cat_tpu_torch.models.vgg import VGG19Features, random_vgg19_state_dict
+    from cat_tpu_torch.train.common import load_train_state_dict, train_state_dict
+    from cat_tpu_torch.train.spade_model import SPADEHParams, SPADETask
+
+    cpu = torch.device("cpu")
+    judges = []
+    for d in (dev, cpu):
+        m = drn.DRNSeg(**{k: DRN_SPEC_9A[k] for k in ("classes", "layers", "channels")})
+        m.load_state_dict(drn.drnseg_layout(drn.random_drnseg_state_dict(seed=9, **DRN_SPEC_9A)))
+        judges.append(m.to(d))
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(2, 3, 64, 128, generator=gen)
+    ref = judges[1](x)
+    got = judges[0](x.to(dev)).cpu()
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    if not rel < 1e-4:
+        fail(f"9a: the reduced DRN's logits on the card differ from the CPU's by {rel:g} (rel)")
+    fakes = torch.rand(4, 3, 32, 64, generator=gen) * 2 - 1
+    labels = [np.random.RandomState(i).randint(0, 5, (64, 128)).astype(np.uint8)
+              for i in range(4)]
+    labels[0][:8] = 255
+    m_card, m_cpu = (drn.get_miou(fakes, labels, j, batch_size=2, target_hw=(64, 128))
+                     for j in judges)
+    preds = [drn.resize_bilinear(j(drn.normalize_for_drn(drn.resize_bilinear(
+        (fakes.to(next(j.parameters()).device) + 1) / 2, (64, 128)))), (64, 128))
+        .argmax(1).cpu() for j in judges]
+    differ = int((preds[0] != preds[1]).sum())
+    if differ or m_card != m_cpu:
+        fail(f"9a: get_miou on the card {m_card} vs CPU {m_cpu}, {differ} of "
+             f"{preds[0].numel()} argmax pixels differ")
+    log(f"city 9a: reduced DRN logits card vs CPU rel {rel:.3g}; get_miou at 64x128 equal "
+        f"({m_card}), all {preds[0].numel()} argmax pixels equal [{card}]")
+
+    gcfg = SPADEGeneratorConfig.make(semantic_nc=37, ngf=16, channels_reduction_factor=6,
+                                     kernel_sizes=(1, 3, 5), num_upsampling_layers="normal",
+                                     crop_size=64, aspect_ratio=2.0)
+    dcfg = MultiscaleDiscriminatorConfig(input_nc=40, ndf=16, n_layers=3, num_D=2)
+    vgg_sd = random_vgg19_state_dict(seed=19)
+
+    def make(d):
+        vgg = VGG19Features()
+        vgg.load_state_dict(vgg_sd)
+        task = SPADETask(gcfg, dcfg, SPADEHParams(), vgg=vgg, input_nc=35,
+                         contain_dontcare=True, device=d)
+        return task, task.init_state(9)
+
+    rs = np.random.RandomState(9)
+    batches = []
+    for _ in range(2):
+        label = rs.randint(0, 34, (2, 32, 64)).astype(np.float32)
+        label[:, :4] = 255
+        inst = np.repeat(np.repeat(rs.randint(0, 9, (2, 4, 8)), 8, 1), 8, 2).astype(np.int32)
+        batches.append({"label": torch.from_numpy(label), "instance": torch.from_numpy(inst),
+                        "image": torch.rand(2, 3, 32, 64, generator=gen) * 2 - 1})
+    sides = [make(d) for d in (dev, cpu)]
+    card_l, cpu_l = [], []
+    for b in batches:
+        sd = train_state_dict(sides[0][1])
+        del sd["rng"]
+        load_train_state_dict(sides[1][1], sd)
+        for (task, state), ls in zip(sides, (card_l, cpu_l)):
+            _, m = task.train_step(state, {k: v.to(task.device) for k, v in b.items()}, LR)
+            ls.append({k: float(v) for k, v in m.items()})
+        for i, (a, c) in enumerate(zip(card_l[-1:], cpu_l[-1:])):
+            for k in c:
+                if not math.isclose(a[k], c[k], rel_tol=1e-4, abs_tol=1e-5):
+                    fail(f"9a SPADE step {len(card_l)}, {k}: card {a[k]!r} vs CPU {c[k]!r}")
+        param_err, param_bound = {}, {}
+        for net, mult in zip(("g", "d"), sides[0][0].lr_mults):
+            card_p, cpu_p = (getattr(st, net).params for _, st in sides)
+            param_err[net] = max(float((v.detach().cpu() - cpu_p[k].detach()).abs().max())
+                                 for k, v in card_p.items())
+            # with TTUR's beta1 of 0, one Adam step at count t moves a
+            # parameter by at most lr·sqrt((1 - beta2^t) / (1 - beta2)) (all
+            # earlier gradients zero); a near-zero gradient whose sign the
+            # two devices' float32 noise flips puts the sides twice that apart
+            opt = getattr(sides[0][1], net).opt
+            param_bound[net] = 2 * LR * mult * math.sqrt(
+                (1 - opt.beta2 ** opt.count) / (1 - opt.beta2))
+            if not param_err[net] <= param_bound[net]:
+                fail(f"9a SPADE step {len(card_l)}: {net.upper()}'s parameters differ from the "
+                     f"CPU's by {param_err[net]:g}, past Adam's one-step bound "
+                     f"{param_bound[net]:g}")
+        card_s, cpu_s = ({f"{net}.{k}": v.cpu() for net, ns in (("G", st.g), ("D", st.d))
+                          for k, v in ns.stats.items() if not k.endswith("weight_v")}
+                         for _, st in sides)
+        err = max(float((card_s[k] - v).abs().max()) for k, v in cpu_s.items())
+        if not all(torch.allclose(card_s[k], v, rtol=1e-4, atol=1e-5) for k, v in cpu_s.items()):
+            fail(f"9a SPADE step {len(card_l)}: statistics and u differ from the CPU's by {err:g}")
+    n_u = sum(k.endswith("weight_u") for k in cpu_s)
+    log(f"city 9a: 2 f32 SPADE teacher steps (ngf 16, 64x32, batch 2, VGG, spectral D) on the "
+        f"card match the CPU's, each from the card's state: losses rtol 1e-4, parameters "
+        f"max |diff| G {param_err['g']:.3g} (bound {param_bound['g']:.3g}), D "
+        f"{param_err['d']:.3g} (bound {param_bound['d']:.3g}), {len(cpu_s) - n_u} running "
+        f"statistics and {n_u} spectral u, "
+        f"max |diff| {err:.3g}: "
+        f"{card_l[-1]} [{card}]")
+    return {"drn_rel": rel, "miou": m_card, "spade_stats_max_abs": err,
+            "spade_param_max_abs": param_err}
+
+
+def _smooth_image(rs, w, h, channels=3):
+    """A seeded image of 32 x 16 random blocks: compresses and decodes fast
+    at 2048 x 1024."""
+    import numpy as np
+
+    small = rs.randint(0, 256, (16, 32, channels), dtype=np.uint8)
+    return np.repeat(np.repeat(small, h // 16, 0), w // 32, 1)
+
+
+def _trainid_map(rs):
+    """A trainId map at the judge's resolution: 19 classes in blocks, a void
+    (255) band."""
+    import numpy as np
+
+    small = rs.randint(0, 19, (16, 32)).astype(np.uint8)
+    label = np.repeat(np.repeat(small, CITY_LABEL_HW[0] // 16, 0), CITY_LABEL_HW[1] // 32, 1)
+    label[: CITY_LABEL_HW[0] // 16] = 255
+    return label
+
+
+def write_city_inputs(root):
+    """The pix2pix Cityscapes data (aligned 512x256 A|B PNGs under a dataroot
+    naming cityscapes), the GauGAN data (Cityscapes' own layout: 2048x1024
+    leftImg8bit photos, labelIds with void, 16-bit instanceIds), trainId maps
+    at 2048x1024 for both val sets with their tables, a full-spec DRN-D-105
+    with seeded weights in the reference .pth layout, and seeded VGG19
+    weights in torchvision's layout."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from cat_tpu_torch.metrics.drn import write_random_drnseg
+    from cat_tpu_torch.models.vgg import random_vgg19_state_dict
+
+    rs = np.random.RandomState(9)
+    # pix2pix: train/val A|B and cityscapes-origin trainIds + table
+    rows = []
+    for split, n in (("train", P2P_CITY_TRAIN), ("val", P2P_CITY_VAL)):
+        d = os.path.join(root, "cityscapes", split)
+        os.makedirs(d)
+        for i in range(n):
+            Image.fromarray(_smooth_image(rs, 512, 256)).save(os.path.join(d, f"{i}.png"))
+            if split == "val":
+                rel = f"gtFine/val/p2p/p2p_{i:06d}_gtFine_trainIds.png"
+                os.makedirs(os.path.join(root, "cityscapes-origin", "gtFine", "val", "p2p"),
+                            exist_ok=True)
+                Image.fromarray(_trainid_map(rs)).save(os.path.join(root, "cityscapes-origin",
+                                                                    rel))
+                rows.append(f"{i} {rel} leftImg8bit/val/p2p/p2p_{i:06d}_leftImg8bit.png")
+    with open(os.path.join(root, "table_p2p.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    # GauGAN: the dataset in Cityscapes' layout, its trainIds beside it
+    rows = []
+    base = os.path.join(root, "gaugan-origin")
+    for split, n in (("train", GAUGAN_TRAIN), ("val", GAUGAN_VAL)):
+        for sub in ("gtFine", "leftImg8bit"):
+            os.makedirs(os.path.join(base, sub, split, "synth"))
+        for i in range(n):
+            stem = f"synth_{i:06d}_000019"
+            lab = os.path.join(base, "gtFine", split, "synth", stem + "_gtFine_")
+            small = rs.randint(0, 34, (16, 32)).astype(np.uint8)
+            label = np.repeat(np.repeat(small, 64, 0), 64, 1)
+            label[:64] = 255
+            Image.fromarray(label).save(lab + "labelIds.png")
+            inst = np.repeat(np.repeat(rs.randint(0, 30000, (16, 32)), 64, 0), 64, 1)
+            Image.fromarray(inst.astype(np.uint16)).save(lab + "instanceIds.png")
+            Image.fromarray(_smooth_image(rs, *CITY_PHOTO)).save(os.path.join(
+                base, "leftImg8bit", split, "synth", stem + "_leftImg8bit.png"))
+            if split == "val":
+                Image.fromarray(_trainid_map(rs)).save(lab + "trainIds.png")
+                rows.append(f"{stem} gtFine/val/synth/{stem}_gtFine_trainIds.png "
+                            f"leftImg8bit/val/synth/{stem}_leftImg8bit.png")
+    with open(os.path.join(root, "table_gaugan.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    write_random_drnseg(os.path.join(root, "drn-d-105_ms_cityscapes.pth"), seed=105)
+    torch.save(random_vgg19_state_dict(seed=19), os.path.join(root, "vgg19.pth"))
+
+
+class _EvalTimers:
+    """The evaluations' host seconds: both evaluators' totals (their
+    generator sweeps included), the FID judge, the host's Fréchet distance
+    (``sqrtm``), the DRN judge and the confusion matrices."""
+
+    def __init__(self):
+        from cat_tpu_torch.metrics import drn, fid
+        from cat_tpu_torch.train.evaluation import FIDEvaluator, MIoUEvaluator
+
+        self.timers = {"fid_total": _Timer(FIDEvaluator, "__call__", sync=True),
+                       "miou_total": _Timer(MIoUEvaluator, "__call__", sync=True),
+                       "fid_judge": _Timer(fid, "get_activations", sync=True),
+                       "sqrtm": _Timer(fid, "calculate_frechet_distance"),
+                       "drn_judge": _Timer(drn.DRNSeg, "forward", sync=True),
+                       "histogram": _Timer(drn, "fast_hist", sync=True)}
+
+    def restore(self):
+        for t in self.timers.values():
+            t.restore()
+        s = {k: t.total for k, t in self.timers.items()}
+        s["generator_sweeps"] = (s["fid_total"] + s["miou_total"] - s["fid_judge"] - s["sqrtm"]
+                                 - s["drn_judge"] - s["histogram"])
+        return s
+
+    @staticmethod
+    def line(s):
+        return (f"{s['fid_total'] + s['miou_total']:.2f} s: generator sweeps and dumps "
+                f"{s['generator_sweeps']:.2f} s, FID judge {s['fid_judge']:.2f} s, host sqrtm "
+                f"{s['sqrtm']:.2f} s, DRN judge {s['drn_judge']:.2f} s, histograms "
+                f"{s['histogram']:.2f} s")
+
+
+def _metric(log_dir, name):
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        return [r[name] for r in map(json.loads, f) if name in r]
+
+
+def _instrumented_run(entry_setup_name, main, argv, n_steps, batch, label, card, on_run=None):
+    """``main(argv)`` with its steps, loader waits and evaluations timed;
+    fails unless it ran ``n_steps`` steps with finite losses.  Returns the
+    run's numbers and the run."""
+    import torch
+
+    from cat_tpu_torch import entry
+
+    steps, starts, waits = [], [], []
+    setup = getattr(entry, entry_setup_name)
+    setattr(entry, entry_setup_name, _instrumented(setup, steps, starts, waits, on_run=on_run))
+    timers = _EvalTimers()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(entry, entry_setup_name, setup)
+        secs = timers.restore()
+    mem = torch.cuda.max_memory_allocated()
+    log_dir = argv[argv.index("--log_dir") + 1]
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        rows = [r for r in map(json.loads, f) if any("loss" in k for k in r)]
+    losses = [v for r in rows for k, v in r.items() if "loss" in k]
+    if len(steps) != n_steps or not losses or not all(math.isfinite(v) for v in losses):
+        fail(f"city {label}: {len(steps)} steps (expected {n_steps}), losses finite: "
+             f"{all(math.isfinite(v) for v in losses)}")
+    out = {"label": label, **_loop_numbers(steps, starts, waits, batch, mem, wall),
+           "eval": secs, "last_losses": {k: v for k, v in rows[-1].items() if "loss" in k}}
+    log(f"city {label}: {_loop_line(out)}, fit {wall:.1f} s, steps {out['step_ms']} [{card}]")
+    log(f"city {label}: evaluations {_EvalTimers.line(secs)} [{card}]")
+    return out, run
+
+
+def _check_miou(log_dir, label, n_evals, fid=True):
+    mious = _metric(log_dir, "metric/mIoU")
+    fids = _metric(log_dir, "metric/fid") if fid else []
+    if (len(mious) != n_evals or not all(0.0 <= v <= 100.0 for v in mious)
+            or (fid and (len(fids) != n_evals or not all(math.isfinite(v) for v in fids)))
+            or not os.path.exists(os.path.join(log_dir, "checkpoints", "best_net_G.pth"))):
+        fail(f"city {label}: mIoU {mious}, FID {fids} (expected {n_evals} each), best saved: "
+             f"{os.path.exists(os.path.join(log_dir, 'checkpoints', 'best_net_G.pth'))}")
+    return mious, fids
+
+
+def city_pix2pix(dev, card, root, judge, stats):
+    """9b: the pix2pix Cityscapes teacher recipe (4 steps at batch 32), the
+    5.6e9-MAC student recipe from its best G and D (2 steps at batch 80, KA,
+    8 Gram launches a step, held against the plain version on the run's own
+    taps) and the evaluate recipe's profile, with mIoU (the full-spec DRN at
+    2048x1024) and FID (phase 7's judge and statistics; the student's run
+    evaluates mIoU alone)."""
+    import torch
+
+    from cat_tpu_torch import entry
+    from cat_tpu_torch.distill import ka
+
+    paths = ["--dataroot", os.path.join(root, "cityscapes"),
+             "--drn_path", os.path.join(root, "drn-d-105_ms_cityscapes.pth"),
+             "--cityscapes_path", os.path.join(root, "cityscapes-origin"),
+             "--table_path", os.path.join(root, "table_p2p.txt"), "--inception_path", judge]
+    t_dir = os.path.join(root, "log_9b_teacher")
+    teacher, run = _instrumented_run(
+        "setup_train", entry.train_main,
+        [*paths, "--log_dir", t_dir, "--real_stat_path", stats, *P2P_CITY_TEACHER],
+        2 * (P2P_CITY_TRAIN // P2P_CITY_BATCH), P2P_CITY_BATCH, "9b teacher", card)
+    del run
+    teacher["miou"], teacher["fid"] = _check_miou(t_dir, "9b teacher", 2)
+    best = os.path.join(t_dir, "checkpoints")
+
+    s_dir = os.path.join(root, "log_9b_student")
+    ka.launches = 0
+    ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
+    student, run = _instrumented_run(
+        "setup_distill", entry.distill_main,
+        [*paths, "--log_dir", s_dir, "--restore_teacher_G_path",
+         os.path.join(best, "best_net_G.pth"), "--restore_pretrained_G_path",
+         os.path.join(best, "best_net_G.pth"), "--restore_D_path",
+         os.path.join(best, "best_net_D.pth"), *P2P_CITY_STUDENT],
+        2 * (P2P_CITY_TRAIN // P2P_CITY_STUDENT_BATCH), P2P_CITY_STUDENT_BATCH, "9b student",
+        card)
+    launches, on_path = ka.launches, ka.path_launches["f32tma"]
+    if launches != 8 * student["steps"] or on_path != launches:
+        fail(f"city 9b student: {launches} Gram launches in {student['steps']} steps, {on_path} "
+             "of them 'f32tma'; expected 8 a step, all 'f32tma'")
+    student["gram_launches"], student["gram_path"] = launches, "f32tma"
+    student["miou"], _ = _check_miou(s_dir, "9b student", 2, fid=False)
+    log(f"city 9b student: {launches} Gram launches in {student['steps']} steps "
+        f"({launches // student['steps']} a step, f32tma), mIoU {student['miou']} [{card}]")
+    l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    x = next(iter(run.loader))["A"].to(dev)
+    with torch.no_grad():
+        taps = [net(x, taps=("encode",))[1]["encode"].reshape(x.shape[0], -1).contiguous()
+                for net in (run.distiller.netG_teacher, run.distiller.netG_student)]
+    kern = gram_numbers(taps, l2.zero_, card, "f32tma")
+    del taps, run, l2
+
+    timers = _EvalTimers()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof = entry.profile_main([*paths, "--log_dir", os.path.join(root, "eval_9b"),
+                                   "--restore_teacher_G_path", os.path.join(best, "best_net_G.pth"),
+                                   "--pretrained_student_G_path",
+                                   os.path.join(s_dir, "checkpoints", "best_net_G.pth"),
+                                   "--real_stat_path", stats, *P2P_CITY_EVAL])
+        prof_s = time.perf_counter() - t0
+    finally:
+        secs = timers.restore()
+    m = prof["metrics"]
+    if not (0.0 <= m.get("metric/mIoU", -1.0) <= 100.0 and math.isfinite(m["metric/fid"])):
+        fail(f"city 9b profile: metrics {m}")
+    log(f"city 9b profile: student {prof['student_macs']:,} MACs, latency "
+        f"{prof['latency_ms']:.3f} ms/image, FID {m['metric/fid']:.4f}, mIoU "
+        f"{m['metric/mIoU']}, {prof_s:.1f} s in all; evaluation {_EvalTimers.line(secs)} "
+        f"[{card}]")
+    return {"teacher": teacher, "student": student,
+            "profile": {"metrics": m, "seconds": prof_s, "eval": secs,
+                        "latency_ms": prof["latency_ms"]}}, kern
+
+
+def _record_eval(evals):
+    """An ``on_run`` hook: at each evaluation, the first eval-mode batch the
+    evaluators generate, the train-mode output of the same G on it (its
+    statistics held) and the uint8 image the FID judge is given."""
+    import torch
+
+    from cat_tpu_torch.metrics.fid import tensor2im_batch
+    from cat_tpu_torch.ops.nn import frozen_stats
+
+    def on_run(run):
+        task, generate_raw = run.task, run.task.generate_raw
+
+        def recorded(state, batch):
+            out = generate_raw(state, batch)
+            if not evals or evals[-1]["step"] != state.step:
+                with torch.no_grad(), frozen_stats(task.netG):
+                    train_mode = task.netG(task.semantics(batch), train=True)
+                evals.append({"step": state.step, "eval": out.float().cpu(),
+                              "train_std": float(train_mode.float().std()),
+                              "u8": tensor2im_batch(out)})
+            return out
+
+        task.generate_raw = recorded
+
+    return on_run
+
+
+def _eval_flatness(evals, n_evals, card):
+    """The eval-mode output at each of a run's ``n_evals`` evaluations: its
+    spread, how far it moved from one to the next, and how many uint8 levels
+    the FID judge saw; fails on a non-finite output or one that did not move
+    (a stale generator)."""
+    import numpy as np
+
+    finite = [bool(e["eval"].isfinite().all()) for e in evals]
+    if len(evals) != n_evals or n_evals < 2 or not all(finite):
+        fail(f"city 9c: {len(evals)} evaluations recorded (expected {n_evals}, at least 2), "
+             f"finite: {finite}")
+    moved = [float((b["eval"] - a["eval"]).abs().max()) for a, b in zip(evals, evals[1:])]
+    if not all(moved):
+        fail(f"city 9c: the eval-mode output did not move between evaluations at steps "
+             f"{[e['step'] for e in evals]} ({moved}): the evaluators saw a stale generator")
+    out = {"steps": [e["step"] for e in evals],
+           "eval_std": [float(e["eval"].std()) for e in evals],
+           "eval_max_abs": [float(e["eval"].abs().max()) for e in evals],
+           "train_mode_std": [e["train_std"] for e in evals],
+           "max_abs_change": moved,
+           "uint8_levels": [int(np.unique(e["u8"]).size) for e in evals],
+           "uint8_equal": [bool(np.array_equal(a["u8"], b["u8"]))
+                           for a, b in zip(evals, evals[1:])]}
+    log(f"city 9c: eval-mode output at steps {out['steps']}: std {out['eval_std']}, max |x| "
+        f"{out['eval_max_abs']}; the same G in train mode (statistics held) std "
+        f"{out['train_mode_std']}; max |change| from one evaluation to the next {moved}; "
+        f"uint8 levels the FID judge saw {out['uint8_levels']}, equal to the previous "
+        f"evaluation's images: {out['uint8_equal']} [{card}]")
+    return out
+
+
+def city_gaugan(dev, card, root, judge, stats):
+    """9c: the GauGAN Cityscapes teacher recipe at full width (ngf 64,
+    512x256, batch 16, 35 labels + dontcare + edges, spadesyncbatch3x3,
+    spectral multiscale D, VGG, xavier, float32) for 9 steps, with FID and
+    mIoU; with --remat 1 where batch 16 does not fit without it."""
+    import gc
+
+    import torch
+
+    from cat_tpu_torch import entry
+    from cat_tpu_torch.models.spade import SPADEGenerator
+    from cat_tpu_torch.utils import checkpoint as ckpt
+
+    data = os.path.join(root, "gaugan-origin")
+    log_dir = os.path.join(root, "log_9c")
+    argv = ["--dataroot", data, "--log_dir", log_dir, "--real_stat_path", stats,
+            "--drn_path", os.path.join(root, "drn-d-105_ms_cityscapes.pth"),
+            "--cityscapes_path", data, "--table_path", os.path.join(root, "table_gaugan.txt"),
+            "--inception_path", judge, "--vgg_path", os.path.join(root, "vgg19.pth"),
+            *GAUGAN_TEACHER]
+    n_steps = GAUGAN_EPOCHS * (GAUGAN_TRAIN // GAUGAN_BATCH)
+    evals = []
+    oom = None
+    try:
+        out, run = _instrumented_run("setup_train", entry.train_main, argv, n_steps,
+                                     GAUGAN_BATCH, "9c GauGAN", card, _record_eval(evals))
+    except RuntimeError as e:
+        if not (isinstance(e, torch.cuda.OutOfMemoryError) or "out of memory" in str(e)):
+            raise
+        oom = str(e).splitlines()[0]
+    if oom is not None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"city 9c: batch {GAUGAN_BATCH} without --remat does not fit the card ({oom}); "
+            "running the recipe with --remat 1")
+        shutil.rmtree(log_dir, ignore_errors=True)
+        evals.clear()
+        out, run = _instrumented_run("setup_train", entry.train_main, [*argv, "--remat", "1"],
+                                     n_steps, GAUGAN_BATCH, "9c GauGAN", card, _record_eval(evals))
+    out["remat"] = oom is not None
+    out["miou"], out["fid"] = _check_miou(log_dir, "9c GauGAN", 2)
+    out["eval_output"] = _eval_flatness(evals, len(out["miou"]), card)
+    save_dir = os.path.join(log_dir, "checkpoints")
+    missing = [f for f in ("latest_net_G.pth", "latest_net_D.pth", "latest_state.pth")
+               if not os.path.exists(os.path.join(save_dir, f))]
+    stats_g = run.state.g.stats
+    moved = [k for k, v in stats_g.items()
+             if not torch.equal(v, torch.zeros_like(v) if k.endswith("mean") else
+                                torch.ones_like(v))]
+    if missing or not stats_g or len(moved) != len(stats_g):
+        fail(f"city 9c: missing {missing}; {len(moved)} of {len(stats_g)} running statistics "
+             "moved from (0, 1)")
+    batch = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+             for k, v in next(iter(run.loader)).items()}
+    sd, cfg = ckpt.load_net(save_dir, "latest", "G")
+    gen = SPADEGenerator(cfg).to(dev)
+    gen.load_state_dict(sd)
+    sem = run.task.semantics(batch)[:4]
+    if not _same_output(gen, lambda s: run.task.generate(run.state, s), sem):
+        fail("city 9c: the reloaded G's eval output differs from the in-memory G's")
+    n_u = sum(k.endswith("weight_u") for k in run.state.d.stats)
+    log(f"city 9c: G, D ({n_u} spectral u) and the state written; all {len(stats_g)} running "
+        f"statistics of G moved; the reloaded G gives the in-memory G's eval output exactly; "
+        f"mIoU {out['miou']}, FID {out['fid']}, remat {out['remat']} [{card}]")
+    return out
+
+
 _KERNEL_GROUPS = (  # (group, substrings of the lower-cased kernel name), first match wins
     ("gram (csrc/gram.cu)", ("gram_partial", "gram_reduce")),
     ("instance_norm_act (csrc/instance_norm.cu)", ("inorm_act",)),
@@ -1353,6 +1892,17 @@ def main() -> None:
             f"{hand['steps']} steps, {hand['gram_launches']} Gram launches ({hand['gram_path']})")
         log("teacher: " + json.dumps({"8b": h2z, "8c": maps, "8d": hand,
                                       "seconds": time.perf_counter() - t0}))
+
+        # --- 9. Cityscapes: card against CPU, the pix2pix recipes with mIoU,
+        # the GauGAN teacher recipe
+        t0 = time.perf_counter()
+        city_a = city_reference(dev, card)
+        write_city_inputs(root)
+        log(f"city: inputs written in {time.perf_counter() - t0:.1f} s (9a included)")
+        city_b, city_kern = city_pix2pix(dev, card, root, judge, stats)
+        city_c = city_gaugan(dev, card, root, judge, stats)
+        log("city: " + json.dumps({"9a": city_a, "9b": city_b, "9c": city_c,
+                                   "seconds": time.perf_counter() - t0}))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1388,6 +1938,13 @@ def main() -> None:
                        f"launches are the f32tma kernel's in phase 6 (a))"),
                  "fma_ms": f32["fma_ms"], "bound_full_square_ms": f32["bound_full_square_ms"],
                  "pairs_b256": pairs["float32"]})
+    # the float32 kernel on the pix2pix Cityscapes student's own taps (phase 9b)
+    rows.append({**row("gram (pix2pix Cityscapes student, float32)", *gram_src,
+                       city_b["student"]["gram_launches"], city_kern,
+                       f"one training step's launches at batch 80, float32, on the run's own "
+                       f"taps (f32tma kernel; phase 9b's {city_b['student']['steps']} steps)"),
+                 "fma_ms": city_kern["fma_ms"],
+                 "bound_full_square_ms": city_kern["bound_full_square_ms"]})
     # the pair kernels: one call at B = 256 on the teacher tap's F; launches
     # from phase 4b's (bf16) and 4c's (float32) steps at batch 256
     for dname, n, phase in (("bfloat16", counts_p["gram_tma_pairs"], "4b"),

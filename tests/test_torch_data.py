@@ -132,8 +132,26 @@ def test_loader_drop_last_and_unported_backend(tmp_path):
 
 
 def test_cityscapes_mode_names_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 15"):
-        tds.create_dataloader("cityscapes", str(tmp_path), 2)
+    """The cityscapes mode now builds the Cityscapes loader (the SPADE
+    family's data, the JAX package's ``CityscapesDataset`` items); the
+    inception verbs, whose tasks cannot read it, refuse it naming the SPADE
+    distiller's item."""
+    from argparse import Namespace
+
+    from cat_tpu.data.cityscapes import CityscapesDataset as JCityscapes
+    from cat_tpu_torch.entry import _make_train_loader
+    from tests.test_torch_spade import write_cityscapes
+
+    root = write_cityscapes(str(tmp_path), n_train=2, n_val=0, size=(64, 32))
+    spec = ttf.TransformSpec(load_size=32, crop_size=32, aspect_ratio=2.0)
+    batch = next(iter(tds.create_dataloader("cityscapes", root, 2, spec, serial_batches=True)))
+    want = JCityscapes(root, "train", load_size=32, crop_size=32, aspect_ratio=2.0)
+    for j in range(2):
+        np.testing.assert_array_equal(batch["label"][j].numpy(), want[j]["label"])
+        np.testing.assert_array_equal(batch["image"][j].numpy(),
+                                      want[j]["image"].transpose(2, 0, 1))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 15b"):
+        _make_train_loader(Namespace(dataset_mode="cityscapes"), spec, torch.device("cpu"))
 
 
 def test_device_prefetch_order_on_the_host():

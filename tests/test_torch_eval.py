@@ -41,7 +41,7 @@ def judge(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("judge") / "judge.pth")
     write_random_judge(path, seed=1)
     return {"sd": torch.load(path, weights_only=True), "path": path,
-            "model": load_inception(path)}
+            "model": load_inception(path, device="cpu")}
 
 
 def _nhwc(t):
@@ -114,12 +114,12 @@ def test_judge_checkpoint_layout(judge, tmp_path):
              "AuxLogits.conv0.conv.weight": torch.zeros(128, 768, 1, 1)}
     path = str(tmp_path / "with_heads.pth")
     torch.save({**sd, **heads}, path)
-    model = load_inception(path)
+    model = load_inception(path, device="cpu")
     assert torch.equal(model.Mixed_5b.branch1x1.conv.weight, sd["Mixed_5b.branch1x1.conv.weight"])
     del sd["Mixed_6e.branch7x7_2.bn.weight"]
     torch.save(sd, path)
     with pytest.raises(RuntimeError, match="Missing key"):
-        load_inception(path)
+        load_inception(path, device="cpu")
     _, variables = jax_load_inception(judge["path"])
     assert variables["params"]["Mixed_7c"]["branch_pool"]["conv"]["kernel"].shape == \
         (1, 1, 2048, 192)

@@ -236,7 +236,8 @@ def test_train_verb_needs_cuda_unless_cpu_is_asked_for(data, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--model", "spade"], "item 15"),
+    # a pix2pix teacher cannot read the SPADE family's data
+    (["--dataset_mode", "cityscapes"], "item 15b"),
     (["--n_devices", "2"], "item 16"),
     (["--multihost", "1"], "item 16"),
     (["--netD", "pixel"], "build only the n_layers discriminator"),
@@ -258,19 +259,14 @@ def test_train_flag_surface_equals_the_jax_train_parser():
     assert _surface(cli.train_parser()) == _surface(_jax_train_parser())
 
 
-# flags the JAX package's train verb accepts and does not read for pix2pix
-# and CycleGAN
+# flags the JAX package's train verb accepts and does not read
 TRAIN_INERT = {
     "netG", "restore_D_path",
-    # the distill step's dtypes and student EMA
-    "compute_dtype", "teacher_compute_dtype", "moving_average_decay",
-    "moving_average_decay_adjust", "moving_average_decay_base_batch",
-    # SPADE family (item 15): --model spade raises
-    "remat_policy", "vgg_compute_dtype", "norm_G", "teacher_norm_G", "student_norm_G",
-    "num_upsampling_layers", "lambda_feat", "lambda_vgg", "no_TTUR", "beta2", "num_D",
-    "norm_D", "no_instance", "contain_dontcare_label", "no_pairing_check", "vgg_path", "no_fid",
-    # mIoU (item 13b): its files' presence is checked, its data root is not read
-    "cityscapes_path",
+    # the distill step's teacher dtype and student EMA
+    "teacher_compute_dtype", "moving_average_decay", "moving_average_decay_adjust",
+    "moving_average_decay_base_batch",
+    # the SPADE distiller's (item 15b)
+    "remat_policy", "teacher_norm_G", "student_norm_G",
     # multi-host (item 16): refused through --multihost / --num_processes
     "coordinator_address", "process_id",
 }

@@ -141,19 +141,20 @@ PORT_INERT = {
     # teacher training, read by the train verb only
     "model", "ngf", "pool_size", "lambda_A", "lambda_B", "lambda_identity", "restore_G_path",
     "real_stat_A_path", "real_stat_B_path",
-    # SPADE family (item 15), read by --distiller spade only
+    # the SPADE family, read by the train verb's --model spade and by --distiller spade
+    # (item 15b)
     "remat_policy", "vgg_compute_dtype", "norm_G", "teacher_norm_G", "student_norm_G",
     "num_upsampling_layers", "lambda_feat", "lambda_vgg", "no_TTUR", "beta2", "num_D",
     "norm_D", "no_instance", "contain_dontcare_label", "no_pairing_check", "vgg_path",
-    # mIoU (item 13b): its files' presence is checked, its data root is not read
-    "cityscapes_path",
     # multi-host (item 16): refused through --multihost / --num_processes
     "coordinator_address", "process_id",
 }
 
 
 # the train verb's code, which the distill verb never runs
-TRAIN_VERB = {"setup_train", "train_main", "check_train_ported", "apply_train_defaults"}
+TRAIN_VERB = {"setup_train", "train_main", "check_train_ported", "apply_train_defaults",
+              "setup_train_spade", "_spade_evaluators", "spade_generator_config", "semantic_nc",
+              "make_vgg"}
 
 
 def opt_names(skip_functions=frozenset()):
@@ -207,18 +208,41 @@ def test_unported_flags_raise_naming_their_roadmap_item(world, tmp_path, flags, 
 
 
 def test_evaluation_raises_when_its_files_exist(world, tmp_path):
-    """mIoU, the half of evaluation still to port: a Cityscapes photo
-    direction (BtoA) with the DRN weights and the table present raises,
-    naming its item, before anything trains."""
-    drn, table = tmp_path / "drn.pth", tmp_path / "table.txt"
-    drn.write_bytes(b"")
-    table.write_bytes(b"")
-    args = _args(world, tmp_path / "log", "--direction", "BtoA", "--drn_path", str(drn),
-                 "--table_path", str(table))
+    """mIoU, the half of evaluation ported last: a Cityscapes photo direction
+    (a dataroot naming cityscapes, BtoA) with the DRN weights and the table
+    present no longer raises; the verb evaluates the student's mIoU at the
+    trainer's cadence and tags the best checkpoint."""
+    from cat_tpu.metrics.drn import DRNSeg, save_drnseg
+    from tests.test_torch_miou import write_miou_inputs
+
+    model = DRNSeg(classes=4, layers=(1,) * 8, channels=(4, 8, 8, 8, 8, 8, 8, 8))
+    drn = save_drnseg(str(tmp_path / "drn.msgpack"), model,
+                      fast_init(model, jnp.zeros((1, SIZE, SIZE, 3)), seed=1))
+    table, origin = write_miou_inputs(tmp_path, [str(i) for i in range(4)])
+    os.symlink(world.data, tmp_path / "cityscapes")
+    args = _args(world, tmp_path / "log", "--direction", "BtoA", "--drn_path", drn,
+                 "--table_path", table, "--cityscapes_path", origin)
     args[args.index("--dataroot") + 1] = str(tmp_path / "cityscapes")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 13b"):
-        entry.distill_main(args, device="cpu")
-    assert not os.path.exists(tmp_path / "log" / "checkpoints")
+    entry.distill_main(args, device="cpu")
+    import json
+
+    with open(tmp_path / "log" / "scalars.jsonl") as f:
+        mious = [r["metric/mIoU"] for r in map(json.loads, f) if "metric/mIoU" in r]
+    assert len(mious) == 2 and all(0.0 <= v <= 100.0 for v in mious)  # the probe, epoch 2
+    assert os.path.exists(tmp_path / "log" / "checkpoints" / "best_net_G.pth")
+
+
+@pytest.mark.parametrize("verb,flags", [
+    ("distill", ["--distiller", "spade"]),
+    ("distill", ["--dataset_mode", "cityscapes"]),
+    ("profile", ["--distiller", "spade"]),
+])
+def test_spade_distillation_names_item_15b(world, tmp_path, verb, flags):
+    """SPADE distillation, and the inception distiller on the SPADE family's
+    data, raise naming the SPADE distiller's item."""
+    main = entry.distill_main if verb == "distill" else entry.profile_main
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 15b"):
+        main(_args(world, tmp_path, *flags), device="cpu")
 
 
 def test_distill_evaluates_fid_and_tags_best(world, tmp_path):

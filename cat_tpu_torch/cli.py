@@ -10,8 +10,9 @@ naming the ROADMAP.md item that brings it, when set away from their default
 and leaves inert on a verb are inert here too: on distill,
 --netG/--teacher_netG/--student_netG/--pretrained_netG,
 --pretrained_ngf/--teacher_ngf, --prune_continue, --prune_logging_verbose,
---restore_O_path, and the SPADE, evaluation-only and teacher-training flags
-the inception distiller does not read; on train, --netG, --restore_D_path,
+--restore_O_path, the SPADE, evaluation-only and teacher-training flags
+the inception distiller does not read, and the inception flags the SPADE
+distiller does not read; on train, --netG, --restore_D_path,
 the distill-step dtypes and EMA flags, the SPADE flags with pix2pix and
 CycleGAN, and the inception flags with ``--model spade``.
 """
@@ -51,8 +52,9 @@ def base_arguments(parser: argparse.ArgumentParser):
                         "(torch.utils.checkpoint): more generator FLOPs for less activation "
                         "memory")
     p.add_argument("--remat_policy", type=str, default="",
-                   help="selective remat of the SPADE distiller (not ported yet); the "
-                        "inception distiller does not read it")
+                   help="selective remat of the SPADE distiller (a jax.checkpoint_policies "
+                        "name; not ported yet: ROADMAP.md queue 1, item 15c); the inception "
+                        "distiller does not read it")
     p.add_argument("--packed_blocks", type=int, default=None, choices=[0, 1],
                    help="evaluate multi-branch blocks with branch-packed convs (identical "
                         "math and parameter tree); default ON for inception")
@@ -265,17 +267,36 @@ def train_parser() -> argparse.ArgumentParser:
     return parser
 
 
-# the reference's per-model defaults (models/cycle_gan_model.py:102-109), set
-# where a flag was left at its parser default
+# the SPADE distiller's defaults (reference spade_distiller.py:72-82 and the
+# multiscale D's n_layers_D=4, discriminators.py:200; ndf 64, the teacher
+# training's, so that the teacher's D of the shipped recipes loads)
+SPADE_DISTILL_DEFAULTS = dict(netD="multi_scale", ndf=64, n_layers_D=4,
+                              dataset_mode="cityscapes", batch_size=16, print_freq=50,
+                              save_epoch_freq=10, nepochs=100, nepochs_decay=100,
+                              init_type="xavier")
+
+# the reference's per-model defaults (models/cycle_gan_model.py:102-109,
+# models/spade_model.py:82-92), set where a flag was left at its parser default
 TRAIN_MODEL_DEFAULTS = {
     "cycle_gan": dict(norm="instance", dataset_mode="unaligned", gan_mode="lsgan", ndf=64),
+    "spade": dict(SPADE_DISTILL_DEFAULTS, active_fn="nn.LeakyReLU"),
 }
 
 
-def apply_train_defaults(opt, parser: argparse.ArgumentParser) -> None:
-    for k, v in TRAIN_MODEL_DEFAULTS.get(opt.model, {}).items():
+def _apply_defaults(opt, parser: argparse.ArgumentParser, defaults) -> None:
+    for k, v in defaults.items():
         if getattr(opt, k) == parser.get_default(k):
             setattr(opt, k, v)
+
+
+def apply_train_defaults(opt, parser: argparse.ArgumentParser) -> None:
+    _apply_defaults(opt, parser, TRAIN_MODEL_DEFAULTS.get(opt.model, {}))
+
+
+def apply_distill_defaults(opt, parser: argparse.ArgumentParser) -> None:
+    """The distill verb's: the SPADE distiller's under --distiller spade."""
+    if opt.distiller == "spade":
+        _apply_defaults(opt, parser, SPADE_DISTILL_DEFAULTS)
 
 
 def distill_parser() -> argparse.ArgumentParser:
@@ -340,11 +361,10 @@ def check_ported(opt) -> None:
     """Raise for a flag whose code path is not ported yet, set away from
     its default, naming the ROADMAP.md item (queue 1) that brings it.  The
     other unported paths raise where they would run: the int8 teacher in
-    the distiller, the SPADE family's Cityscapes data in the inception
-    verbs' loader; the pixel D, which the JAX package's tasks cannot build
-    either, raises in the tasks."""
-    _raise_unported((("--distiller spade", opt.distiller == "spade",
-                      "15b, SPADE distillation"), *_multi_gpu(opt)))
+    the distillers, --remat_policy in the SPADE distiller's setup; the pixel
+    D, which the JAX package's tasks cannot build either, raises in the
+    tasks."""
+    _raise_unported(_multi_gpu(opt))
 
 
 # ---------------------------------------------------------------------------

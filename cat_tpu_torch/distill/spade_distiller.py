@@ -1,0 +1,329 @@
+"""The SPADE (GauGAN) distiller (port of ``cat_tpu/distill/spade_distiller.py``).
+
+Reference: distillers/base_spade_distiller.py + spade_distiller.py and
+models/modules/spade_modules/{base_spade_distiller_modules,
+spade_distiller_modules}.py.  One ``train_step`` does what the JAX
+package's ``_step`` does:
+
+  * the frozen teacher runs in eval mode and returns its taps (by default
+    ``head_0``, ``G_middle_1``, ``up_1``);
+  * the G update runs first, against the old D: G loss = hinge GAN +
+    feature matching · λ_feat + VGG · λ_vgg + λ_distill · Σ_taps d(student
+    tap, teacher tap), with d = -KA (``ka``, the hand-written Gram kernel on
+    the card) or the mean squared error of a 1x1-conv adaptor of the
+    student tap against the teacher tap (``mse``).  The adaptors, one per
+    tap, sit in the G group under TTUR (G at lr/2, D at 2·lr, Adam betas
+    (0, 0.9), unless ``no_TTUR``) and are there under KA too, where their
+    gradient is zero;
+  * the student's forward in the G step alone moves its running statistics;
+    the G loss's D forward leaves D's spectral ``u`` alone;
+  * the D update runs on a fake regenerated by the *updated* student in
+    train mode (batch statistics) whose statistics writes are discarded;
+    its fake-and-real forward writes D's ``u``; under wgangp the penalty's
+    forwards start from the ``u`` of before the step;
+  * with ``ema_decay`` > 0 an exponential moving average of the student's
+    weights follows every G step and is what evaluation and deployment use;
+  * with ``remat`` the student's forward is recomputed in the backward
+    (``torch.utils.checkpoint``).
+
+Mixed precision follows the JAX placement, as ``train/spade_model.py``
+does: float32 masters, parameters and inputs cast to ``compute_dtype``
+inside the forwards, norm statistics, losses and both taps in float32.
+Entry points run on CUDA unless ``device="cpu"`` is passed.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.func import functional_call
+
+from cat_tpu_torch import resolve_device
+from cat_tpu_torch.core.spade_config import MultiscaleDiscriminatorConfig, SPADEGeneratorConfig
+from cat_tpu_torch.distill.inception_distiller import Adaptor
+from cat_tpu_torch.distill.ka import ka
+from cat_tpu_torch.models.losses import gan_loss, gradient_penalty
+from cat_tpu_torch.models.spade import MultiscaleDiscriminator, SPADEGenerator
+from cat_tpu_torch.models.vgg import VGG19Features, vgg_loss
+from cat_tpu_torch.ops.nn import frozen_stats
+from cat_tpu_torch.train.common import GANTrainState, NetState, cast_floats, checkpointed
+from cat_tpu_torch.train.optim import Adam
+from cat_tpu_torch.train.spade_model import discriminate, feature_matching_loss, preprocess_input
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DEFAULT_SPADE_MAPPING_LAYERS = ("head_0", "G_middle_1", "up_1")
+
+
+@dataclass(frozen=True)
+class SPADEDistillHParams:
+    gan_mode: str = "hinge"
+    distill_loss_type: str = "ka"  # ka | mse
+    lambda_gan: float = 1.0
+    lambda_distill: float = 1.0
+    lambda_feat: float = 10.0
+    lambda_vgg: float = 10.0
+    no_TTUR: bool = False
+    beta1: float = 0.0
+    beta2: float = 0.9
+    init_type: str = "xavier"
+    init_gain: float = 0.02
+    mapping_layers: Tuple[str, ...] = DEFAULT_SPADE_MAPPING_LAYERS
+    compute_dtype: str = "float32"  # float32 | bfloat16 (float32 masters)
+    vgg_compute_dtype: str = "float32"  # dtype of the VGG19 sweep
+    remat: bool = False  # recompute the student forward in the backward
+    ema_decay: float = 0.0  # student-weight EMA (--moving_average_decay); 0 = off
+    teacher_compute_dtype: str = ""  # '' follows compute_dtype (int8 not ported yet)
+
+
+def _check_ported(hp: SPADEDistillHParams) -> None:
+    if hp.teacher_compute_dtype.startswith("int8"):
+        raise NotImplementedError("teacher_compute_dtype=int8 is not ported yet: ROADMAP.md "
+                                  "queue 1, item 18b, Extras")
+    if hp.distill_loss_type not in ("ka", "mse"):
+        raise NotImplementedError(hp.distill_loss_type)
+    if hp.compute_dtype not in _DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
+
+
+def _tap_width(cfg: SPADEGeneratorConfig, name: str) -> int:
+    for bname, bcfg in zip(cfg.block_names, cfg.blocks):
+        if bname == name:
+            return bcfg.fout
+    raise KeyError(name)
+
+
+class SPADEDistiller:
+    def __init__(self, teacher_cfg: SPADEGeneratorConfig, student_cfg: SPADEGeneratorConfig,
+                 disc_cfg: Optional[MultiscaleDiscriminatorConfig] = None,
+                 hp: SPADEDistillHParams = SPADEDistillHParams(),
+                 vgg: Optional[VGG19Features] = None, input_nc: Optional[int] = None,
+                 contain_dontcare: bool = False, device=None):
+        """``vgg``: the perceptual loss's network (None: no VGG loss);
+        ``input_nc``/``contain_dontcare``: how raw label batches become
+        semantics (by default the label ids fill all but the edge channel)."""
+        _check_ported(hp)
+        self.device = resolve_device(device)
+        self.teacher_cfg, self.student_cfg = teacher_cfg, student_cfg
+        self.disc_cfg = disc_cfg or MultiscaleDiscriminatorConfig(
+            input_nc=teacher_cfg.semantic_nc + teacher_cfg.output_nc)
+        self.hp = hp
+        self.cdt = _DTYPES[hp.compute_dtype]
+        self.vgg = None if vgg is None else vgg.to(self.device)
+        self.label_nc = input_nc or teacher_cfg.semantic_nc - 1
+        self.contain_dontcare = contain_dontcare
+        self.netG_teacher: Optional[SPADEGenerator] = None
+        self.netG_student: Optional[SPADEGenerator] = None
+        self.netD: Optional[MultiscaleDiscriminator] = None
+        self.netA: Optional[nn.ModuleDict] = None
+
+    @property
+    def lr_mults(self) -> Tuple[float, float]:
+        """(G, D) learning-rate multipliers (TTUR)."""
+        return (1.0, 1.0) if self.hp.no_TTUR else (0.5, 2.0)
+
+    # ------------------------------------------------------------------ state
+
+    def init_state(self, teacher_state_dict: Dict[str, torch.Tensor],
+                   student_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                   disc_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                   seed: int = 0) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
+        """Build the networks on the device and the train state.  The teacher
+        comes from ``teacher_state_dict``; the student, D and the adaptors are
+        freshly initialised from ``seed``.  ``student_state_dict`` warm-starts
+        the student: its entries (typically the parameters alone, from
+        ``compress/transfer.py``) override the fresh ones, and what it lacks
+        (running statistics, spectral vectors) keeps its fresh value.
+        Returns (state, teacher parameters)."""
+        hp = self.hp
+        gen = torch.Generator().manual_seed(seed)
+        teacher = SPADEGenerator(self.teacher_cfg, hp.init_type, hp.init_gain, generator=gen)
+        teacher.load_state_dict(teacher_state_dict)
+        self.netG_teacher = teacher.requires_grad_(False).to(self.device).eval()
+
+        student = SPADEGenerator(self.student_cfg, hp.init_type, hp.init_gain, generator=gen)
+        if student_state_dict is not None:
+            sd = student.state_dict()
+            params = {k for k, _ in student.named_parameters()}
+            unknown = student_state_dict.keys() - sd.keys()
+            if unknown or not params <= student_state_dict.keys():
+                raise ValueError(f"student warm start: {sorted(unknown)[:3]} are not the "
+                                 f"student's, {sorted(params - student_state_dict.keys())[:3]} "
+                                 "missing")
+            student.load_state_dict({**sd, **student_state_dict})
+        self.netG_student = student.to(self.device)
+
+        netD = MultiscaleDiscriminator(self.disc_cfg, hp.init_type, hp.init_gain, generator=gen)
+        if disc_state_dict is not None:
+            netD.load_state_dict(disc_state_dict)
+        self.netD = netD.to(self.device)
+
+        self.netA = nn.ModuleDict({
+            f"A{i}": Adaptor(_tap_width(self.student_cfg, name),
+                             _tap_width(self.teacher_cfg, name), gen)
+            for i, name in enumerate(hp.mapping_layers)}).to(self.device)
+        a_params = dict(self.netA.named_parameters())
+        g_params = dict(self.netG_student.named_parameters())
+        d_params = dict(self.netD.named_parameters())
+        extra = {}
+        if hp.ema_decay > 0:
+            extra["ema_G"] = {k: v.detach().clone() for k, v in g_params.items()}
+        state = GANTrainState(
+            step=0,
+            # one Adam over {G, A}, as the JAX package's G parameter group
+            g=NetState(g_params, Adam([*g_params.values(), *a_params.values()], hp.beta1,
+                                      hp.beta2), dict(self.netG_student.named_buffers())),
+            d=NetState(d_params, Adam(d_params.values(), hp.beta1, hp.beta2),
+                       dict(self.netD.named_buffers())),
+            rng=torch.Generator(device=self.device).manual_seed(seed),
+            adaptors=a_params, extra=extra)
+        return state, dict(self.netG_teacher.named_parameters())
+
+    # ------------------------------------------------------------------- step
+
+    def semantics(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The generators' input: ``batch["semantics"]`` where given, else
+        made from a raw label (and instance) batch."""
+        if "semantics" in batch:
+            return batch["semantics"]
+        return preprocess_input(batch["label"], batch.get("instance"), self.label_nc,
+                                self.contain_dontcare)
+
+    def _distill_loss(self, a_params, s_acts, t_acts):
+        total = torch.zeros((), device=self.device)
+        parts = {}
+        for i, name in enumerate(self.hp.mapping_layers):
+            s, t = s_acts[name], t_acts[name]
+            if self.hp.distill_loss_type == "ka":
+                li = -ka(s, t)
+            else:
+                mapped = F.conv2d(s, a_params[f"A{i}.weight"], a_params[f"A{i}.bias"])
+                li = (mapped - t).square().mean()
+            parts[f"Specific_loss/distill{i}"] = li
+            total = total + li
+        return total, parts
+
+    def train_step(self, state: GANTrainState, teacher_params: Dict[str, torch.Tensor],
+                   batch: Dict[str, torch.Tensor],
+                   lr: float) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
+        """One G-then-D step; updates ``state`` in place and returns it with
+        the step's losses (0-d tensors)."""
+        hp = self.hp
+        mixed = self.cdt != torch.float32
+
+        def down(t):  # parameters / inputs -> compute dtype
+            return cast_floats(t, self.cdt) if mixed else t
+
+        def up(t):  # network outputs -> float32 for the losses
+            if isinstance(t, list):
+                return [up(x) for x in t]
+            return cast_floats(t, torch.float32) if mixed else t
+
+        sem, real_B = down(self.semantics(batch)), batch["image"]
+        lr_g, lr_d = lr * self.lr_mults[0], lr * self.lr_mults[1]
+        taps = hp.mapping_layers
+
+        # --- the teacher: frozen, eval mode ---
+        with torch.no_grad():
+            _, t_acts = functional_call(self.netG_teacher, down(teacher_params), (sem,),
+                                        {"train": False, "taps": taps})
+        t_acts = up(t_acts)
+
+        # --- G update against the old D ---
+        g_params = state.g.params
+
+        def s_forward():
+            fake, acts = functional_call(self.netG_student, down(g_params), (sem,),
+                                         {"train": True, "taps": taps})
+            return up(fake), up(acts)
+
+        if hp.remat:
+            fake, s_acts = checkpointed(s_forward, self.netG_student, state.rng)
+        else:
+            fake, s_acts = s_forward()
+        d_frozen = {k: v.detach() for k, v in state.d.params.items()}
+        with frozen_stats(self.netD):
+            pred_fake, pred_real = discriminate(self.netD, d_frozen, up(sem), up(down(fake)),
+                                                      up(down(real_B)))
+        l_gan = gan_loss(pred_fake, True, hp.gan_mode, False) * hp.lambda_gan
+        l_feat = feature_matching_loss(pred_fake, pred_real) * hp.lambda_feat
+        if self.vgg is not None and hp.lambda_vgg > 0:
+            l_vgg = vgg_loss(self.vgg, fake, real_B, hp.vgg_compute_dtype) * hp.lambda_vgg
+        else:
+            l_vgg = torch.zeros((), device=self.device)
+        if hp.lambda_distill > 0:
+            l_dis, parts = self._distill_loss(state.adaptors, s_acts, t_acts)
+            l_dis = l_dis * hp.lambda_distill
+        else:
+            l_dis, parts = torch.zeros((), device=self.device), {}
+        rng_now = state.rng.get_state()
+        # the adaptors take no gradient under KA: zeros, as in the JAX package
+        g_grads = torch.autograd.grad(l_gan + l_feat + l_vgg + l_dis,
+                                      [*g_params.values(), *state.adaptors.values()],
+                                      allow_unused=True, materialize_grads=True)
+        state.rng.set_state(rng_now)  # a remat recompute rewound it
+        state.g.opt.step(g_grads, lr_g)
+
+        # --- D update: the fake regenerated by the updated student in train
+        # mode, its statistics writes discarded ---
+        with torch.no_grad(), frozen_stats(self.netG_student):
+            fake = functional_call(self.netG_student, down(g_params), (sem,), {"train": True})
+        d_down = down(state.d.params)
+        d_loss = torch.zeros((), device=self.device)
+        if hp.gan_mode == "wgangp":
+            # the penalty's forwards read D's u of before the step: taken
+            # before the one forward that writes it
+            def d_apply(x):
+                return up(functional_call(self.netD, d_down, (x,), {"train": True}))
+
+            with frozen_stats(self.netD):
+                d_loss, _ = gradient_penalty(d_apply, torch.cat([sem, down(real_B)], 1),
+                                             torch.cat([sem, fake], 1), generator=state.rng)
+        pred_fake, pred_real = discriminate(self.netD, d_down, sem, fake, down(real_B))
+        l_d_fake = gan_loss(up(pred_fake), False, hp.gan_mode, True)
+        l_d_real = gan_loss(up(pred_real), True, hp.gan_mode, True)
+        d_grads = torch.autograd.grad(l_d_fake + l_d_real + d_loss,
+                                      list(state.d.params.values()))
+        state.d.opt.step(d_grads, lr_d)
+
+        if hp.ema_decay > 0:
+            ema = list(state.extra["ema_G"].values())
+            with torch.no_grad():
+                torch._foreach_mul_(ema, hp.ema_decay)
+                torch._foreach_add_(ema, torch._foreach_mul(list(g_params.values()),
+                                                            1.0 - hp.ema_decay))
+
+        state.step += 1
+        metrics = {"G_loss/gan": l_gan, "G_loss/feat": l_feat, "G_loss/vgg": l_vgg,
+                   "G_loss/distill": l_dis, "D_loss/fake": l_d_fake, "D_loss/real": l_d_real,
+                   **parts}
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    # -------------------------------------------------------------- inference
+
+    def student_eval_params(self, state: GANTrainState) -> Dict[str, torch.Tensor]:
+        """The EMA weights when ``ema_decay`` > 0, else the trained weights:
+        what evaluation and deployment use."""
+        return state.extra.get("ema_G", state.g.params)
+
+    @torch.no_grad()
+    def generate_student(self, state: GANTrainState, sem: torch.Tensor) -> torch.Tensor:
+        """The student in eval mode (running statistics) on semantics."""
+        return functional_call(self.netG_student, self.student_eval_params(state), (sem,))
+
+    def generate_student_raw(self, state: GANTrainState, batch: Dict) -> torch.Tensor:
+        """The student on a raw label (and instance) batch on the device: what
+        the FID and mIoU evaluators call."""
+        return self.generate_student(state, self.semantics(batch))
+
+    @torch.no_grad()
+    def generate_teacher(self, teacher_params: Dict[str, torch.Tensor],
+                         sem: torch.Tensor) -> torch.Tensor:
+        return functional_call(self.netG_teacher, teacher_params, (sem,))
+
+    def generate_teacher_raw(self, teacher_params: Dict[str, torch.Tensor],
+                             batch: Dict) -> torch.Tensor:
+        return self.generate_teacher(teacher_params, self.semantics(batch))

@@ -1,5 +1,5 @@
-"""The verbs end to end (port of the inception half of ``cat_tpu/entry.py``:
-train, distill, profile and get_real_stat; and of ``tools/kid_score.py``).
+"""The verbs end to end (port of ``cat_tpu/entry.py``: train, distill,
+profile and get_real_stat; and of ``tools/kid_score.py``).
 
 ``train_main`` trains a pix2pix, CycleGAN or GauGAN (SPADE) teacher from
 the JAX package's train flags (``train/pix2pix.py``, ``train/cyclegan.py``,
@@ -19,11 +19,14 @@ the trainer's cadence and tags the best checkpoints; without them it warns
 and trains without FID, as the JAX package does.  On Cityscapes photos
 (a dataroot naming cityscapes, BtoA) it also evaluates mIoU with the DRN
 judge (``--drn_path``, ``--table_path``, ``--cityscapes_path``), and warns
-and goes without where their files are absent.
+and goes without where their files are absent.  ``--distiller spade``
+distils a GauGAN teacher (``setup_distill_spade``): the SPADE shrink, the
+SPADE transfer, the teacher's D, the Cityscapes loader, FID and mIoU.
 
 ``profile_main`` times the shrink, counts the student's MACs and parameters,
 times its forward at batch 1 and sweeps the val set with every image
-dumped; ``real_stat_main`` writes the judge's statistics of a folder;
+dumped (``profile_distill_spade`` under ``--distiller spade``);
+``real_stat_main`` writes the judge's statistics of a folder;
 ``kid_score_main`` scores two folders.  Every verb runs on CUDA unless the
 caller passes ``device="cpu"``.
 """
@@ -128,9 +131,9 @@ def _make_train_loader(opt, spec, device: torch.device):
     (unaligned resize_and_crop without --serial_batches; other modes fall
     back to the host loader, as in the JAX package)."""
     if opt.dataset_mode == "cityscapes":
-        raise NotImplementedError(
-            "--dataset_mode cityscapes feeds the SPADE family: the train verb's --model spade, "
-            "and --distiller spade, which is not ported yet: ROADMAP.md queue 1, item 15b")
+        # the JAX package's generic loader has no cityscapes mode: only the
+        # SPADE family's own loaders (--model spade, --distiller spade) read it
+        raise NotImplementedError(f"dataset mode [{opt.dataset_mode}] not implemented")
     if opt.on_device_data:
         if (opt.dataset_mode == "unaligned" and spec.preprocess == "resize_and_crop"
                 and not spec.grayscale and not opt.serial_batches):
@@ -214,6 +217,8 @@ class DistillRun:
 
 def setup_distill(opt, device=None, loader=None) -> DistillRun:
     cli.check_ported(opt)
+    if opt.distiller == "spade":
+        return setup_distill_spade(opt, device, loader)
     return setup_distill_inception(opt, device, loader)
 
 
@@ -361,12 +366,161 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
     return DistillRun(trainer, state, dist, teacher_params, student_cfg, loader, logger)
 
 
+def load_spade_checkpoint(path: str, opt=None) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """(config, state_dict) of a SPADE generator checkpoint: this package's
+    ``.pth`` with its ``.json``, the JAX package's ``.msgpack`` with its
+    ``.json``, or a reference ``.pth``, whose architecture is recovered from
+    its shapes with ``opt``'s upsampling, crop, aspect ratio and teacher
+    norm (``utils/spade_import.py``)."""
+    import cat_tpu_torch.core.spade_config  # noqa: F401  (registers the config types)
+
+    cfg = ckpt.read_config(path)
+    if path.endswith(".pth"):
+        if cfg is not None:
+            return cfg, ckpt.load_pytree(path)
+        from cat_tpu_torch.utils.spade_import import load_torch_spade_generator
+
+        kwargs = {}
+        if opt is not None:
+            kwargs = dict(num_upsampling_layers=opt.num_upsampling_layers,
+                          crop_size=opt.crop_size, aspect_ratio=opt.aspect_ratio,
+                          param_free_norm=cli.parse_param_free_norm(opt.teacher_norm_G),
+                          spectral="spectral" in opt.teacher_norm_G)
+        return load_torch_spade_generator(path, **kwargs)
+    if cfg is None:
+        raise FileNotFoundError(f"{path}: no .json config beside it")
+    return cfg, jax_import.spade_net_state_dict(ckpt.load_pytree(path), cfg)
+
+
+def _spade_bounds(opt) -> PruneBounds:
+    return PruneBounds(cin_lb=max(opt.prune_cin_lb, 1),
+                       cin_ub=opt.prune_cin_ub if opt.prune_cin_ub > 0 else None)
+
+
+def setup_distill_spade(opt, device=None, loader=None) -> DistillRun:
+    """GauGAN distillation (reference distillers/spade_distiller.py; the JAX
+    package's ``setup_distill_spade``): the teacher, the shrink to
+    --target_flops (the student initialised afresh), the magnitude transfer
+    from --restore_pretrained_G_path into the shrunk student, D from
+    --restore_D_path (weights and spectral ``u``, a fresh optimiser),
+    ``student_config.json``, the Cityscapes loader, FID and mIoU at the
+    trainer's cadence where their files exist, and the G (and, under EMA,
+    G_raw) and state checkpoints.  ``loader`` as in
+    ``setup_distill_inception``."""
+    from cat_tpu_torch.compress.spade import profile_spade_generator, shrink_spade_generator
+    from cat_tpu_torch.compress.transfer import transfer_spade_generator_params
+    from cat_tpu_torch.core.spade_config import MultiscaleDiscriminatorConfig
+    from cat_tpu_torch.data.cityscapes import create_cityscapes_dataloader
+    from cat_tpu_torch.distill.spade_distiller import SPADEDistillHParams, SPADEDistiller
+
+    if opt.remat_policy:
+        raise NotImplementedError("--remat_policy (selective remat of the SPADE distiller) is "
+                                  "not ported yet: ROADMAP.md queue 1, item 15c")
+    device = resolve_device(device)
+    cli.set_seed(opt.seed)
+    logger = Logger(opt.log_dir, opt.tensorboard_dir)
+    save_dir = os.path.join(opt.log_dir, "checkpoints")
+
+    teacher_cfg, teacher_sd = load_spade_checkpoint(opt.restore_teacher_G_path, opt)
+    h_lat = int(opt.crop_size / opt.aspect_ratio)
+    t_prof = profile_spade_generator(teacher_cfg, h_lat, opt.crop_size)
+    logger.print_info(f"netG teacher FLOPs: {t_prof.macs:,}; params: {t_prof.params:,}")
+    if opt.target_flops > 0:
+        t0 = time.time()
+        res = shrink_spade_generator(teacher_cfg, teacher_sd, opt.target_flops, h_lat,
+                                     opt.crop_size, _spade_bounds(opt))
+        logger.print_info(
+            f"scale threshold: {res.threshold:.6g}, searched flops: {res.searched_macs:,}, "
+            f"target flops: {opt.target_flops:g} (pruning took {(time.time() - t0) * 1e3:.1f} ms)")
+        student_cfg = res.config  # initialised afresh (the reference's semantics)
+    else:
+        student_cfg = cli.spade_generator_config(opt, opt.student_ngf, opt.student_norm_G)
+    logger.print_info("SPADE blocks: the port evaluates every branch on its own (the JAX "
+                      "package's packed layout, --packed_blocks, computes the same function).")
+
+    hp = SPADEDistillHParams(
+        gan_mode=opt.gan_mode, distill_loss_type=opt.distill_G_loss_type,
+        lambda_gan=opt.lambda_gan, lambda_distill=opt.lambda_distill,
+        lambda_feat=opt.lambda_feat, lambda_vgg=opt.lambda_vgg, no_TTUR=opt.no_TTUR,
+        beta1=opt.beta1 if opt.no_TTUR else 0.0, beta2=opt.beta2 if opt.no_TTUR else 0.9,
+        compute_dtype=opt.compute_dtype, vgg_compute_dtype=opt.vgg_compute_dtype,
+        init_type=opt.init_type, init_gain=opt.init_gain, remat=bool(opt.remat),
+        ema_decay=_ema_decay(opt), teacher_compute_dtype=opt.teacher_compute_dtype or "")
+    # D follows the flags as on the teacher-training path, so that the
+    # teacher's D (--restore_D_path) loads
+    d_cfg = MultiscaleDiscriminatorConfig(input_nc=teacher_cfg.semantic_nc + teacher_cfg.output_nc,
+                                          ndf=opt.ndf, n_layers=opt.n_layers_D, num_D=opt.num_D,
+                                          norm_D=opt.norm_D)
+    dist = SPADEDistiller(teacher_cfg, student_cfg, d_cfg, hp, vgg=cli.make_vgg(opt, device),
+                          input_nc=opt.input_nc, contain_dontcare=opt.contain_dontcare_label,
+                          device=device)
+    # the magnitude transfer from the wide pretrained G, after the shrink,
+    # so that it warm-starts the student that trains
+    student_sd = None
+    if opt.restore_pretrained_G_path:
+        p_cfg, p_sd = load_spade_checkpoint(opt.restore_pretrained_G_path, opt)
+        student_sd = transfer_spade_generator_params(p_sd, p_cfg, student_cfg)
+        logger.print_info("Pretrained weights transferred into the SPADE student.")
+    disc_sd = None
+    if opt.restore_D_path:
+        # the teacher's D: weights and spectral u, a fresh optimiser
+        disc_sd = _load_net(opt.restore_D_path,
+                            lambda t: jax_import.spade_net_state_dict(t, d_cfg), "D")
+    state, teacher_params = dist.init_state(teacher_sd, student_sd, disc_sd, seed=opt.seed)
+    state = _maybe_restore_state(opt, state, lambda t: jax_import.spade_distill_state_dict(
+        t, student_cfg, d_cfg))
+    with open(os.path.join(opt.log_dir, "student_config.json"), "w") as f:
+        f.write(config_to_json(student_cfg))
+    if opt.prune_only:
+        logger.print_info("prune_only: student architecture emitted; exiting.")
+        return DistillRun(None, state, dist, teacher_params, student_cfg, loader, logger)
+
+    if loader is None:
+        loader = create_cityscapes_dataloader(
+            opt.dataroot, opt.batch_size, phase=opt.phase, seed=opt.seed,
+            load_size=opt.load_size, crop_size=opt.crop_size, aspect_ratio=opt.aspect_ratio,
+            no_instance=opt.no_instance, pairing_check=not opt.no_pairing_check,
+            max_size=opt.max_dataset_size, num_workers=opt.num_threads,
+            worker_mode=opt.data_backend)
+    state_box = [state]
+    evaluate_fn = _spade_evaluators(
+        opt, lambda b: dist.generate_student_raw(state_box[0], b), device,
+        teacher_generate=lambda b: dist.generate_teacher_raw(teacher_params, b))
+
+    def save_fn(state, tag):
+        # net_G holds what evaluation and deployment use (the EMA weights
+        # with --moving_average_decay; the raw weights then go to net_G_raw)
+        eval_params = dist.student_eval_params(state)
+        ckpt.save_net(save_dir, tag, "G", {**eval_params, **state.g.stats}, student_cfg)
+        if eval_params is not state.g.params:
+            ckpt.save_net(save_dir, tag, "G_raw", {**state.g.params, **state.g.stats},
+                          student_cfg)
+        else:
+            ckpt.remove_stale(save_dir, tag, "net_G_raw.pth")
+            ckpt.remove_stale(save_dir, tag, "net_G_raw.json")
+        if opt.save_full_state:
+            ckpt.save_train_state(save_dir, tag, train_state_dict(state))
+        else:
+            ckpt.remove_stale(save_dir, tag, "state.pth")
+
+    def step_fn(state, batch, lr):
+        state, metrics = dist.train_step(state, teacher_params, batch, lr)
+        state_box[0] = state
+        return state, metrics
+
+    trainer = Trainer(step_fn, loader, cli.trainer_config(opt), evaluate_fn, save_fn, logger,
+                      device=device, copy_tag_fn=lambda s, d: ckpt.copy_tag(save_dir, s, d))
+    return DistillRun(trainer, state, dist, teacher_params, student_cfg, loader, logger)
+
+
 def distill_main(argv: Optional[List[str]] = None, device=None) -> DistillRun:
     """``python -m cat_tpu_torch distill <flags>``: the JAX package's distill
-    flags; runs on CUDA unless ``device`` says otherwise (the tests pass
-    ``device="cpu"``)."""
+    flags, with the SPADE distiller's defaults (``cli.SPADE_DISTILL_DEFAULTS``)
+    under --distiller spade; runs on CUDA unless ``device`` says otherwise
+    (the tests pass ``device="cpu"``)."""
     parser = cli.distill_parser()
     opt = parser.parse_args(argv)
+    cli.apply_distill_defaults(opt, parser)
     cli.check_ported(opt)
     device = resolve_device(device)
     cli.print_options(opt, parser)
@@ -506,10 +660,12 @@ def setup_train(opt, device=None, loader=None) -> TrainRun:
     return TrainRun(trainer, state, task, gen_cfg, d_cfg, loader, logger)
 
 
-def _spade_evaluators(opt, generate, device):
-    """FID and mIoU over the Cityscapes val split for SPADE training
-    (reference spade_model.evaluate_model:217-288), each where its files
-    exist; the combined evaluate function, or None."""
+def _spade_evaluators(opt, generate, device, teacher_generate=None):
+    """FID and mIoU over the Cityscapes val split for SPADE training and
+    distillation (reference spade_model.evaluate_model:217-288,
+    spade_distiller.py:96-172), each where its files exist; the combined
+    evaluate function, or None.  ``teacher_generate``: the teacher's images
+    are dumped beside the student's."""
     from cat_tpu_torch.data.cityscapes import create_cityscapes_dataloader
     from cat_tpu_torch.train.evaluation import FIDEvaluator, combine_evaluators
 
@@ -527,7 +683,8 @@ def _spade_evaluators(opt, generate, device):
     evs = []
     if judge is not None and stats is not None:
         evs.append(FIDEvaluator(generate, eval_loader, judge, stats, opt.log_dir,
-                                opt.eval_batch_size, device=device, input_key=None))
+                                opt.eval_batch_size, teacher_generate=teacher_generate,
+                                device=device, input_key=None))
     if want_miou:
         evs.append(_miou_judge(opt, generate, eval_loader, device, input_key=None))
     return combine_evaluators(**{"": evs})
@@ -678,7 +835,10 @@ def _profile_eval_sweep(opt, logger, device, gen_s, gen_t) -> Dict[str, float]:
 def profile_distill(opt, device=None) -> Dict[str, Any]:
     """Shrink latency, MACs and parameters with a FLOP-counter cross-check,
     the student's forward latency at batch 1, and the full evaluation sweep
-    (reference profiler.py:38-164)."""
+    (reference profiler.py:38-164); ``profile_distill_spade`` under
+    --distiller spade."""
+    if opt.distiller == "spade":
+        return profile_distill_spade(opt, device)
     device = resolve_device(device)
     logger = Logger(opt.log_dir)
     try:
@@ -746,6 +906,108 @@ def profile_distill(opt, device=None) -> Dict[str, Any]:
         "counted_flops": flops,
         "student_config": student_cfg,
         "student_state_dict": student_sd,
+        "teacher_cfg": teacher_cfg,
+        "metrics": metrics,
+    }
+
+
+def profile_distill_spade(opt, device=None) -> Dict[str, Any]:
+    """The profile verb for the SPADE distiller (the JAX package's
+    ``profile_distill_spade``; reference profiler.py, whose
+    load_pretrained_spade_student is :83-89): 5 + 10 timed shrinks, the
+    student's MACs and parameters, its forward latency at batch 1, and the
+    evaluation sweep over the Cityscapes val split with the student's and the
+    teacher's images dumped, FID and mIoU where their files exist."""
+    from cat_tpu_torch.compress.spade import profile_spade_generator, shrink_spade_generator
+    from cat_tpu_torch.data.cityscapes import create_cityscapes_dataloader
+    from cat_tpu_torch.distill.spade_distiller import SPADEDistillHParams, SPADEDistiller
+    from cat_tpu_torch.train.evaluation import FIDEvaluator
+
+    device = resolve_device(device)
+    logger = Logger(opt.log_dir)
+    try:
+        teacher_cfg, teacher_sd = load_spade_checkpoint(opt.restore_teacher_G_path, opt)
+        h_lat = int(opt.crop_size / opt.aspect_ratio)
+        t_prof = profile_spade_generator(teacher_cfg, h_lat, opt.crop_size)
+        logger.print_info(f"netG teacher FLOPs: {t_prof.macs:,}; params: {t_prof.params:,}")
+
+        prune_mean, res = float("nan"), None
+        if opt.target_flops > 0:
+            # 5 warm-up and 10 timed shrinks (reference profiler.py:139-149)
+            args = (teacher_cfg, teacher_sd, opt.target_flops, h_lat, opt.crop_size,
+                    _spade_bounds(opt))
+            for _ in range(5):
+                shrink_spade_generator(*args)
+            times = []
+            for _ in range(10):
+                t0 = time.time()
+                res = shrink_spade_generator(*args)
+                times.append(time.time() - t0)
+            prune_mean = sum(times) / len(times)
+            logger.print_info(f"mean pruning time over 10 runs: {prune_mean * 1e3:.3f} ms")
+
+        if opt.pretrained_student_G_path:
+            student_cfg, student_sd = load_spade_checkpoint(opt.pretrained_student_G_path, opt)
+        elif res is not None:
+            student_cfg, student_sd = res.config, None
+        else:
+            raise SystemExit("profile (spade): need --pretrained_student_G_path or "
+                             "--target_flops")
+        s_prof = profile_spade_generator(student_cfg, h_lat, opt.crop_size)
+        logger.print_info(f"netG student FLOPs: {s_prof.macs:,}; params: {s_prof.params:,}")
+
+        # no VGG: evaluation only
+        hp = SPADEDistillHParams(gan_mode=opt.gan_mode,
+                                 distill_loss_type=opt.distill_G_loss_type, lambda_vgg=0.0)
+        dist = SPADEDistiller(teacher_cfg, student_cfg, hp=hp, input_nc=opt.input_nc,
+                              contain_dontcare=opt.contain_dontcare_label, device=device)
+        state, teacher_params = dist.init_state(teacher_sd, student_sd, seed=opt.seed)
+
+        # forward latency on a blank semantic map
+        sem = torch.zeros((1, student_cfg.semantic_nc, h_lat, opt.crop_size), device=device)
+        dist.generate_student(state, sem)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        reps = max(opt.times, 1)
+        t0 = time.time()
+        for _ in range(reps):
+            dist.generate_student(state, sem)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        latency_ms = (time.time() - t0) / reps * 1e3
+        logger.print_info(f"student forward latency: {latency_ms:.3f} ms/image "
+                          f"(batch 1, {reps} reps)")
+
+        # the evaluation sweep, every image dumped (reference profiler.py:154-164)
+        judge = cli.make_fid_judge(opt, device) if not opt.no_fid else None
+        stats = _real_stats(opt.real_stat_path)
+        eval_loader = create_cityscapes_dataloader(
+            opt.dataroot, opt.eval_batch_size, phase="val", shuffle=False, drop_last=False,
+            load_size=opt.load_size, crop_size=opt.crop_size, aspect_ratio=opt.aspect_ratio,
+            no_instance=opt.no_instance, pairing_check=not opt.no_pairing_check,
+            max_size=opt.num_test, num_workers=opt.num_threads)
+        results_dir = opt.results_dir or opt.log_dir
+        gen_s = lambda b: dist.generate_student_raw(state, b)  # noqa: E731
+        ev = FIDEvaluator(gen_s, eval_loader, judge, stats, results_dir, opt.eval_batch_size,
+                          dump_images=10 ** 9,
+                          teacher_generate=lambda b: dist.generate_teacher_raw(teacher_params, b),
+                          device=device, input_key=None)
+        metrics, _ = ev("latest")
+        if not opt.no_mIoU and opt.drn_path and os.path.exists(opt.drn_path) \
+                and os.path.exists(opt.table_path):
+            metrics.update(_miou_judge(opt, gen_s, eval_loader, device, None)("latest")[0])
+        dump_dir = os.path.join(results_dir, "eval", "latest")
+        logger.print_info("evaluation: "
+                          + (", ".join(f"{k}: {v:.4f}" for k, v in metrics.items())
+                             or "(no judges)") + f"; images dumped to {dump_dir}")
+    finally:
+        logger.close()
+    return {
+        "latency_ms": latency_ms,
+        "pruning_seconds_mean": prune_mean,
+        "student_macs": s_prof.macs,
+        "student_params": s_prof.params,
+        "student_config": student_cfg,
         "teacher_cfg": teacher_cfg,
         "metrics": metrics,
     }

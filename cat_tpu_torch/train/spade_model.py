@@ -123,7 +123,12 @@ def feature_matching_loss(pred_fake, pred_real) -> torch.Tensor:
     return total
 
 
-def _split(out, half: int):
+def discriminate(net_d, params, sem, fake, real):
+    """D over fake and real, concatenated once, in train mode;
+    (pred_fake, pred_real)."""
+    both = torch.cat([torch.cat([sem, fake], 1), torch.cat([sem, real], 1)], 0)
+    out = functional_call(net_d, params, (both,), {"train": True})
+    half = sem.shape[0]
     return ([[t[:half] for t in scale] for scale in out],
             [[t[half:] for t in scale] for scale in out])
 
@@ -178,12 +183,6 @@ class SPADETask:
         return preprocess_input(batch["label"], batch.get("instance"), self.label_nc,
                                 self.contain_dontcare)
 
-    def _discriminate(self, params, sem, fake, real):
-        """D over fake and real, concatenated once; (pred_fake, pred_real)."""
-        both = torch.cat([torch.cat([sem, fake], 1), torch.cat([sem, real], 1)], 0)
-        out = functional_call(self.netD, params, (both,), {"train": True})
-        return _split(out, sem.shape[0])
-
     def train_step(self, state: GANTrainState, batch: Dict[str, torch.Tensor],
                    lr: float) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
         """One G-then-D step; updates ``state`` in place and returns it with
@@ -209,7 +208,7 @@ class SPADETask:
         fake = checkpointed(g_forward, self.netG, state.rng) if hp.remat else g_forward()
         d_frozen = {k: v.detach() for k, v in state.d.params.items()}
         with frozen_stats(self.netD):
-            pred_fake, pred_real = self._discriminate(d_frozen, up(sem), up(down(fake)),
+            pred_fake, pred_real = discriminate(self.netD, d_frozen, up(sem), up(down(fake)),
                                                       up(down(real_B)))
         l_gan = gan_loss(pred_fake, True, hp.gan_mode, False) * hp.lambda_gan
         l_feat = feature_matching_loss(pred_fake, pred_real) * hp.lambda_feat
@@ -225,7 +224,8 @@ class SPADETask:
         # --- D update: the fake regenerated by the updated G, no gradient ---
         with torch.no_grad(), frozen_stats(self.netG):
             fake = functional_call(self.netG, down(state.g.params), (sem,), {"train": True})
-        pred_fake, pred_real = self._discriminate(down(state.d.params), sem, fake, down(real_B))
+        pred_fake, pred_real = discriminate(self.netD, down(state.d.params), sem, fake,
+                                            down(real_B))
         l_d_fake = gan_loss(up(pred_fake), False, hp.gan_mode, True)
         l_d_real = gan_loss(up(pred_real), True, hp.gan_mode, True)
         d_grads = torch.autograd.grad(l_d_fake + l_d_real, list(state.d.params.values()))

@@ -9,8 +9,8 @@ paths as the parameters), becomes the port's state_dict in the reference CAT
 key layout, so ``cat_tpu/utils/torch_import.py::import_inception_generator``
 carries the port's generator weights back unchanged (and
 ``cat_tpu/utils/spade_import.py::import_spade_generator`` a SPADE
-generator's).  So do whole train states of the JAX distiller, pix2pix,
-CycleGAN and SPADE tasks.
+generator's).  So do whole train states of the JAX distillers (inception
+and SPADE) and of the pix2pix, CycleGAN and SPADE tasks.
 
 Layouts:
   conv       HWIO (kh, kw, in, out)  -> OIHW  kernel.transpose(3, 2, 0, 1)
@@ -429,3 +429,30 @@ def spade_net_state_dict(tree: Dict, cfg) -> Dict[str, torch.Tensor]:
     if hasattr(cfg, "num_D"):
         return multiscale_discriminator_state_dict(tree["params"], cfg, stats)
     return spade_generator_state_dict(tree["params"], cfg, stats)
+
+
+def spade_distill_state_dict(tree: Dict, student_cfg, disc_cfg) -> Dict:
+    """The port's train-state dict from the JAX SPADE distiller's full state
+    tree (a ``<tag>_state.msgpack`` as ``checkpoint.read_msgpack`` returns
+    it): the student G and the adaptors ``A`` (one Adam state over both),
+    D with its spectral ``u``, the running statistics, both Adam states,
+    the step and the EMA.  The RNG does not carry over."""
+    g, d = tree["g"], tree["d"]
+    extra = tree.get("extra") or {}
+    g_state = _split_stats(_net_state(
+        g, lambda t, s: spade_generator_state_dict(t, student_cfg, s), "G"))
+    for k in ("mu", "nu"):
+        a = adaptor_state_dict(g["opt_state"][k].get("A") or {})
+        g_state["opt"][k].update({f"A.{n}": v for n, v in a.items()})
+    ema = {}
+    if "ema_G" in extra:
+        ema = {"ema_G": {k: v for k, v in spade_generator_state_dict(
+            extra["ema_G"], student_cfg).items() if k in g_state["params"]}}
+    return {
+        "step": int(np.asarray(tree["step"])),
+        "g": g_state,
+        "d": _split_stats(_net_state(
+            d, lambda t, s: multiscale_discriminator_state_dict(t, disc_cfg, s))),
+        "adaptors": adaptor_state_dict(g["params"].get("A") or {}),
+        "extra": ema,
+    }

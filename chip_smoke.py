@@ -98,7 +98,23 @@ Phases, in order; any failure exits non-zero before the result line:
      eval-mode output's spread and movement at each evaluation.  Each run
      prints its median step and iteration, loader wait and peak memory, and
      its evaluations' seconds split into generator sweeps, FID judge, host
-     ``sqrtm``, DRN judge and histograms.
+     ``sqrtm``, DRN judge and histograms;
+ 10. GauGAN distillation: (a) two tiny float32 SPADE distill steps (teacher
+     ngf 16, student ngf 8, 64x32, batch 2, KA on head_0, G_middle_1 and
+     up_1, VGG, spectral multiscale D) on the card and on the CPU, each from
+     the card's state: losses with the three distill parts, parameters
+     within twice Adam's one-step bound, running statistics and ``u``, 6
+     ``f32tma`` Gram launches a step; (b) ``entry.distill_main`` with
+     ``scripts/gaugan/cityscapes/train_inception_student_5p6B.sh``'s flags
+     at full width (batch 16, 512x256, 9c's latest G as teacher and
+     pretrained G, 9c's D, 5.6e9 MACs, xavier, float32) over 9c's data for
+     2 epochs of 3 steps with FID and mIoU at the startup probe and at the
+     end (``--remat 1`` where batch 16 does not fit, said on a line): 6
+     ``f32tma`` Gram launches a step, the searched MACs within the budget,
+     the checkpoints, the reloaded G's eval output exact, and the Gram held
+     against its plain version and timed on the run's own six taps at
+     B = 16; (c) the profile verb with ``evaluate_inception_student_5p6B.sh``'s
+     flags on (b)'s best student, and ``--prune_only`` at 3e10 MACs.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -181,11 +197,13 @@ def _check_gram(got, ref, what: str) -> float:
     return err
 
 
-def gram_numbers(xs, flush, card, expect_path: str, compare_mma: bool = False):
+def gram_numbers(xs, flush, card, expect_path: str, compare_mma: bool = False,
+                 names=("teacher", "student"), per_step: int = 4):
     """Hold the Gram kernel against its plain version on each (B, F)
-    operand of ``xs`` (a teacher and a student tap), which must take kernel
-    ``expect_path``, and time kernel, plain version, one-call PyTorch
-    yardstick and bound; returns the totals of one step (four taps, so four
+    operand of ``xs`` (by default a teacher and a student tap), which must
+    take kernel ``expect_path``, and time kernel, plain version, one-call
+    PyTorch yardstick and bound; returns the totals of one step (each
+    operand's numbers ``per_step`` times: by default four taps, so four
     launches of each).  float32: also check that two calls are bit-identical
     and G == Gᵀ exactly, and hold and time the old FMA kernel beside
     (``fma_ms``).  ``compare_mma`` (bf16): check bit-identity, and hold and
@@ -199,7 +217,7 @@ def gram_numbers(xs, flush, card, expect_path: str, compare_mma: bool = False):
     old_key = "fma_ms" if expect_path == "f32tma" else "mma_sync_ms"
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
            "bytes_ms": 0.0, "ops_ms": 0.0, "bound_full_square_ms": 0.0, old_key: 0.0}
-    for who, x in zip(("teacher", "student"), xs):
+    for who, x in zip(names, xs):
         b, f = x.shape
         dname = str(x.dtype).split(".")[-1]
         f32 = x.dtype == torch.float32
@@ -251,7 +269,7 @@ def gram_numbers(xs, flush, card, expect_path: str, compare_mma: bool = False):
         for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                      ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
                      ("bound_full_square_ms", full), (old_key, old_ms or 0.0)):
-            tot[k] += 4 * v  # four taps per step
+            tot[k] += per_step * v
         tot["err"] = max(tot["err"], err)
     return tot
 
@@ -1711,6 +1729,267 @@ def city_gaugan(dev, card, root, judge, stats):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: GauGAN (SPADE) distillation
+# ---------------------------------------------------------------------------
+
+GAUGAN_STUDENT_EPOCHS = 2  # 3 steps an epoch at batch 16: 6 steps
+SPADE_TAPS = ("head_0", "G_middle_1", "up_1")  # the SPADE distiller's default taps
+# scripts/gaugan/cityscapes/{train,evaluate}_inception_student_5p6B.sh, but
+# for the paths and the schedule (its batch, widths and flags as shipped)
+GAUGAN_COMMON = ["--distiller", "spade", "--dataset_mode", "cityscapes", "--input_nc", "35",
+                 "--contain_dontcare_label", "--preprocess", "scale_width", "--load_size", "512",
+                 "--crop_size", "512", "--aspect_ratio", "2", "--teacher_ngf", "64",
+                 "--student_ngf", "48", "--teacher_norm_G", "spadesyncbatch3x3",
+                 "--student_norm_G", "spadesyncbatch3x3", "--channels_reduction_factor", "6",
+                 "--kernel_sizes", "1", "3", "5", "--prune_cin_lb", "16"]
+GAUGAN_STUDENT = [*GAUGAN_COMMON, "--netD", "multi_scale", "--init_type", "xavier",
+                  "--batch_size", str(GAUGAN_BATCH), "--nepochs", str(GAUGAN_STUDENT_EPOCHS),
+                  "--nepochs_decay", "0", "--save_epoch_freq", "25", "--lambda_distill", "0.5",
+                  "--target_flops", "5.6e9", "--distill_G_loss_type", "ka", "--print_freq", "1"]
+GAUGAN_STUDENT_EVAL = [*GAUGAN_COMMON, "--eval_batch_size", "2", "--target_flops", "5.6e9"]
+
+
+def spade_distill_reference(dev, card):
+    """10a: two tiny float32 SPADE distill steps (teacher ngf 16, student
+    ngf 8, 64x32, batch 2, KA over the three taps, VGG, spectral multiscale
+    D) on the card (the Gram kernel) and on the CPU (its plain version),
+    each from the card's state: the losses and the three distill parts at
+    rtol 1e-4, the parameters each step writes (the student, the adaptors,
+    D) within twice Adam's one-step bound at each group's TTUR rate, the
+    running statistics and D's ``u``."""
+    import numpy as np
+    import torch
+
+    from cat_tpu_torch.core.spade_config import (MultiscaleDiscriminatorConfig,
+                                                 SPADEGeneratorConfig)
+    from cat_tpu_torch.distill import ka
+    from cat_tpu_torch.distill.spade_distiller import SPADEDistiller, SPADEDistillHParams
+    from cat_tpu_torch.models.spade import SPADEGenerator
+    from cat_tpu_torch.models.vgg import VGG19Features, random_vgg19_state_dict
+    from cat_tpu_torch.train.common import load_train_state_dict, train_state_dict
+
+    cpu = torch.device("cpu")
+    kw = dict(semantic_nc=37, channels_reduction_factor=6, kernel_sizes=(1, 3, 5),
+              num_upsampling_layers="normal", crop_size=64, aspect_ratio=2.0)
+    tcfg = SPADEGeneratorConfig.make(ngf=16, **kw)
+    scfg = SPADEGeneratorConfig.make(ngf=8, **kw)
+    dcfg = MultiscaleDiscriminatorConfig(input_nc=40, ndf=16, n_layers=4, num_D=2)
+    teacher = SPADEGenerator(tcfg, "xavier", generator=torch.Generator().manual_seed(10))
+    vgg_sd = random_vgg19_state_dict(seed=19)
+
+    def make(d):
+        vgg = VGG19Features()
+        vgg.load_state_dict(vgg_sd)
+        dist = SPADEDistiller(tcfg, scfg, dcfg, SPADEDistillHParams(), vgg=vgg, input_nc=35,
+                              contain_dontcare=True, device=d)
+        return (dist, *dist.init_state(teacher.state_dict(), seed=10))
+
+    rs = np.random.RandomState(10)
+    gen = torch.Generator().manual_seed(10)
+    batches = []
+    for _ in range(2):
+        label = rs.randint(0, 34, (2, 32, 64)).astype(np.float32)
+        label[:, :4] = 255
+        inst = np.repeat(np.repeat(rs.randint(0, 9, (2, 4, 8)), 8, 1), 8, 2).astype(np.int32)
+        batches.append({"label": torch.from_numpy(label), "instance": torch.from_numpy(inst),
+                        "image": torch.rand(2, 3, 32, 64, generator=gen) * 2 - 1})
+    sides = [make(d) for d in (dev, cpu)]
+    card_l, cpu_l = [], []
+    ka.launches = 0
+    ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
+    for b in batches:
+        sd = train_state_dict(sides[0][1])
+        del sd["rng"]
+        load_train_state_dict(sides[1][1], sd)
+        for (dist, state, tparams), ls in zip(sides, (card_l, cpu_l)):
+            _, m = dist.train_step(state, tparams, {k: v.to(dist.device) for k, v in b.items()},
+                                   LR)
+            ls.append({k: float(v) for k, v in m.items()})
+        a, c = card_l[-1], cpu_l[-1]
+        if a.keys() != c.keys() or not {f"Specific_loss/distill{i}" for i in range(3)} <= set(c):
+            fail(f"10a SPADE distill step {len(card_l)}: losses {sorted(a)} vs {sorted(c)}")
+        for k in c:
+            if not math.isclose(a[k], c[k], rel_tol=1e-4, abs_tol=1e-5):
+                fail(f"10a SPADE distill step {len(card_l)}, {k}: card {a[k]!r} vs CPU {c[k]!r}")
+        param_err, param_bound = {}, {}
+        for net, mult in zip(("g", "d"), sides[0][0].lr_mults):
+            card_p, cpu_p = ({**getattr(st, net).params,
+                              **({f"A.{k}": v for k, v in st.adaptors.items()} if net == "g"
+                                 else {})} for _, st, _ in sides)
+            param_err[net] = max(float((v.detach().cpu() - cpu_p[k].detach()).abs().max())
+                                 for k, v in card_p.items())
+            opt = getattr(sides[0][1], net).opt  # TTUR's beta1 0: see city_reference
+            param_bound[net] = 2 * LR * mult * math.sqrt(
+                (1 - opt.beta2 ** opt.count) / (1 - opt.beta2))
+            if not param_err[net] <= param_bound[net]:
+                fail(f"10a SPADE distill step {len(card_l)}: {net.upper()}'s parameters differ "
+                     f"from the CPU's by {param_err[net]:g}, past Adam's one-step bound "
+                     f"{param_bound[net]:g}")
+        card_s, cpu_s = ({f"{net}.{k}": v.cpu() for net, ns in (("G", st.g), ("D", st.d))
+                          for k, v in ns.stats.items() if not k.endswith("weight_v")}
+                         for _, st, _ in sides)
+        err = max(float((card_s[k] - v).abs().max()) for k, v in cpu_s.items())
+        if not all(torch.allclose(card_s[k], v, rtol=1e-4, atol=1e-5) for k, v in cpu_s.items()):
+            fail(f"10a SPADE distill step {len(card_l)}: statistics and u differ from the CPU's "
+                 f"by {err:g}")
+    if ka.path_launches["f32tma"] != 12 or ka.launches != 12:
+        fail(f"10a: {ka.launches} Gram launches on the card in 2 steps, "
+             f"{ka.path_launches['f32tma']} of them 'f32tma'; expected 6 a step")
+    n_u = sum(k.endswith("weight_u") for k in cpu_s)
+    log(f"spade 10a: 2 f32 SPADE distill steps (teacher ngf 16, student ngf 8, 64x32, batch 2, "
+        f"KA on {', '.join(SPADE_TAPS)}, VGG, spectral D) on the card match the CPU's, each "
+        f"from the card's state: losses rtol 1e-4, parameters max |diff| G and adaptors "
+        f"{param_err['g']:.3g} (bound {param_bound['g']:.3g}), D {param_err['d']:.3g} (bound "
+        f"{param_bound['d']:.3g}), {len(cpu_s) - n_u} running statistics and {n_u} spectral u, "
+        f"max |diff| {err:.3g}; 12 f32tma Gram launches on the card: {card_l[-1]} [{card}]")
+    return {"spade_param_max_abs": param_err, "spade_stats_max_abs": err,
+            "losses": card_l[-1]}
+
+
+def gaugan_student(dev, card, root, judge, stats):
+    """10b: ``train_inception_student_5p6B.sh``'s flags through
+    ``entry.distill_main`` at full width (batch 16, 512x256, the ngf-64
+    teacher of 9c as teacher and pretrained G, 9c's D, 5.6e9 MACs, KA on
+    three taps, VGG, xavier, float32) for 2 epochs of 3 steps with FID and
+    mIoU at the trainer's startup probe and at the end (with --remat 1 where
+    batch 16 does not fit, said on a line): 6 f32tma Gram launches a step,
+    the searched MACs within the budget, the checkpoints, the reloaded G's
+    eval output; then the Gram on the run's own six taps.  10c: the
+    evaluate recipe's profile of its best student, and --prune_only at
+    3e10 MACs (the 30B recipe)."""
+    import gc
+
+    import torch
+
+    from cat_tpu_torch import entry
+    from cat_tpu_torch.compress.spade import profile_spade_generator
+    from cat_tpu_torch.distill import ka
+    from cat_tpu_torch.models.spade import SPADEGenerator
+    from cat_tpu_torch.utils import checkpoint as ckpt
+
+    data = os.path.join(root, "gaugan-origin")
+    teacher = os.path.join(root, "log_9c", "checkpoints")
+    paths = ["--dataroot", data, "--real_stat_path", stats,
+             "--drn_path", os.path.join(root, "drn-d-105_ms_cityscapes.pth"),
+             "--cityscapes_path", data, "--table_path", os.path.join(root, "table_gaugan.txt"),
+             "--inception_path", judge, "--restore_teacher_G_path",
+             os.path.join(teacher, "latest_net_G.pth")]
+    log_dir = os.path.join(root, "log_10b")
+    argv = [*paths, "--log_dir", log_dir, "--vgg_path", os.path.join(root, "vgg19.pth"),
+            "--restore_pretrained_G_path", os.path.join(teacher, "latest_net_G.pth"),
+            "--restore_D_path", os.path.join(teacher, "latest_net_D.pth"), *GAUGAN_STUDENT]
+    n_steps = GAUGAN_STUDENT_EPOCHS * (GAUGAN_TRAIN // GAUGAN_BATCH)
+
+    def attempt(extra):
+        ka.launches = 0
+        ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
+        return _instrumented_run("setup_distill", entry.distill_main, [*argv, *extra], n_steps,
+                                 GAUGAN_BATCH, "10b GauGAN student", card)
+
+    oom = None
+    try:
+        out, run = attempt([])
+    except RuntimeError as e:
+        if not (isinstance(e, torch.cuda.OutOfMemoryError) or "out of memory" in str(e)):
+            raise
+        oom = str(e).splitlines()[0]
+    if oom is not None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"spade 10b: batch {GAUGAN_BATCH} without --remat does not fit the card ({oom}); "
+            "running the recipe with --remat 1")
+        shutil.rmtree(log_dir, ignore_errors=True)
+        out, run = attempt(["--remat", "1"])
+    out["remat"] = oom is not None
+    launches, on_path = ka.launches, ka.path_launches["f32tma"]
+    if launches != 6 * out["steps"] or on_path != launches:
+        fail(f"spade 10b: {launches} Gram launches in {out['steps']} steps, {on_path} of them "
+             "'f32tma'; expected 6 a step, all 'f32tma'")
+    out["gram_launches"], out["gram_path"] = launches, "f32tma"
+    dist = run.distiller
+    macs = profile_spade_generator(run.student_cfg, 256, 512).macs
+    t_macs = profile_spade_generator(dist.teacher_cfg, 256, 512).macs
+    if not macs <= 5.6e9:
+        fail(f"spade 10b: the student has {macs:,} MACs, past the 5.6e9 budget")
+    out["student_macs"], out["teacher_macs"] = macs, t_macs
+    out["miou"], out["fid"] = _check_miou(log_dir, "10b GauGAN student", 2)
+    save_dir = os.path.join(log_dir, "checkpoints")
+    missing = [f for f in ("latest_net_G.pth", "latest_net_G.json", "latest_state.pth",
+                           "best_net_G.pth") if not os.path.exists(os.path.join(save_dir, f))]
+    if missing:
+        fail(f"spade 10b: missing {missing}")
+    batch = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+             for k, v in next(iter(run.loader)).items()}
+    sd, cfg = ckpt.load_net(save_dir, "latest", "G")
+    gen = SPADEGenerator(cfg).to(dev)
+    gen.load_state_dict(sd)
+    sem = dist.semantics(batch)
+    if not _same_output(gen, lambda s: dist.generate_student(run.state, s), sem[:4]):
+        fail("spade 10b: the reloaded G's eval output differs from the in-memory G's")
+    log(f"spade 10b: {launches} Gram launches in {out['steps']} steps ({launches // out['steps']} "
+        f"a step, f32tma); student {macs:,} MACs (teacher {t_macs:,}); G and the state written, "
+        f"the reloaded G gives the in-memory G's eval output exactly; mIoU {out['miou']}, FID "
+        f"{out['fid']}, remat {out['remat']} [{card}]")
+    del gen, sd
+
+    # the Gram on the run's own taps: teacher and student, three taps each
+    l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    with torch.no_grad():
+        taps = [acts[name].reshape(sem.shape[0], -1).contiguous()
+                for net in (dist.netG_teacher, dist.netG_student)
+                for acts in [net(sem, taps=SPADE_TAPS)[1]] for name in SPADE_TAPS]
+    names = [f"{who} {name}" for who in ("teacher", "student") for name in SPADE_TAPS]
+    kern = gram_numbers(taps, l2.zero_, card, "f32tma", names=names, per_step=1)
+    kern["b"], kern["f"] = sem.shape[0], [x.shape[1] for x in taps]
+    del taps, l2, run, dist, batch, sem
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10c: the evaluate recipe's profile of the best student, and the 30B
+    # recipe's shrink alone
+    timers = _EvalTimers()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        prof = entry.profile_main([*paths, "--log_dir", os.path.join(root, "eval_10c"),
+                                   "--pretrained_student_G_path",
+                                   os.path.join(save_dir, "best_net_G.pth"),
+                                   *GAUGAN_STUDENT_EVAL])
+        prof_s = time.perf_counter() - t0
+    finally:
+        secs = timers.restore()
+    m = prof["metrics"]
+    if not (0.0 <= m.get("metric/mIoU", -1.0) <= 100.0 and math.isfinite(m["metric/fid"])
+            and prof["student_macs"] == macs):
+        fail(f"spade 10c profile: metrics {m}, student MACs {prof['student_macs']:,} "
+             f"(trained {macs:,})")
+    log(f"spade 10c profile: student {prof['student_macs']:,} MACs, "
+        f"{prof['student_params']:,} parameters, shrink {prof['pruning_seconds_mean'] * 1e3:.2f} "
+        f"ms (mean of 10), latency {prof['latency_ms']:.3f} ms/image at batch 1, FID "
+        f"{m['metric/fid']:.4f}, mIoU {m['metric/mIoU']}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {prof_s:.1f} s in all; evaluation "
+        f"{_EvalTimers.line(secs)} [{card}]")
+    p30 = os.path.join(root, "log_10c_30B")
+    t0 = time.perf_counter()
+    run30 = entry.distill_main([*argv, "--log_dir", p30, "--target_flops", "3e10",
+                                "--prune_only"])
+    macs30 = profile_spade_generator(run30.student_cfg, 256, 512).macs
+    if run30.trainer is not None or not macs30 <= 3e10 or not os.path.exists(
+            os.path.join(p30, "student_config.json")):
+        fail(f"spade 10c --prune_only at 3e10: student {macs30:,} MACs, trainer "
+             f"{run30.trainer is not None}")
+    log(f"spade 10c: --prune_only at 3e10 wrote the student config, {macs30:,} MACs, in "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    out["profile"] = {"metrics": m, "seconds": prof_s, "eval": secs,
+                      "latency_ms": prof["latency_ms"],
+                      "pruning_ms_mean": prof["pruning_seconds_mean"] * 1e3,
+                      "student_params": prof["student_params"]}
+    out["macs_30B"] = macs30
+    return out, kern
+
+
 _KERNEL_GROUPS = (  # (group, substrings of the lower-cased kernel name), first match wins
     ("gram (csrc/gram.cu)", ("gram_partial", "gram_reduce")),
     ("instance_norm_act (csrc/instance_norm.cu)", ("inorm_act",)),
@@ -1903,6 +2182,14 @@ def main() -> None:
         city_c = city_gaugan(dev, card, root, judge, stats)
         log("city: " + json.dumps({"9a": city_a, "9b": city_b, "9c": city_c,
                                    "seconds": time.perf_counter() - t0}))
+
+        # --- 10. GauGAN distillation: tiny steps against the CPU, the 5.6e9
+        # student recipe from 9c's teacher and D, its profile
+        t0 = time.perf_counter()
+        spade_a = spade_distill_reference(dev, card)
+        spade_b, spade_kern = gaugan_student(dev, card, root, judge, stats)
+        log("spade: " + json.dumps({"10a": spade_a, "10b": spade_b, "gram": spade_kern,
+                                    "seconds": time.perf_counter() - t0}))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1945,6 +2232,15 @@ def main() -> None:
                        f"taps (f32tma kernel; phase 9b's {city_b['student']['steps']} steps)"),
                  "fma_ms": city_kern["fma_ms"],
                  "bound_full_square_ms": city_kern["bound_full_square_ms"]})
+    # the float32 kernel on the GauGAN student recipe's own six taps (phase 10b)
+    rows.append({**row("gram (GauGAN student, float32, B = 16)", *gram_src,
+                       spade_b["gram_launches"], spade_kern,
+                       f"one training step's launches at batch 16, float32, on the run's own "
+                       f"taps {', '.join(SPADE_TAPS)} of teacher and student, F = "
+                       f"{spade_kern['f']} (f32tma kernel; phase 10b's {spade_b['steps']} "
+                       f"steps)"),
+                 "fma_ms": spade_kern["fma_ms"],
+                 "bound_full_square_ms": spade_kern["bound_full_square_ms"]})
     # the pair kernels: one call at B = 256 on the teacher tap's F; launches
     # from phase 4b's (bf16) and 4c's (float32) steps at batch 256
     for dname, n, phase in (("bfloat16", counts_p["gram_tma_pairs"], "4b"),

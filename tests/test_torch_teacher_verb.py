@@ -236,8 +236,9 @@ def test_train_verb_needs_cuda_unless_cpu_is_asked_for(data, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    # a pix2pix teacher cannot read the SPADE family's data
-    (["--dataset_mode", "cityscapes"], "item 15b"),
+    # a pix2pix teacher cannot read the SPADE family's data: the JAX package's
+    # generic loader has no cityscapes mode
+    (["--dataset_mode", "cityscapes"], r"dataset mode \[cityscapes\] not implemented"),
     (["--n_devices", "2"], "item 16"),
     (["--multihost", "1"], "item 16"),
     (["--netD", "pixel"], "build only the n_layers discriminator"),
@@ -265,7 +266,7 @@ TRAIN_INERT = {
     # the distill step's teacher dtype and student EMA
     "teacher_compute_dtype", "moving_average_decay", "moving_average_decay_adjust",
     "moving_average_decay_base_batch",
-    # the SPADE distiller's (item 15b)
+    # the SPADE distiller's
     "remat_policy", "teacher_norm_G", "student_norm_G",
     # multi-host (item 16): refused through --multihost / --num_processes
     "coordinator_address", "process_id",
@@ -273,7 +274,8 @@ TRAIN_INERT = {
 # the distill, profile and other verbs' code, which the train verb never runs
 OTHER_VERBS = {"setup_distill", "setup_distill_inception", "distill_main", "shrink_preamble",
                "profile_distill", "profile_main", "_profile_eval_sweep", "_generator_fn",
-               "real_stat_main", "kid_score_main", "_ema_decay"}
+               "real_stat_main", "kid_score_main", "_ema_decay", "setup_distill_spade",
+               "load_spade_checkpoint", "profile_distill_spade", "_spade_bounds"}
 
 
 def test_every_train_flag_consumed_raised_or_documented_inert():

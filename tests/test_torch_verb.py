@@ -28,6 +28,9 @@ from cat_tpu_torch.models.generator import InceptionGenerator
 from cat_tpu_torch.utils import checkpoint as ckpt
 from cat_tpu_torch.utils import jax_import
 from tests.conftest import fast_init
+from tests.test_torch_spade import spade_world  # noqa: F401
+from tests.test_torch_spade_distill_verb import (check_spade_distill_run, spade_distill_run,
+                                                 spade_teacher)  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -133,19 +136,14 @@ def test_flag_surface_equals_the_jax_distill_parser():
     assert _surface(cli.distill_parser()) == _surface(_jax_parser())
 
 
-# flags the inception distill verb accepts and does not read, in the JAX
-# package as here
+# flags the distill verb (both distillers) accepts and does not read, in the
+# JAX package as here
 PORT_INERT = {
     "netG", "teacher_netG", "student_netG", "pretrained_netG", "pretrained_ngf", "teacher_ngf",
     "prune_continue", "prune_logging_verbose",
     # teacher training, read by the train verb only
     "model", "ngf", "pool_size", "lambda_A", "lambda_B", "lambda_identity", "restore_G_path",
-    "real_stat_A_path", "real_stat_B_path",
-    # the SPADE family, read by the train verb's --model spade and by --distiller spade
-    # (item 15b)
-    "remat_policy", "vgg_compute_dtype", "norm_G", "teacher_norm_G", "student_norm_G",
-    "num_upsampling_layers", "lambda_feat", "lambda_vgg", "no_TTUR", "beta2", "num_D",
-    "norm_D", "no_instance", "contain_dontcare_label", "no_pairing_check", "vgg_path",
+    "real_stat_A_path", "real_stat_B_path", "norm_G",
     # multi-host (item 16): refused through --multihost / --num_processes
     "coordinator_address", "process_id",
 }
@@ -153,8 +151,7 @@ PORT_INERT = {
 
 # the train verb's code, which the distill verb never runs
 TRAIN_VERB = {"setup_train", "train_main", "check_train_ported", "apply_train_defaults",
-              "setup_train_spade", "_spade_evaluators", "spade_generator_config", "semantic_nc",
-              "make_vgg"}
+              "setup_train_spade"}
 
 
 def opt_names(skip_functions=frozenset()):
@@ -187,22 +184,25 @@ def test_every_flag_consumed_raised_or_documented_inert():
     assert not sorted(PORT_INERT & opt_names(TRAIN_VERB))
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--distiller", "spade"], "15"),
-    (["--n_devices", "2"], "16"),
-    (["--n_spatial", "2"], "16"),
-    (["--multihost", "1"], "16"),
-    (["--num_processes", "2"], "16"),
-    (["--teacher_compute_dtype", "int8"], "18"),
-    (["--teacher_compute_dtype", "int8_static"], "18"),
+@pytest.mark.parametrize("flags,match", [
+    # the SPADE distiller's selective remat (item 15c), refused before it
+    # reads a checkpoint
+    (["--distiller", "spade", "--remat_policy", "dots_saveable"], "item 15c"),
+    (["--n_devices", "2"], "item 16"),
+    (["--n_spatial", "2"], "item 16"),
+    (["--multihost", "1"], "item 16"),
+    (["--num_processes", "2"], "item 16"),
+    (["--teacher_compute_dtype", "int8"], "item 18"),
+    (["--teacher_compute_dtype", "int8_static"], "item 18"),
     # the JAX package's tasks cannot build it either (a PixelDiscriminatorConfig
     # has no n_layers): no item brings it
-    (["--netD", "pixel"], None),
-    (["--dataset_mode", "cityscapes"], "15"),
+    (["--netD", "pixel"], "tasks build only the n_layers discriminator"),
+    # the JAX package's generic loader has no cityscapes mode either
+    (["--dataset_mode", "cityscapes"], r"dataset mode \[cityscapes\] not implemented"),
 ])
-def test_unported_flags_raise_naming_their_roadmap_item(world, tmp_path, flags, item):
-    match = (f"ROADMAP.md queue 1, item {item}" if item else
-             "tasks build only the n_layers discriminator")
+def test_unported_flags_raise_naming_their_roadmap_item(world, tmp_path, flags, match):
+    if match.startswith("item"):
+        match = f"ROADMAP.md queue 1, {match}"
     with pytest.raises(NotImplementedError, match=match):
         entry.distill_main(_args(world, tmp_path, *flags), device="cpu")
 
@@ -237,12 +237,28 @@ def test_evaluation_raises_when_its_files_exist(world, tmp_path):
     ("distill", ["--dataset_mode", "cityscapes"]),
     ("profile", ["--distiller", "spade"]),
 ])
-def test_spade_distillation_names_item_15b(world, tmp_path, verb, flags):
-    """SPADE distillation, and the inception distiller on the SPADE family's
-    data, raise naming the SPADE distiller's item."""
-    main = entry.distill_main if verb == "distill" else entry.profile_main
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 15b"):
-        main(_args(world, tmp_path, *flags), device="cpu")
+def test_spade_distillation_names_item_15b(world, spade_teacher, tmp_path, verb, flags):
+    """SPADE distillation (item 15b) is ported: ``distill --distiller spade``
+    runs the student recipe at toy scale on the CPU (the shrink, the
+    transfer, 6 Gram calls a KA step, mIoU at the trainer's cadence, the
+    checkpoints), and ``profile --distiller spade`` profiles its student; the
+    inception distiller on the SPADE family's data fails as the JAX
+    package's generic loader does."""
+    if "--dataset_mode" in flags:
+        with pytest.raises(NotImplementedError,
+                           match=r"dataset mode \[cityscapes\] not implemented"):
+            entry.distill_main(_args(world, tmp_path, *flags), device="cpu")
+        return
+    run, calls = spade_distill_run(spade_teacher, tmp_path / "distill", "--nepochs", "1")
+    save_dir = check_spade_distill_run(spade_teacher, str(tmp_path / "distill"), run, calls)
+    if verb == "profile":
+        out = entry.profile_main([*spade_teacher["flags"], "--log_dir", str(tmp_path / "prof"),
+                                  "--pretrained_student_G_path",
+                                  os.path.join(save_dir, "latest_net_G.pth"), "--times", "1"],
+                                 device="cpu")
+        assert out["student_config"] == run.student_cfg and out["latency_ms"] > 0
+        assert 0.0 <= out["metrics"]["metric/mIoU"] <= 100.0
+        assert len(os.listdir(tmp_path / "prof" / "eval" / "latest" / "Tfake")) == 2
 
 
 def test_distill_evaluates_fid_and_tags_best(world, tmp_path):

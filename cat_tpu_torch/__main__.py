@@ -1,12 +1,13 @@
 """``python -m cat_tpu_torch <verb> <flags>``: the port's verbs, with the
 flags of the JAX package's ``train.py``, ``distill.py``, ``profile.py``,
-``get_real_stat.py`` and ``tools/kid_score.py``.  They run on CUDA."""
+``export.py``, ``get_real_stat.py`` and ``tools/kid_score.py``.  They run on
+CUDA."""
 
 from __future__ import annotations
 
 import sys
 
-_VERBS = ("train", "distill", "profile", "get_real_stat", "kid_score")
+_VERBS = ("train", "distill", "profile", "export", "get_real_stat", "kid_score")
 
 
 def main(argv=None) -> None:
@@ -16,7 +17,8 @@ def main(argv=None) -> None:
     from cat_tpu_torch import entry
 
     verb = {"train": entry.train_main, "distill": entry.distill_main, "profile": entry.profile_main,
-            "get_real_stat": entry.real_stat_main, "kid_score": entry.kid_score_main}
+            "export": entry.export_main, "get_real_stat": entry.real_stat_main,
+            "kid_score": entry.kid_score_main}
     verb[argv[0]](argv[1:])
 
 

@@ -1,6 +1,6 @@
 """Command-line interface of the port's verbs (port of ``cat_tpu/cli.py``):
-every flag of the JAX package's train, distill, profile, get_real_stat and
-KID parsers, with the same name, type, choices and default, so the
+every flag of the JAX package's train, distill, profile, export, get_real_stat
+and KID parsers, with the same name, type, choices and default, so the
 reference recipes run as they are; and the configs and the judge built from
 them.
 
@@ -52,12 +52,13 @@ def base_arguments(parser: argparse.ArgumentParser):
                         "(torch.utils.checkpoint): more generator FLOPs for less activation "
                         "memory")
     p.add_argument("--remat_policy", type=str, default="",
-                   help="selective remat of the SPADE distiller (a jax.checkpoint_policies "
-                        "name; not ported yet: ROADMAP.md queue 1, item 15c); the inception "
-                        "distiller does not read it")
+                   help="selective remat of the SPADE distiller under --remat 1 (a "
+                        "jax.checkpoint_policies name without arguments, e.g. dots_saveable; "
+                        "torch's selective checkpointing); ignored without --remat, and the "
+                        "inception distiller does not read it")
     p.add_argument("--packed_blocks", type=int, default=None, choices=[0, 1],
                    help="evaluate multi-branch blocks with branch-packed convs (identical "
-                        "math and parameter tree); default ON for inception")
+                        "math and parameter tree); default ON for both families")
     p.add_argument("--init_type", type=str, default="normal",
                    choices=["normal", "xavier", "kaiming", "orthogonal"])
     p.add_argument("--init_gain", type=float, default=0.02)
@@ -313,6 +314,18 @@ def profile_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def export_parser() -> argparse.ArgumentParser:
+    """The export verb's flags: distill's, --export_path and --export_format,
+    as the JAX package's ``export.py``."""
+    parser = distill_parser()
+    parser.add_argument("--export_path", type=str, default=None,
+                        help="output path (default <log_dir>/student.pt2)")
+    parser.add_argument("--export_format", type=str, default="stablehlo",
+                        choices=["stablehlo", "tflite"],
+                        help="stablehlo writes a torch.export program (.pt2); tflite raises")
+    return parser
+
+
 def real_stat_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(formatter_class=argparse.ArgumentDefaultsHelpFormatter)
     base_arguments(parser)
@@ -361,9 +374,8 @@ def check_ported(opt) -> None:
     """Raise for a flag whose code path is not ported yet, set away from
     its default, naming the ROADMAP.md item (queue 1) that brings it.  The
     other unported paths raise where they would run: the int8 teacher in
-    the distillers, --remat_policy in the SPADE distiller's setup; the pixel
-    D, which the JAX package's tasks cannot build either, raises in the
-    tasks."""
+    the distillers; the pixel D, which the JAX package's tasks cannot build
+    either, raises in the tasks."""
     _raise_unported(_multi_gpu(opt))
 
 

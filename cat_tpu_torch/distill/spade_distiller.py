@@ -24,7 +24,9 @@ package's ``_step`` does:
   * with ``ema_decay`` > 0 an exponential moving average of the student's
     weights follows every G step and is what evaluation and deployment use;
   * with ``remat`` the student's forward is recomputed in the backward
-    (``torch.utils.checkpoint``).
+    (``torch.utils.checkpoint``), selectively under ``remat_policy`` (a
+    ``jax.checkpoint_policies`` name); without ``remat`` the policy is
+    ignored, as in the JAX package.
 
 Mixed precision follows the JAX placement, as ``train/spade_model.py``
 does: float32 masters, parameters and inputs cast to ``compute_dtype``
@@ -57,6 +59,48 @@ from cat_tpu_torch.train.spade_model import discriminate, feature_matching_loss,
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DEFAULT_SPADE_MAPPING_LAYERS = ("head_0", "G_middle_1", "up_1")
 
+# the jax.checkpoint_policies names a bare name can select -> the aten ops
+# whose outputs the recompute reads instead of recomputing (None: save
+# nothing; "all": no recompute at all)
+_DOTS = ("mm", "addmm", "bmm", "baddbmm")
+REMAT_POLICIES = {
+    "everything_saveable": "all",
+    "nothing_saveable": None,
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": ("mm", "addmm"),
+    "checkpoint_dots_with_no_batch_dims": ("mm", "addmm"),
+}
+
+
+def remat_policy(name: str):
+    """The selective-checkpoint policy of a ``jax.checkpoint_policies``
+    name: "all" (everything saved: the forward runs as without remat), None
+    (nothing saved: plain ``torch.utils.checkpoint``, as ``--remat 1``
+    without a policy) or a policy function saving the outputs of the dots.
+    JAX's dots are ``dot_general``, not ``conv_general_dilated``, so the
+    dots policies save no convolution: for a generator of convolutions they
+    are nearly ``nothing_saveable``.  The policies that take arguments
+    (``save_only_these_names``, ``offload_dot_with_no_batch_dims``, ...)
+    cannot be named alone; they and unknown names raise ``ValueError``."""
+    if name == "":
+        return None
+    if name not in REMAT_POLICIES:
+        raise ValueError(f"--remat_policy {name!r}: the supported names are "
+                         f"{', '.join(sorted(REMAT_POLICIES))}")
+    ops = REMAT_POLICIES[name]
+    if ops is None or ops == "all":
+        return ops
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    saved = {getattr(torch.ops.aten, op) for op in ops}
+
+    def policy(ctx, func, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if func.overloadpacket in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+    return policy
+
 
 @dataclass(frozen=True)
 class SPADEDistillHParams:
@@ -75,6 +119,8 @@ class SPADEDistillHParams:
     compute_dtype: str = "float32"  # float32 | bfloat16 (float32 masters)
     vgg_compute_dtype: str = "float32"  # dtype of the VGG19 sweep
     remat: bool = False  # recompute the student forward in the backward
+    remat_policy: str = ""  # a jax.checkpoint_policies name (REMAT_POLICIES), read under remat
+    packed_blocks: bool = True  # both generators' branches packed (models/spade.py)
     ema_decay: float = 0.0  # student-weight EMA (--moving_average_decay); 0 = off
     teacher_compute_dtype: str = ""  # '' follows compute_dtype (int8 not ported yet)
 
@@ -106,6 +152,7 @@ class SPADEDistiller:
         ``input_nc``/``contain_dontcare``: how raw label batches become
         semantics (by default the label ids fill all but the edge channel)."""
         _check_ported(hp)
+        self.policy = remat_policy(hp.remat_policy) if hp.remat else None
         self.device = resolve_device(device)
         self.teacher_cfg, self.student_cfg = teacher_cfg, student_cfg
         self.disc_cfg = disc_cfg or MultiscaleDiscriminatorConfig(
@@ -140,11 +187,13 @@ class SPADEDistiller:
         Returns (state, teacher parameters)."""
         hp = self.hp
         gen = torch.Generator().manual_seed(seed)
-        teacher = SPADEGenerator(self.teacher_cfg, hp.init_type, hp.init_gain, generator=gen)
+        teacher = SPADEGenerator(self.teacher_cfg, hp.init_type, hp.init_gain, generator=gen,
+                                 packed_blocks=hp.packed_blocks)
         teacher.load_state_dict(teacher_state_dict)
         self.netG_teacher = teacher.requires_grad_(False).to(self.device).eval()
 
-        student = SPADEGenerator(self.student_cfg, hp.init_type, hp.init_gain, generator=gen)
+        student = SPADEGenerator(self.student_cfg, hp.init_type, hp.init_gain, generator=gen,
+                                 packed_blocks=hp.packed_blocks)
         if student_state_dict is not None:
             sd = student.state_dict()
             params = {k for k, _ in student.named_parameters()}
@@ -240,8 +289,8 @@ class SPADEDistiller:
                                          {"train": True, "taps": taps})
             return up(fake), up(acts)
 
-        if hp.remat:
-            fake, s_acts = checkpointed(s_forward, self.netG_student, state.rng)
+        if hp.remat and self.policy != "all":
+            fake, s_acts = checkpointed(s_forward, self.netG_student, state.rng, self.policy)
         else:
             fake, s_acts = s_forward()
         d_frozen = {k: v.detach() for k, v in state.d.params.items()}

@@ -1,5 +1,5 @@
 """The verbs end to end (port of ``cat_tpu/entry.py``: train, distill,
-profile and get_real_stat; and of ``tools/kid_score.py``).
+profile, export and get_real_stat; and of ``tools/kid_score.py``).
 
 ``train_main`` trains a pix2pix, CycleGAN or GauGAN (SPADE) teacher from
 the JAX package's train flags (``train/pix2pix.py``, ``train/cyclegan.py``,
@@ -26,6 +26,7 @@ SPADE transfer, the teacher's D, the Cityscapes loader, FID and mIoU.
 ``profile_main`` times the shrink, counts the student's MACs and parameters,
 times its forward at batch 1 and sweeps the val set with every image
 dumped (``profile_distill_spade`` under ``--distiller spade``);
+``export_main`` writes the student as a ``torch.export`` program;
 ``real_stat_main`` writes the judge's statistics of a folder;
 ``kid_score_main`` scores two folders.  Every verb runs on CUDA unless the
 caller passes ``device="cpu"``.
@@ -53,8 +54,8 @@ from cat_tpu_torch.utils.logger import Logger
 
 
 def _packed(opt, family_default: bool) -> bool:
-    """--packed_blocks tri-state: None keeps the family default (ON for the
-    inception family)."""
+    """--packed_blocks tri-state: None keeps the family default (ON for both
+    families)."""
     v = getattr(opt, "packed_blocks", None)
     return family_default if v is None else bool(v)
 
@@ -411,11 +412,11 @@ def setup_distill_spade(opt, device=None, loader=None) -> DistillRun:
     from cat_tpu_torch.compress.transfer import transfer_spade_generator_params
     from cat_tpu_torch.core.spade_config import MultiscaleDiscriminatorConfig
     from cat_tpu_torch.data.cityscapes import create_cityscapes_dataloader
-    from cat_tpu_torch.distill.spade_distiller import SPADEDistillHParams, SPADEDistiller
+    from cat_tpu_torch.distill.spade_distiller import (SPADEDistillHParams, SPADEDistiller,
+                                                       remat_policy)
 
-    if opt.remat_policy:
-        raise NotImplementedError("--remat_policy (selective remat of the SPADE distiller) is "
-                                  "not ported yet: ROADMAP.md queue 1, item 15c")
+    if opt.remat:
+        remat_policy(opt.remat_policy)  # an unsupported name fails before any checkpoint is read
     device = resolve_device(device)
     cli.set_seed(opt.seed)
     logger = Logger(opt.log_dir, opt.tensorboard_dir)
@@ -435,8 +436,6 @@ def setup_distill_spade(opt, device=None, loader=None) -> DistillRun:
         student_cfg = res.config  # initialised afresh (the reference's semantics)
     else:
         student_cfg = cli.spade_generator_config(opt, opt.student_ngf, opt.student_norm_G)
-    logger.print_info("SPADE blocks: the port evaluates every branch on its own (the JAX "
-                      "package's packed layout, --packed_blocks, computes the same function).")
 
     hp = SPADEDistillHParams(
         gan_mode=opt.gan_mode, distill_loss_type=opt.distill_G_loss_type,
@@ -445,6 +444,7 @@ def setup_distill_spade(opt, device=None, loader=None) -> DistillRun:
         beta1=opt.beta1 if opt.no_TTUR else 0.0, beta2=opt.beta2 if opt.no_TTUR else 0.9,
         compute_dtype=opt.compute_dtype, vgg_compute_dtype=opt.vgg_compute_dtype,
         init_type=opt.init_type, init_gain=opt.init_gain, remat=bool(opt.remat),
+        remat_policy=opt.remat_policy or "", packed_blocks=_packed(opt, True),
         ema_decay=_ema_decay(opt), teacher_compute_dtype=opt.teacher_compute_dtype or "")
     # D follows the flags as on the teacher-training path, so that the
     # teacher's D (--restore_D_path) loads
@@ -713,9 +713,8 @@ def setup_train_spade(opt, device=None, loader=None) -> TrainRun:
         lambda_vgg=opt.lambda_vgg, no_TTUR=opt.no_TTUR,
         beta1=opt.beta1 if opt.no_TTUR else 0.0, beta2=opt.beta2 if opt.no_TTUR else 0.9,
         compute_dtype=opt.compute_dtype, vgg_compute_dtype=opt.vgg_compute_dtype,
-        init_type=opt.init_type, init_gain=opt.init_gain, remat=bool(opt.remat))
-    logger.print_info("SPADE blocks: the port evaluates every branch on its own (the JAX "
-                      "package's packed layout, --packed_blocks, computes the same function).")
+        init_type=opt.init_type, init_gain=opt.init_gain, remat=bool(opt.remat),
+        packed_blocks=_packed(opt, True))
     task = SPADETask(gen_cfg, d_cfg, hp, vgg=cli.make_vgg(opt, device), input_nc=opt.input_nc,
                      contain_dontcare=opt.contain_dontcare_label, device=device)
     g_sd = None
@@ -958,7 +957,8 @@ def profile_distill_spade(opt, device=None) -> Dict[str, Any]:
 
         # no VGG: evaluation only
         hp = SPADEDistillHParams(gan_mode=opt.gan_mode,
-                                 distill_loss_type=opt.distill_G_loss_type, lambda_vgg=0.0)
+                                 distill_loss_type=opt.distill_G_loss_type, lambda_vgg=0.0,
+                                 packed_blocks=_packed(opt, True))
         dist = SPADEDistiller(teacher_cfg, student_cfg, hp=hp, input_nc=opt.input_nc,
                               contain_dontcare=opt.contain_dontcare_label, device=device)
         state, teacher_params = dist.init_state(teacher_sd, student_sd, seed=opt.seed)
@@ -1022,6 +1022,69 @@ def profile_main(argv: Optional[List[str]] = None, device=None) -> Dict[str, Any
     device = resolve_device(device)
     cli.print_options(opt, parser)
     return profile_distill(opt, device)
+
+
+# ---------------------------------------------------------------------------
+# export verb (the JAX package's export_main)
+# ---------------------------------------------------------------------------
+
+
+def export_main(argv: Optional[List[str]] = None, device=None) -> str:
+    """``python -m cat_tpu_torch export <flags>``: write the student's
+    forward as a ``torch.export`` program with a symbolic batch
+    (``export.py``); returns its path.  The student is
+    --pretrained_student_G_path (this package's ``.pth`` or the JAX
+    package's ``.msgpack``, each with its ``.json``), else the shrink of
+    --restore_teacher_G_path to --target_flops: an inception student keeps
+    the teacher's weights, a SPADE student (--distiller spade) is
+    initialised afresh from --seed with a ``torch.Generator``, which cannot
+    replay the JAX package's ``jax.random`` draws.  --export_format
+    stablehlo (the recipes' value) writes the ``.pt2``, at --export_path or
+    <log_dir>/student.pt2, since torch has no StableHLO writer; tflite
+    raises.  Exports on CUDA, with CUDA weights, unless ``device`` says
+    otherwise."""
+    from cat_tpu_torch.export import export_program
+
+    parser = cli.export_parser()
+    opt = parser.parse_args(argv)
+    if opt.export_format == "tflite":
+        raise NotImplementedError("--export_format tflite: no TFLite converter is installed for "
+                                  "torch; --export_format stablehlo writes a torch.export "
+                                  "program (.pt2)")
+    device = resolve_device(device)
+    cli.print_options(opt, parser)
+    bounds = PruneBounds(cin_lb=max(opt.prune_cin_lb, 1))
+    if opt.distiller == "spade":
+        if opt.pretrained_student_G_path:
+            student_cfg, student_sd = load_spade_checkpoint(opt.pretrained_student_G_path, opt)
+        else:
+            from cat_tpu_torch.compress.spade import shrink_spade_generator
+            from cat_tpu_torch.models.spade import SPADEGenerator
+
+            teacher_cfg, teacher_sd = load_spade_checkpoint(opt.restore_teacher_G_path, opt)
+            student_cfg = shrink_spade_generator(
+                teacher_cfg, teacher_sd, opt.target_flops, int(opt.crop_size / opt.aspect_ratio),
+                opt.crop_size, bounds).config
+            student_sd = SPADEGenerator(
+                student_cfg, generator=torch.Generator().manual_seed(opt.seed)).state_dict()
+    else:
+        teacher_norm = cli.norm_config(opt, opt.norm_affine)
+        if opt.pretrained_student_G_path:
+            student_cfg, student_sd = cli.load_generator_checkpoint(
+                opt.pretrained_student_G_path, teacher_norm)
+        else:
+            teacher_cfg, teacher_sd = cli.load_generator_checkpoint(opt.restore_teacher_G_path,
+                                                                    teacher_norm)
+            res = shrink_generator(teacher_cfg, teacher_sd, opt.target_flops, opt.crop_size,
+                                   opt.crop_size, bounds)
+            student_cfg, student_sd = res.config, res.state_dict
+    path = opt.export_path or os.path.join(opt.log_dir, "student.pt2")
+    print("--export_format stablehlo: torch has no StableHLO writer; writing a torch.export "
+          "program (.pt2) with a symbolic batch")
+    out = export_program(student_cfg, student_sd, opt.crop_size, opt.crop_size, path,
+                         device=device)
+    print(f"exported student to {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -24,10 +24,12 @@ loads strictly): ``fc``, ``fc_norm``, ``conv_img``; per block
 ``res_ops.{j}.0.{conv,norm}`` / ``res_ops.{j}.1``, ``dw_ops.{j}.{0,1}.*`` /
 ``dw_ops.{j}.2``, where ``j`` counts the branches that exist.
 
-The JAX package can evaluate a block's branches packed into kernel-size-
-homogeneous group convolutions (``--packed_blocks``, a layout of the same
-function and parameter tree); the port evaluates them one by one under
-either setting.  One device: ``syncbatch`` is batch norm.
+``packed`` (the default, ``--packed_blocks``) evaluates a block's branches,
+and its SPADE norm's, as kernel-size-homogeneous packed convolutions
+(``_packed_branches``, the JAX package's ``_packed_branches``): the same
+function of the same parameters and buffers, whose state_dict does not
+change, so checkpoints, the shrink and the transfer do not depend on the
+layout.  One device: ``syncbatch`` is batch norm.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from torch import nn
 from cat_tpu_torch.core.config import NormConfig
 from cat_tpu_torch.core.spade_config import (MultiscaleDiscriminatorConfig, SPADEBlockConfig,
                                              SPADEGeneratorConfig, SPADELayerConfig)
+from cat_tpu_torch.models.blocks import center_pad_kernel
 from cat_tpu_torch.ops.nn import Norm2d, activation, init_weights
 from cat_tpu_torch.ops.spectral import SpectralConv2d
 
@@ -104,13 +107,109 @@ class PlainConv(nn.Module):
         return _apply(self.conv, x, train)
 
 
+# ---------------------------------------------------------------------------
+# the packed layout
+# ---------------------------------------------------------------------------
+
+
+def _kernel(conv: nn.Module, dtype: torch.dtype, train: bool):
+    """(kernel, bias) of a branch conv in ``dtype``: a spectral conv's
+    normalised kernel, whose power iteration writes ``u`` as its forward
+    would."""
+    w = conv.normalized_weight(train) if isinstance(conv, SpectralConv2d) else conv.weight
+    return w.to(dtype), None if conv.bias is None else conv.bias.to(dtype)
+
+
+def _packed_norm_act(y: torch.Tensor, norms: Sequence[Norm2d], train: bool,
+                     act: str) -> torch.Tensor:
+    """``Norm2d``'s batch-norm numerics over branches concatenated on the
+    channel axis (statistics are per channel, so each branch's are those of
+    its own forward), each branch's running statistics moved by its slice;
+    the activation in float32 before the cast back, as the JAX packer."""
+    yf = y.float()
+    widths = [n.running_mean.numel() for n in norms]
+    if train:
+        mean = yf.mean(dim=(0, 2, 3))
+        var = yf.square().mean(dim=(0, 2, 3)) - mean.square()
+        n = y.shape[0] * y.shape[2] * y.shape[3]
+        for norm, m, v in zip(norms, mean.split(widths), var.split(widths)):
+            norm.track(m, v, n)
+    else:
+        mean = torch.cat([n.running_mean for n in norms])
+        var = torch.cat([n.running_var for n in norms])
+    yf = (yf - mean[:, None, None]) * torch.rsqrt(var + norms[0].cfg.eps)[:, None, None]
+    if norms[0].weight is not None:
+        yf = (yf * torch.cat([n.weight for n in norms]).float()[:, None, None]
+              + torch.cat([n.bias for n in norms]).float()[:, None, None])
+    return activation(act)(yf).to(y.dtype)
+
+
+def _packed_branches(x: torch.Tensor, res_ops: nn.ModuleList, dw_ops: nn.ModuleList,
+                     res_k: Sequence[int], dw_k: Sequence[int], act: str,
+                     train: bool) -> torch.Tensor:
+    """The sum of a stage set's branches (``res_ops``/``dw_ops`` as the
+    unpacked forward runs them, with kernel sizes ``res_k``/``dw_k``), packed
+    as ``cat_tpu/models/spade.py::_packed_branches`` packs them:
+
+      IN:  one conv per kernel-size group over the shared input (the
+           depthwise branches' 1x1 convs join the k = 1 group), one packed
+           norm + act per group;
+      MID: one depthwise conv over every depthwise channel, the kernels
+           centre-padded to the largest k, one packed norm + act;
+      OUT: one conv per kernel-size group: inputs and kernels concatenated
+           on the input axis give the group's branch sum; the biases are
+           summed once, at the end.
+
+    Zero SAME padding throughout, so same-k kernels concatenate with no
+    padding inflation."""
+    dt = x.dtype
+    groups: Dict[int, list] = {}
+    for k, op in zip(res_k, res_ops):
+        groups.setdefault(k, []).append(op[0])
+    for op in dw_ops:
+        groups.setdefault(1, []).append(op[0])
+    mids: Dict[nn.Module, torch.Tensor] = {}
+    for k in sorted(groups):
+        units = groups[k]
+        ws, bs = zip(*(_kernel(u.conv, dt, train) for u in units))
+        y = F.conv2d(x, torch.cat(ws), torch.cat(bs), padding=(k - 1) // 2)
+        y = _packed_norm_act(y, [u.norm for u in units], train, act)
+        for u, part in zip(units, y.split([w.shape[0] for w in ws], 1)):
+            mids[u] = part
+
+    outs: Dict[int, list] = {}
+    for k, op in zip(res_k, res_ops):
+        outs.setdefault(k, []).append((mids[op[0]], op[1]))
+    if dw_ops:
+        g = torch.cat([mids[op[0]] for op in dw_ops], 1)
+        kmax = max(dw_k)
+        units = [op[1] for op in dw_ops]
+        ws, bs = zip(*(_kernel(u.conv, dt, train) for u in units))
+        g = F.conv2d(g, torch.cat([center_pad_kernel(w, kmax) for w in ws]), torch.cat(bs),
+                     padding=(kmax - 1) // 2, groups=g.shape[1])
+        g = _packed_norm_act(g, [u.norm for u in units], train, act)
+        for op, part in zip(dw_ops, g.split([w.shape[0] for w in ws], 1)):
+            outs.setdefault(1, []).append((part, op[2]))
+
+    total, bias = None, None
+    for k in sorted(outs):
+        parts, convs = zip(*outs[k])
+        kbs = [_kernel(c.conv if isinstance(c, PlainConv) else c, dt, train) for c in convs]
+        y = F.conv2d(parts[0] if len(parts) == 1 else torch.cat(parts, 1),
+                     torch.cat([w for w, _ in kbs], 1), padding=(k - 1) // 2)
+        total = y if total is None else total + y
+        for _, b in kbs:
+            bias = b if bias is None else bias + b
+    return total + bias[:, None, None]
+
+
 class InceptionSPADENorm(nn.Module):
     """out = param_free_norm(x) · (1 + γ(seg)) + β(seg); γ and β from a
     multi-branch net over the nearest-resized segmap."""
 
-    def __init__(self, cfg: SPADELayerConfig):
+    def __init__(self, cfg: SPADELayerConfig, packed: bool = True):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.packed = cfg, packed
         self.param_free_norm = Norm2d(_norm_cfg(cfg.param_free_norm, affine=False), cfg.norm_nc)
         branch_norm = _norm_cfg("syncbatch", affine=True)
         out2, cin = 2 * cfg.norm_nc, cfg.label_nc
@@ -128,29 +227,38 @@ class InceptionSPADENorm(nn.Module):
         if self.cfg.is_empty:
             return normalized
         seg = nearest_resize(seg, x.shape[2], x.shape[3])
-        total = None
-        for op in self.res_ops:
-            h = op[1](op[0](seg, train))
-            total = h if total is None else total + h
-        for op in self.dw_ops:
-            h = op[2](op[1](op[0](seg, train), train))
-            total = h if total is None else total + h
+        cfg = self.cfg
+        if self.packed:
+            total = _packed_branches(seg, self.res_ops, self.dw_ops,
+                                     [k for _, _, k in cfg.active_res],
+                                     [k for _, _, k in cfg.active_dw], "relu", train)
+        else:
+            total = None
+            for op in self.res_ops:
+                h = op[1](op[0](seg, train))
+                total = h if total is None else total + h
+            for op in self.dw_ops:
+                h = op[2](op[1](op[0](seg, train), train))
+                total = h if total is None else total + h
         gamma, beta = total[:, : self.cfg.norm_nc], total[:, self.cfg.norm_nc:]
         return normalized * (1.0 + gamma) + beta
 
 
 class SPADEBlock(nn.Module):
     """SPADEInvertedResidualChannels: SPADE norm -> activation -> the sum of
-    the multi-branch convs, plus x or the learned shortcut (fin != fout)."""
+    the multi-branch convs, plus x or the learned shortcut (fin != fout).
+    ``packed``: the SPADE norm's branches packed, and the block's where its
+    norms are batch norms (as in the JAX package)."""
 
     def __init__(self, cfg: SPADEBlockConfig, active_fn: str = "leaky_relu",
-                 norm_kind: str = "syncbatch"):
+                 norm_kind: str = "syncbatch", packed: bool = True):
         super().__init__()
         self.cfg, self.active_fn = cfg, active_fn
+        self.packed = packed and norm_kind in ("batch", "syncbatch")
         affine, free = _norm_cfg(norm_kind, affine=True), _norm_cfg(norm_kind, affine=False)
         sp, fin, fout = cfg.spectral, cfg.fin, cfg.fout
         if not cfg.is_empty:
-            self.spade = InceptionSPADENorm(cfg.spade)
+            self.spade = InceptionSPADENorm(cfg.spade, packed)
             self.res_ops = nn.ModuleList(
                 nn.Sequential(ConvNormActZ(fin, mid, k, affine, active_fn, spectral=sp),
                               PlainConv(mid, fout, k, spectral=sp))
@@ -172,23 +280,30 @@ class SPADEBlock(nn.Module):
         if cfg.is_empty:
             return self._shortcut(x, train) if cfg.learned_shortcut else x
         tmp = activation(self.active_fn)(self.spade(x, seg, train))
-        total = None
-        for op in self.res_ops:
-            h = op[1](op[0](tmp, train), train)
-            total = h if total is None else total + h
-        for op in self.dw_ops:
-            h = op[2](op[1](op[0](tmp, train), train), train)
-            total = h if total is None else total + h
+        if self.packed:
+            total = _packed_branches(tmp, self.res_ops, self.dw_ops,
+                                     [k for _, _, k in cfg.active_res],
+                                     [k for _, _, k in cfg.active_dw], self.active_fn, train)
+        else:
+            total = None
+            for op in self.res_ops:
+                h = op[1](op[0](tmp, train), train)
+                total = h if total is None else total + h
+            for op in self.dw_ops:
+                h = op[2](op[1](op[0](tmp, train), train), train)
+                total = h if total is None else total + h
         return total + (self._shortcut(x, train) if cfg.learned_shortcut else x)
 
 
 class SPADEGenerator(nn.Module):
     """``inception_spade`` generator: NCHW semantics (one-hot labels, the
     dontcare and edge channels) -> NCHW image in [-1, 1]; with ``taps``,
-    also a dict of the named blocks' outputs (and ``fc``)."""
+    also a dict of the named blocks' outputs (and ``fc``).  ``packed_blocks``
+    picks the blocks' layout (``SPADEBlock``)."""
 
     def __init__(self, cfg: SPADEGeneratorConfig, init_type: str = "xavier",
-                 init_gain: float = 0.02, generator: Optional[torch.Generator] = None):
+                 init_gain: float = 0.02, generator: Optional[torch.Generator] = None,
+                 packed_blocks: bool = True):
         super().__init__()
         self.cfg = cfg
         self.fc = nn.Conv2d(cfg.semantic_nc, cfg.fc_channels, 3, padding=1)
@@ -196,7 +311,8 @@ class SPADEGenerator(nn.Module):
                                         momentum=cfg.norm_momentum, eps=cfg.norm_epsilon),
                               cfg.fc_channels)
         for name, bcfg in zip(cfg.block_names, cfg.blocks):
-            self.add_module(name, SPADEBlock(bcfg, cfg.active_fn, cfg.param_free_norm))
+            self.add_module(name, SPADEBlock(bcfg, cfg.active_fn, cfg.param_free_norm,
+                                             packed_blocks))
         self.conv_img = nn.Conv2d(cfg.blocks[-1].fout, cfg.output_nc, 3, padding=1)
         init_weights(self, init_type, init_gain, generator)
         # the trunk's and shortcuts' norm scales start at 1, as the JAX package's

@@ -185,19 +185,25 @@ class Norm2d(nn.Module):
         if train or not self.tracks_stats:
             mean = xf.mean(dim=(0, 2, 3))
             var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
-            if train and self.tracks_stats and self.update_stats:
-                n = x.shape[0] * x.shape[2] * x.shape[3]
-                m = cfg.momentum
-                with torch.no_grad():
-                    unbiased = var * (n / max(n - 1, 1))
-                    self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
-                    self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
+            if train:
+                self.track(mean, var, x.shape[0] * x.shape[2] * x.shape[3])
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean[:, None, None]) * torch.rsqrt(var + cfg.eps)[:, None, None]
         if self.weight is not None:
             y = y * self.weight.float()[:, None, None] + self.bias.float()[:, None, None]
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def track(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        """Move the running statistics by one train-mode forward's batch
+        ``mean`` and biased ``var`` over ``n`` values a channel, where they
+        are tracked and ``frozen_stats`` does not hold them."""
+        if self.tracks_stats and self.update_stats:
+            m = self.cfg.momentum
+            unbiased = var * (n / max(n - 1, 1))
+            self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         state_dict.pop(prefix + "num_batches_tracked", None)

@@ -69,3 +69,23 @@ class SpectralConv2d(nn.Module):
         w = self.normalized_weight(train)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.conv2d(x, w.to(x.dtype), bias, self.stride, self.padding, 1, self.groups)
+
+
+@torch.no_grad()
+def fold_spectral(net: nn.Module) -> nn.Module:
+    """Replace, in place, every ``SpectralConv2d`` under ``net`` by an
+    ``nn.Conv2d`` holding its eval-mode kernel (the one power iteration an
+    eval forward runs from the stored ``u``): ``net``'s eval-mode function,
+    with no power iteration left in it.  Returns ``net``."""
+    for parent in list(net.modules()):
+        for name, m in list(parent.named_children()):
+            if isinstance(m, SpectralConv2d):
+                w = m.normalized_weight()
+                conv = nn.Conv2d(w.shape[1] * m.groups, w.shape[0], tuple(w.shape[2:]),
+                                 stride=m.stride, padding=m.padding, groups=m.groups,
+                                 bias=m.bias is not None, device=w.device, dtype=w.dtype)
+                conv.weight.copy_(w)
+                if m.bias is not None:
+                    conv.bias.copy_(m.bias)
+                setattr(parent, name, conv)
+    return net

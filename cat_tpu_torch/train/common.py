@@ -8,6 +8,7 @@ and their optimisers, and a step updates them in place.
 
 from __future__ import annotations
 
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Dict, List
 
@@ -59,37 +60,46 @@ def net_state(net: torch.nn.Module, beta1: float) -> NetState:
     return NetState(params, Adam(params.values(), beta1), dict(net.named_buffers()))
 
 
-def checkpointed(fn, net: torch.nn.Module, rng: torch.Generator):
+def checkpointed(fn, net: torch.nn.Module, rng: torch.Generator, policy=None):
     """``fn()`` under ``torch.utils.checkpoint``: only its inputs are kept,
     and the backward recomputes it with the same dropout masks, from the
     spectral ``u`` the first forward started from, and without writing
     ``net``'s running statistics or ``u`` a second time.  The recompute
-    rewinds ``rng``: keep its state around the backward."""
-    from torch.utils.checkpoint import checkpoint
+    rewinds ``rng``: keep its state around the backward.  ``policy``, an
+    op policy of ``create_selective_checkpoint_contexts``, keeps the
+    outputs of the ops it saves, which the recompute then reads instead of
+    running them (selective checkpointing); None keeps nothing.  The
+    rewinds happen outside the selective context, so that the recompute
+    runs no op the first forward did not run."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
     import_stdlib_profile()  # torch.utils.checkpoint reaches TorchDynamo
-    start, calls = rng.get_state(), []
+    start = rng.get_state()
     spectral = [m for m in net.modules() if isinstance(m, SpectralConv2d)]
     u_start = [m.weight_u.clone() for m in spectral]
 
-    def run():
+    @contextmanager
+    def rewound(selective):
         rng.set_state(start)
-        if not calls:
-            calls.append(1)
-            return fn()
         u_now = [m.weight_u.clone() for m in spectral]
         with torch.no_grad():
             for m, u in zip(spectral, u_start):
                 m.weight_u.copy_(u)
         try:
-            with frozen_stats(net):
-                return fn()
+            with frozen_stats(net), selective:
+                yield
         finally:
             with torch.no_grad():
                 for m, u in zip(spectral, u_now):
                     m.weight_u.copy_(u)
 
-    return checkpoint(run, use_reentrant=False)
+    def contexts():
+        if policy is None:
+            return nullcontext(), rewound(nullcontext())
+        first, again = create_selective_checkpoint_contexts(policy)
+        return first, rewound(again)
+
+    return checkpoint(fn, use_reentrant=False, context_fn=contexts)
 
 
 def _g_names(state: GANTrainState) -> List[str]:

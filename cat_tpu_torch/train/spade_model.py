@@ -110,6 +110,7 @@ class SPADEHParams:
     compute_dtype: str = "float32"  # float32 | bfloat16 (float32 masters)
     vgg_compute_dtype: str = "float32"  # dtype of the VGG19 sweep
     remat: bool = False  # recompute the generator forward in the backward
+    packed_blocks: bool = True  # G's branches packed (models/spade.py)
 
 
 def feature_matching_loss(pred_fake, pred_real) -> torch.Tensor:
@@ -164,7 +165,8 @@ class SPADETask:
         on the device, and the train state."""
         hp = self.hp
         gen = torch.Generator().manual_seed(seed)
-        netG = SPADEGenerator(self.gen_cfg, hp.init_type, hp.init_gain, generator=gen)
+        netG = SPADEGenerator(self.gen_cfg, hp.init_type, hp.init_gain, generator=gen,
+                              packed_blocks=hp.packed_blocks)
         if g_state_dict is not None:
             netG.load_state_dict(g_state_dict)
         netD = MultiscaleDiscriminator(self.disc_cfg, hp.init_type, hp.init_gain, generator=gen)

@@ -95,7 +95,9 @@ Phases, in order; any failure exits non-zero before the result line:
      weights, xavier, float32) over 48 + 10 seeded samples in Cityscapes'
      layout (2048x1024 photos) for 9 steps with FID and mIoU (with
      ``--remat 1`` where batch 16 does not fit, said on a line), and the
-     eval-mode output's spread and movement at each evaluation.  Each run
+     eval-mode output's spread and movement at each evaluation.  The SPADE
+     runs of phases 9 and 10 evaluate their branches packed, the recipes'
+     default.  Each run
      prints its median step and iteration, loader wait and peak memory, and
      its evaluations' seconds split into generator sweeps, FID judge, host
      ``sqrtm``, DRN judge and histograms;
@@ -113,9 +115,24 @@ Phases, in order; any failure exits non-zero before the result line:
      ``f32tma`` Gram launches a step, the searched MACs within the budget,
      the checkpoints, the reloaded G's eval output exact, and the Gram held
      against its plain version and timed on the run's own six taps at
-     B = 16; (c) the profile verb with ``evaluate_inception_student_5p6B.sh``'s
-     flags on (b)'s best student, and ``--prune_only`` at 3e10 MACs.
+     B = 16; (b) again with ``--packed_blocks 0`` and no evaluations, its
+     median step beside the packed one's; (d) the recipe's first epoch (3
+     steps, no evaluations) with ``--remat 1``, without and with
+     ``--remat_policy dots_saveable``: median step, peak memory, 6 ``f32tma``
+     launches a step, each step's losses within 10a's bound of (b)'s; (c) the
+     profile verb with ``evaluate_inception_student_5p6B.sh``'s flags on (b)'s
+     best student, and ``--prune_only`` at 3e10 MACs;
+ 11. export: the export verb with the flags of
+     ``scripts/cycle_gan/horse2zebra/export_inception_student_2p6B.sh`` on
+     phase 6 (a)'s student and of
+     ``scripts/gaugan/cityscapes/export_inception_student_5p6B.sh`` on 10b's
+     best (``--export_format stablehlo`` as shipped: a ``.pt2``); each program
+     loaded on the card and run at batch 1 and 4 against the eager eval-mode
+     student (rtol 1e-4, atol 1e-5 of its largest value), its batch-1
+     latency beside the profile verb's for the same student, its size, the
+     export's seconds and peak memory.
 
+The script prints its total seconds.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1748,6 +1765,7 @@ GAUGAN_STUDENT = [*GAUGAN_COMMON, "--netD", "multi_scale", "--init_type", "xavie
                   "--nepochs_decay", "0", "--save_epoch_freq", "25", "--lambda_distill", "0.5",
                   "--target_flops", "5.6e9", "--distill_G_loss_type", "ka", "--print_freq", "1"]
 GAUGAN_STUDENT_EVAL = [*GAUGAN_COMMON, "--eval_batch_size", "2", "--target_flops", "5.6e9"]
+REMAT_STEPS = 3  # phase 10d: one epoch of the recipe
 
 
 def spade_distill_reference(dev, card):
@@ -1876,9 +1894,13 @@ def gaugan_student(dev, card, root, judge, stats):
              "--inception_path", judge, "--restore_teacher_G_path",
              os.path.join(teacher, "latest_net_G.pth")]
     log_dir = os.path.join(root, "log_10b")
-    argv = [*paths, "--log_dir", log_dir, "--vgg_path", os.path.join(root, "vgg19.pth"),
-            "--restore_pretrained_G_path", os.path.join(teacher, "latest_net_G.pth"),
-            "--restore_D_path", os.path.join(teacher, "latest_net_D.pth"), *GAUGAN_STUDENT]
+
+    def student_argv(log_dir):
+        return [*paths, "--log_dir", log_dir, "--vgg_path", os.path.join(root, "vgg19.pth"),
+                "--restore_pretrained_G_path", os.path.join(teacher, "latest_net_G.pth"),
+                "--restore_D_path", os.path.join(teacher, "latest_net_D.pth"), *GAUGAN_STUDENT]
+
+    argv = student_argv(log_dir)
     n_steps = GAUGAN_STUDENT_EPOCHS * (GAUGAN_TRAIN // GAUGAN_BATCH)
 
     def attempt(extra):
@@ -1932,6 +1954,65 @@ def gaugan_student(dev, card, root, judge, stats):
         f"the reloaded G gives the in-memory G's eval output exactly; mIoU {out['miou']}, FID "
         f"{out['fid']}, remat {out['remat']} [{card}]")
     del gen, sd
+
+    # 10b again with the branches unpacked, without evaluations: the layouts' steps side by side
+    quiet = ["--no_fid", "--drn_path", os.path.join(root, "absent.pth")]
+    ka.launches = 0
+    ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
+    unpacked, _ = _instrumented_run(
+        "setup_distill", entry.distill_main,
+        [*student_argv(os.path.join(root, "log_10b_unpacked")), *quiet, "--packed_blocks", "0",
+         *(["--remat", "1"] if out["remat"] else [])],
+        n_steps, GAUGAN_BATCH, "10b GauGAN student, unpacked", card)
+    if ka.path_launches["f32tma"] != 6 * n_steps:
+        fail(f"spade 10b unpacked: {ka.path_launches['f32tma']} f32tma Gram launches in "
+             f"{n_steps} steps; expected 6 a step")
+    out["unpacked"] = unpacked
+    log(f"spade 10b: median step packed {out['step_ms_median']:.1f} ms, unpacked "
+        f"{unpacked['step_ms_median']:.1f} ms; peak memory {out['peak_memory_gib']:.2f} and "
+        f"{unpacked['peak_memory_gib']:.2f} GiB [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 10d: the recipe's first epoch under --remat 1, without and with a
+    # selective policy; each step's losses held to 10b's (its first steps)
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        want = [{k: v for k, v in r.items() if "loss" in k}
+                for r in map(json.loads, f) if any("loss" in k for k in r)][:REMAT_STEPS]
+    remat = {}
+    for policy in ("", "dots_saveable"):
+        ka.launches = 0
+        ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
+        d = os.path.join(root, f"log_10d_{policy or 'remat'}")
+        r, _ = _instrumented_run(
+            "setup_distill", entry.distill_main,
+            [*student_argv(d), *quiet, "--nepochs", "1", "--remat", "1",
+             *(["--remat_policy", policy] if policy else [])],
+            REMAT_STEPS, GAUGAN_BATCH,
+            f"10d GauGAN student, --remat 1{' --remat_policy ' + policy if policy else ''}", card)
+        with open(os.path.join(d, "scalars.jsonl")) as f:
+            got = [{k: v for k, v in row.items() if "loss" in k}
+                   for row in map(json.loads, f) if any("loss" in k for k in row)]
+        worst = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-1) for g, w in zip(got, want) for k in w)
+        if (len(got) != REMAT_STEPS or any(g.keys() != w.keys() for g, w in zip(got, want))
+                or not all(math.isclose(g[k], w[k], rel_tol=1e-4, abs_tol=1e-5)
+                           for g, w in zip(got, want) for k in w)):
+            fail(f"spade 10d ({policy or 'no policy'}): losses {got} differ from 10b's {want} "
+                 "past 10a's bound (rtol 1e-4, atol 1e-5)")
+        if ka.path_launches["f32tma"] != 6 * REMAT_STEPS:
+            fail(f"spade 10d ({policy or 'no policy'}): {ka.path_launches['f32tma']} f32tma Gram "
+                 f"launches in {REMAT_STEPS} steps; expected 6 a step")
+        remat[policy or "none"] = {"step_ms_median": r["step_ms_median"],
+                                   "peak_memory_gib": r["peak_memory_gib"],
+                                   "f32tma_per_step": ka.path_launches["f32tma"] / REMAT_STEPS,
+                                   "loss_worst_rel": worst}
+        log(f"spade 10d: --remat 1 {policy or '(no policy)'}: median step {r['step_ms_median']:.1f}"
+            f" ms, peak memory {r['peak_memory_gib']:.2f} GiB, "
+            f"{ka.path_launches['f32tma'] / REMAT_STEPS:g} f32tma launches a step; losses of its "
+            f"{REMAT_STEPS} steps within rtol 1e-4 of 10b's (worst {worst:.2g}) [{card}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["remat_10d"] = remat
 
     # the Gram on the run's own taps: teacher and student, three taps each
     l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
@@ -1988,6 +2069,115 @@ def gaugan_student(dev, card, root, judge, stats):
                       "student_params": prof["student_params"]}
     out["macs_30B"] = macs30
     return out, kern
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: export
+# ---------------------------------------------------------------------------
+
+# scripts/cycle_gan/horse2zebra/export_inception_student_2p6B.sh and
+# scripts/gaugan/cityscapes/export_inception_student_5p6B.sh, but for the paths
+H2Z_EXPORT = ["--dataset_mode", "unaligned", "--export_format", "stablehlo"]
+GAUGAN_EXPORT = ["--distiller", "spade", "--dataset_mode", "cityscapes", "--input_nc", "35",
+                 "--contain_dontcare_label", "--preprocess", "scale_width", "--load_size", "512",
+                 "--crop_size", "512", "--aspect_ratio", "2", "--export_format", "stablehlo"]
+LATENCY_REPS = 100  # the profile verb's --times
+
+
+def export_students(dev, card, root, gaugan_profile_ms):
+    """11: the export verb with both recipes' flags, on phase 6 (a)'s student
+    and on 10b's best; each ``.pt2`` loaded on the card and run at batch 1
+    and 4 against the eager eval-mode student (float32, TF32 off: rtol
+    1e-4, atol 1e-5 of the output's largest value), and its batch-1 latency
+    (the profile verb's way: 100 calls, host clock, synchronised) beside the
+    profile verb's for the same student (phase 6's profiled here on 2 val
+    images, 10b's from 10c)."""
+    import numpy as np
+    import torch
+
+    from cat_tpu_torch import entry
+    from cat_tpu_torch.export import load_program
+    from cat_tpu_torch.models.generator import InceptionGenerator
+    from cat_tpu_torch.models.spade import SPADEGenerator
+    from cat_tpu_torch.train.spade_model import preprocess_input
+    from cat_tpu_torch.utils import checkpoint as ckpt
+
+    teacher = os.path.join(root, "teacher", "best_A_net_G_A.pth")
+    h2z_dir = os.path.join(root, "log_a", "checkpoints")
+    prof = entry.profile_main(["--dataroot", os.path.join(root, "data"), "--log_dir",
+                               os.path.join(root, "eval_11"), "--restore_teacher_G_path", teacher,
+                               "--pretrained_student_G_path",
+                               os.path.join(h2z_dir, "latest_net_G.pth"), "--num_test", "2",
+                               *EVAL_RECIPE])
+    gaugan_dir = os.path.join(root, "log_10b", "checkpoints")
+    rs = np.random.RandomState(11)
+
+    def h2z_input(b):
+        return torch.from_numpy(rs.uniform(-1, 1, (b, 3, SIZE, SIZE)).astype(np.float32)).to(dev)
+
+    def gaugan_input(b):
+        label = torch.from_numpy(rs.randint(0, 35, (b, 256, 512)).astype(np.float32))
+        inst = torch.from_numpy(np.repeat(np.repeat(rs.randint(0, 9, (b, 32, 64)), 8, 1), 8, 2))
+        return preprocess_input(label.to(dev), inst.to(dev), 35, True)
+
+    runs = (("horse2zebra 2p6B", ["--dataroot", os.path.join(root, "data"),
+                                  "--restore_teacher_G_path", teacher, *H2Z_EXPORT], h2z_dir,
+             "latest", h2z_input, prof["latency_ms"]),
+            ("GauGAN 5p6B", ["--dataroot", os.path.join(root, "gaugan-origin"),
+                             "--restore_teacher_G_path", os.path.join(gaugan_dir, "best_net_G.pth"),
+                             *GAUGAN_EXPORT], gaugan_dir, "best", gaugan_input, gaugan_profile_ms))
+    out = {}
+    for label, flags, ckpt_dir, tag, make_input, prof_ms in runs:
+        log_dir = os.path.join(root, f"export_{tag}_{len(out)}")
+        t0 = time.perf_counter()
+        path = entry.export_main([*flags, "--log_dir", log_dir, "--pretrained_student_G_path",
+                                  os.path.join(ckpt_dir, f"{tag}_net_G.pth")])
+        export_s = time.perf_counter() - t0
+        if path != os.path.join(log_dir, "student.pt2"):
+            fail(f"export 11 ({label}): wrote {path}")
+        torch.cuda.empty_cache()
+        program = load_program(path)
+        sd, cfg = ckpt.load_net(ckpt_dir, tag, "G")
+        net = (SPADEGenerator(cfg) if "GauGAN" in label else
+               InceptionGenerator(cfg, packed_blocks=True)).to(dev).eval()
+        net.load_state_dict(sd)
+        errs, mem = {}, {}
+        for b in (1, 4):
+            x = make_input(b)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                got = program(x)
+                torch.cuda.synchronize()
+                mem[b] = torch.cuda.max_memory_allocated() / 2 ** 30
+                want = net(x)
+            scale = float(want.abs().max())
+            errs[b] = float((got - want).abs().max())
+            if (got.shape != (b, 3, *x.shape[2:]) or got.device != x.device
+                    or not bool(torch.isfinite(got).all())
+                    or not torch.allclose(got, want, rtol=1e-4, atol=1e-5 * scale)):
+                fail(f"export 11 ({label}): batch {b} program output {tuple(got.shape)} on "
+                     f"{got.device} differs from the eager student by {errs[b]:g} (max |y| "
+                     f"{scale:g}; rtol 1e-4, atol 1e-5 of it)")
+        x = make_input(1)
+        with torch.no_grad():
+            program(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(LATENCY_REPS):
+                program(x)
+            torch.cuda.synchronize()
+        latency = (time.perf_counter() - t0) / LATENCY_REPS * 1e3
+        out[label] = {"export_s": export_s, "bytes": os.path.getsize(path), "max_abs_err": errs,
+                      "latency_ms": latency, "profile_latency_ms": prof_ms,
+                      "peak_memory_gib": mem}
+        log(f"export 11 ({label}): {path} written in {export_s:.1f} s ({os.path.getsize(path):,} "
+            f"bytes); loaded on the card, batch 1 and 4 match the eager student (max |diff| "
+            f"{errs[1]:.3g}, {errs[4]:.3g}); batch-1 latency {latency:.3f} ms/image (the profile "
+            f"verb's {prof_ms:.3f}); peak memory {mem[1]:.2f} GiB at batch 1, {mem[4]:.2f} at 4 "
+            f"[{card}]")
+        del program, net
+    return out
 
 
 _KERNEL_GROUPS = (  # (group, substrings of the lower-cased kernel name), first match wins
@@ -2190,6 +2380,11 @@ def main() -> None:
         spade_b, spade_kern = gaugan_student(dev, card, root, judge, stats)
         log("spade: " + json.dumps({"10a": spade_a, "10b": spade_b, "gram": spade_kern,
                                     "seconds": time.perf_counter() - t0}))
+
+        # --- 11. the export verb on phase 6's and phase 10b's students
+        t0 = time.perf_counter()
+        exported = export_students(dev, card, root, spade_b["profile"]["latency_ms"])
+        log("export: " + json.dumps({**exported, "seconds": time.perf_counter() - t0}))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

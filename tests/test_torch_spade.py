@@ -186,6 +186,123 @@ def test_multiscale_discriminator_matches_jax(rng):
         _close(v, ref[k], k, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("spectral", [False, True])
+def test_packed_spade_generator_matches_unpacked_and_jax(rng, spectral):
+    """The packed layout (the default) against the unpacked one and against
+    the JAX package's packed generator, leading branches pruned so that a
+    branch's place differs from its config index (kernels 1, 3, 5, learned
+    shortcuts): the eval output, the train-mode output, and the running
+    statistics and spectral ``u`` one train forward leaves; a train forward
+    under ``frozen_stats`` writes nothing.  The state_dict is the same."""
+    from tests.test_torch_spade_compress import with_pruned_branches
+
+    jc = with_pruned_branches(jsc.SPADEGeneratorConfig.make(
+        semantic_nc=5, ngf=4, channels_reduction_factor=4, kernel_sizes=(1, 3, 5),
+        num_upsampling_layers="normal", crop_size=W, aspect_ratio=2.0, nhidden=16,
+        spectral=spectral))
+    jgen = jspade.SPADEGenerator(jc, packed_blocks=True)
+    seg = (rng.rand(2, H, W, 5) > 0.6).astype(np.float32)
+    rs = np.random.RandomState(3)
+
+    def spread(path, x):  # norm scales and running statistics away from their start
+        name = path[-1].key
+        if name in ("scale", "var"):
+            return jnp.asarray(rs.uniform(0.5, 1.5, x.shape), jnp.float32)
+        return jnp.asarray(rs.randn(*x.shape) * 0.1, jnp.float32) if name == "mean" else x
+
+    variables = jax.tree_util.tree_map_with_path(
+        spread, fast_init(jgen, jnp.zeros((1, H, W, 5)), seed=3))
+    packed = tspade.SPADEGenerator(to_port(jc))
+    packed.load_state_dict(jax_import.spade_generator_state_dict(
+        variables["params"], to_port(jc), variables))
+    unpacked = tspade.SPADEGenerator(to_port(jc), packed_blocks=False)
+    unpacked.load_state_dict(packed.state_dict())
+    tseg = nchw(seg)
+
+    want = np.asarray(jax.jit(lambda v, s: jgen.apply(v, s))(variables, jnp.asarray(seg)))
+    scale = np.abs(want).max()
+    with torch.no_grad():
+        got = packed(tseg)
+        _close(nhwc(got), nhwc(unpacked(tseg)), "eval, unpacked", rtol=1e-4, atol=1e-5 * scale)
+    _close(nhwc(got), want, "eval, JAX", rtol=1e-4, atol=1e-5 * scale)
+
+    muts = ["batch_stats", "spectral"] if spectral else ["batch_stats"]
+    want, new = jax.jit(lambda v, s: jgen.apply(v, s, train=True, mutable=muts))(
+        variables, jnp.asarray(seg))
+    scale = np.abs(np.asarray(want)).max()
+    before = {k: v.clone() for k, v in packed.state_dict().items()}
+    with torch.no_grad(), frozen_stats(packed):
+        packed(tseg, train=True)
+    assert all(torch.equal(v, before[k]) for k, v in packed.state_dict().items())
+    with torch.no_grad():
+        got = packed(tseg, train=True)
+        _close(nhwc(got), nhwc(unpacked(tseg, train=True)), "train, unpacked", rtol=1e-4,
+               atol=1e-5 * scale)
+    _close(nhwc(got), want, "train, JAX", rtol=1e-4, atol=1e-5 * scale)
+    ref = jax_import.spade_generator_state_dict(variables["params"], to_port(jc), new)
+    moved = 0
+    for k, v in packed.state_dict().items():
+        if k.endswith("weight_v"):
+            continue
+        _close(v, unpacked.state_dict()[k], f"{k}, unpacked", rtol=1e-4, atol=1e-6)
+        _close(v, ref[k], f"{k}, JAX", rtol=1e-4, atol=1e-6)
+        moved += not torch.equal(v, before[k])
+    assert moved >= len([k for k in before if "running" in k or k.endswith("weight_u")])
+
+
+def test_packed_task_and_distiller_steps_match_unpacked(rng):
+    """One ``SPADETask`` step and one ``SPADEDistiller`` step (KA, spectral
+    student blocks, leading branches pruned) with ``packed_blocks`` give the
+    unpacked steps' losses at rtol 1e-5, parameters within 2.5·lr (Adam's
+    sign of float32 noise) and running statistics and ``u`` at rtol 1e-4."""
+    import dataclasses
+
+    from cat_tpu_torch.distill import spade_distiller as tsd
+    from tests.test_torch_spade_compress import with_pruned_branches
+
+    gcfg, dcfg = _tiny_cfgs(kernel_sizes=(1, 3), spectral=True)
+    gcfg = to_port(with_pruned_branches(gcfg))
+    label, inst = _labels(rng)
+    batch = {"label": torch.from_numpy(label), "instance": torch.from_numpy(inst),
+             "image": torch.from_numpy(rng.uniform(-1, 1, (2, 3, H, W)).astype(np.float32))}
+
+    def compare(a, b, ma, mb):
+        for k in ma:
+            _close(float(ma[k]), float(mb[k]), k, rtol=1e-5, atol=1e-7)
+        sa, sb = a.state_dict(), b.state_dict()
+        params = dict(a.named_parameters())
+        for k, v in sa.items():
+            if k in params:
+                assert float((v - sb[k]).abs().max()) <= 2.5 * LR, k
+            elif not k.endswith("weight_v"):
+                _close(v, sb[k], k, rtol=1e-4, atol=1e-6)
+
+    tasks = []
+    for packed in (True, False):
+        task = tsm.SPADETask(gcfg, to_port(dcfg), tsm.SPADEHParams(packed_blocks=packed),
+                             input_nc=3, contain_dontcare=True, device="cpu")
+        state = task.init_state(0)
+        tasks.append((task, *task.train_step(state, batch, LR)))
+    assert tasks[0][0].netG.state_dict().keys() == tasks[1][0].netG.state_dict().keys()
+    compare(tasks[0][0].netG, tasks[1][0].netG, tasks[0][2], tasks[1][2])
+
+    teacher = tspade.SPADEGenerator(gcfg, generator=torch.Generator().manual_seed(1))
+    scfg = dataclasses.replace(gcfg, blocks=tuple(
+        dataclasses.replace(b, res_channels=tuple(c // 2 for c in b.res_channels))
+        for b in gcfg.blocks))
+    runs = []
+    for packed in (True, False):
+        dist = tsd.SPADEDistiller(gcfg, scfg, to_port(dcfg),
+                                  tsd.SPADEDistillHParams(packed_blocks=packed, lambda_vgg=0.0),
+                                  input_nc=3, contain_dontcare=True, device="cpu")
+        state, tparams = dist.init_state(teacher.state_dict(), seed=2)
+        runs.append((dist, *dist.train_step(state, tparams, batch, LR)))
+    for (dist, _, _), packed in zip(runs, (True, False)):
+        assert {m.packed for m in dist.netG_student.modules()
+                if isinstance(m, (tspade.SPADEBlock, tspade.InceptionSPADENorm))} == {packed}
+    compare(runs[0][0].netG_student, runs[1][0].netG_student, runs[0][2], runs[1][2])
+
+
 def test_vgg_loss_matches_jax(rng):
     """Random torchvision-layout weights: the loss and its gradient into the
     fake; the target gets none.  bfloat16 sweeps stay near the float32 loss."""
@@ -547,3 +664,76 @@ def test_train_verb_spade_evaluates_fid_and_miou(spade_world, tmp_path):
     dump = tmp_path / "log" / "eval" / "1"
     assert sorted(os.listdir(dump / "input")) == sorted(os.listdir(dump / "fake"))
     assert len(os.listdir(dump / "fake")) == 2
+
+
+# ---------------------------------------------------------------------------
+# The generic SPADE datasets
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("load_in_memory", [False, True])
+def test_template_dataset_items_match_jax(tmp_path, load_in_memory):
+    """``TemplateDataset`` against the JAX package's on the same folder and
+    seed: the same label (255 remapped to input_nc), instance and image
+    (CHW here) at every access, the random crop redrawn at every access
+    with the cache too; the cache holds the decoded images."""
+    from cat_tpu.data import spade_generic as jgen
+    from cat_tpu.data.transforms import TransformSpec as JSpec
+    from cat_tpu_torch.data import spade_generic as tgen
+    from tests.test_html_and_spade_generic import _make_spade_root
+
+    root = _make_spade_root(tmp_path)
+    kw = dict(preprocess="resize_and_crop", load_size=16, crop_size=8, no_flip=False)
+    want = jgen.TemplateDataset(root, "train", spec=JSpec(**kw), input_nc=5, seed=0,
+                                load_in_memory=load_in_memory)
+    got = tgen.TemplateDataset(root, "train", spec=TransformSpec(**kw), input_nc=5, seed=0,
+                               load_in_memory=load_in_memory)
+    assert len(got) == len(want) == 3
+    crops = set()
+    for i in (0, 1, 2, 0, 0, 1):
+        g, w = got[i], want[i]
+        assert g.keys() == w.keys() and g["path"] == w["path"]
+        np.testing.assert_array_equal(g["label"], w["label"])
+        np.testing.assert_array_equal(g["instance"], w["instance"])
+        np.testing.assert_array_equal(g["image"], w["image"].transpose(2, 0, 1))
+        assert g["label"].dtype == np.float32 and g["instance"].dtype == np.int32
+        assert g["image"].shape == (3, 8, 8) and g["label"].max() <= 5.0
+        crops.add(tuple(g["label"].ravel()))
+    assert len(crops) > 3, "random crop frozen"
+    if load_in_memory:
+        os.remove(os.path.join(root, "train_images", "s1.png"))
+        assert got[1]["image"].shape == (3, 8, 8)
+
+
+def test_spade_generic_checks_and_alignment_match_jax(tmp_path):
+    """The pairing check, ``no_instance``/``max_size``, the abstract base,
+    and the label and image sharing one crop and flip."""
+    from cat_tpu_torch.data import spade_generic as tgen
+    from tests.test_html_and_spade_generic import _make_spade_root
+
+    spec = TransformSpec(preprocess="resize_and_crop", load_size=16, crop_size=8, no_flip=True)
+    root = _make_spade_root(tmp_path / "a", mismatch=True, instances=False)
+    with pytest.raises(AssertionError):
+        tgen.TemplateDataset(root, "train", spec=spec, no_instance=True)
+    with pytest.raises(ValueError, match="instance maps"):
+        tgen.TemplateDataset(root, "train", spec=spec, pairing_check=False)
+    ds = tgen.TemplateDataset(root, "train", spec=spec, no_instance=True, pairing_check=False,
+                              max_size=2)
+    assert len(ds) == 2 and "instance" not in ds[0]
+    with pytest.raises(NotImplementedError):
+        tgen.SPADEDataset(str(tmp_path))
+
+    # the column index in label and image: any divergence of the two crops shows
+    root = tmp_path / "b"
+    (root / "train_labels").mkdir(parents=True)
+    (root / "train_images").mkdir(parents=True)
+    col = np.tile(np.arange(32, dtype=np.uint8), (32, 1))
+    Image.fromarray(col, "L").save(root / "train_labels" / "a.png")
+    Image.fromarray(np.stack([col] * 3, -1)).save(root / "train_images" / "a.png")
+    ds = tgen.TemplateDataset(str(root), "train", no_instance=True, seed=3,
+                              spec=TransformSpec(preprocess="resize_and_crop", load_size=32,
+                                                 crop_size=16, no_flip=False))
+    for _ in range(4):
+        item = ds[0]
+        np.testing.assert_allclose((item["image"][0, 0] + 1.0) * 127.5, item["label"][0],
+                                   atol=0.75)

@@ -228,3 +228,104 @@ def test_spade_distiller_writes_state_only_where_the_jax_distiller_does(rng, spe
         assert bufs
         for k, v in bufs.items():
             torch.testing.assert_close(net.get_buffer(k), v, rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------------------
+# --remat_policy: selective rematerialisation of the student forward
+# ---------------------------------------------------------------------------
+
+
+def _recording(state):
+    """The G group's gradients of every step, recorded as its Adam takes them."""
+    grads, step = [], state.g.opt.step
+
+    def record(g, lr):
+        grads.append([x.clone() for x in g])
+        return step(g, lr)
+
+    state.g.opt.step = record
+    return grads
+
+
+@pytest.mark.parametrize("policy", sorted(tsd.REMAT_POLICIES))
+def test_remat_policy_steps_match_no_remat_and_jax(rng, tmp_path, policy):
+    """Two KA steps under ``remat`` with each supported
+    ``jax.checkpoint_policies`` name: the losses, the G group's gradients
+    and the running statistics of the same steps without remat from the
+    same state, and the JAX distiller's under the same policy at this
+    file's tolerances."""
+    jdist, jstate, tv, dist, state, tparams = _worlds(tmp_path, lambda_vgg=0.0, remat=True,
+                                                      remat_policy=policy)
+    assert dist.hp.remat and dist.hp.remat_policy == policy
+    plain = tsd.SPADEDistiller(dist.teacher_cfg, dist.student_cfg, dist.disc_cfg,
+                               dataclasses.replace(dist.hp, remat=False, remat_policy=""),
+                               input_nc=3, contain_dontcare=True, device="cpu")
+    pstate, ptparams = plain.init_state(dist.netG_teacher.state_dict(), seed=5)
+    load_train_state_dict(pstate, train_state_dict(state))
+    grads, pgrads = _recording(state), _recording(pstate)
+    jbatch, tbatch = _batch(rng)
+    for step in (1, 2):
+        jstate, jm = jdist.train_step(jstate, tv, jbatch, LR)
+        state, tm = dist.train_step(state, tparams, tbatch, LR)
+        pstate, pm = plain.train_step(pstate, ptparams, tbatch, LR)
+        for k in jm:
+            _close(float(tm[k]), float(pm[k]), f"step {step} {k}, no remat", rtol=1e-6, atol=1e-9)
+            _close(float(tm[k]), float(jm[k]), f"step {step} {k}, JAX", rtol=1e-4, atol=1e-6)
+        for g, p in zip(grads[-1], pgrads[-1]):
+            _close(g, p, f"step {step} gradient", rtol=1e-5,
+                   atol=1e-9 + 1e-6 * float(p.abs().max()))
+        for k, v in state.g.stats.items():
+            _close(v, pstate.g.stats[k], f"step {step} {k}", rtol=1e-6, atol=1e-9)
+        _compare_states(jstate, state, dist, tmp_path, step)
+
+
+@pytest.mark.parametrize("name", ["save_only_these_names", "offload_dot_with_no_batch_dims",
+                                  "save_from_both_policies", "dots_savable"])
+def test_remat_policy_refuses_factory_and_unknown_names(name):
+    """A policy that takes arguments, or an unknown name, raises a
+    ``ValueError`` listing the supported names under ``remat``; without it
+    the name is not read, as in the JAX package."""
+    tcfg, scfg, dcfg = (to_port(c) for c in _cfgs())
+    with pytest.raises(ValueError, match="supported names are .*dots_saveable"):
+        tsd.SPADEDistiller(tcfg, scfg, dcfg, tsd.SPADEDistillHParams(remat=True, remat_policy=name),
+                           device="cpu")
+    assert tsd.SPADEDistiller(tcfg, scfg, dcfg, tsd.SPADEDistillHParams(remat_policy=name),
+                              device="cpu").policy is None
+
+
+@pytest.mark.parametrize("policy", ["nothing_saveable", "dots_saveable"])
+def test_selective_checkpoint_replays_dropout_and_reads_saved_dots(policy):
+    """``train/common.py::checkpointed`` under a policy: the recompute draws
+    the first pass's dropout mask (the RNG rewound outside the selective
+    context) and gives the plain forward's output and gradients; under a
+    dots policy the backward runs two matmuls fewer (the saved forward
+    ones)."""
+    from cat_tpu_torch import import_stdlib_profile
+
+    import_stdlib_profile()  # the flop counter reaches TorchDynamo
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from cat_tpu_torch.models.blocks import dropout
+    from cat_tpu_torch.train.common import checkpointed
+
+    net = torch.nn.Linear(16, 16)
+    x = torch.randn(8, 16, generator=torch.Generator().manual_seed(0))
+    rng = torch.Generator()
+
+    def fn():
+        return dropout(torch.tanh(net(x)) @ net.weight, 0.5, True, rng)
+
+    outs, grads, flops = [], [], []
+    for remat in (False, True):
+        rng.manual_seed(1)
+        y = checkpointed(fn, net, rng, tsd.remat_policy(policy)) if remat else fn()
+        counter = FlopCounterMode(display=False)
+        with counter:
+            grads.append(torch.autograd.grad(y.square().sum(), list(net.parameters())))
+        outs.append(y.detach())
+        flops.append(counter.get_total_flops())
+    assert torch.equal(outs[0], outs[1])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    saved = 2 * 8 * 16 * 16 * 2  # the forward's addmm and mm, recomputed or not
+    assert flops[1] - flops[0] == (0 if policy == "dots_saveable" else saved)

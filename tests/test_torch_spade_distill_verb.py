@@ -180,15 +180,45 @@ def test_profile_verb_spade_times_counts_and_evaluates(spade_teacher, tmp_path):
     assert shrunk["metrics"] == {}
 
 
-def test_distill_verb_spade_refuses_remat_policy(spade_teacher, tmp_path):
-    """--remat_policy (selective remat, a jax.checkpoint_policies name)
-    raises naming its item; the int8 teacher raises naming its own."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 15c"):
-        entry.distill_main([*spade_teacher["flags"], "--log_dir", str(tmp_path),
-                            "--remat_policy", "dots_saveable"], device="cpu")
+def test_distill_verb_spade_refuses_int8_teacher(spade_teacher, tmp_path):
+    """The int8 teacher raises naming its item."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 18b"):
         entry.distill_main([*spade_teacher["flags"], "--log_dir", str(tmp_path),
                             "--teacher_compute_dtype", "int8"], device="cpu")
+
+
+def _scalars(log_dir):
+    import json
+
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        return [{k: v for k, v in r.items() if "loss" in k} for r in map(json.loads, f)]
+
+
+@pytest.mark.parametrize("remat", ["0", "1"])
+def test_distill_verb_spade_remat_policy(spade_teacher, tmp_path, remat):
+    """--remat_policy dots_saveable: ignored without --remat, as in the JAX
+    package (the run is the plain run, bit for bit); under --remat 1 the
+    selective recompute gives the plain run's losses and student.  An
+    unsupported name fails under --remat 1 before any checkpoint is read."""
+    plain, _ = spade_distill_run(spade_teacher, tmp_path / "plain", "--nepochs", "1")
+    run, calls = spade_distill_run(spade_teacher, tmp_path / "policy", "--nepochs", "1",
+                                   "--remat", remat, "--remat_policy", "dots_saveable")
+    assert run.distiller.hp.remat_policy == "dots_saveable" and len(calls) == 12
+    assert run.distiller.policy is None if remat == "0" else callable(run.distiller.policy)
+    got, want = _scalars(tmp_path / "policy"), _scalars(tmp_path / "plain")
+    assert [r.keys() for r in got] == [r.keys() for r in want]
+    exact = remat == "0"
+    for g, w in zip(got, want):
+        for k in w:
+            _close(g[k], w[k], k, rtol=0 if exact else 1e-5, atol=0 if exact else 1e-7)
+    for k, v in run.state.g.params.items():
+        _close(v.detach(), plain.state.g.params[k].detach(), k, rtol=0 if exact else 1e-5,
+               atol=0 if exact else 1e-6)
+    flags = list(spade_teacher["flags"])
+    flags[flags.index("--restore_teacher_G_path") + 1] = str(tmp_path / "absent.pth")
+    with pytest.raises(ValueError, match="dots_saveable"):
+        entry.distill_main([*flags, "--log_dir", str(tmp_path / "bad"), "--remat", "1",
+                            "--remat_policy", "save_only_these_names"], device="cpu")
 
 
 def test_spade_distiller_wgangp_and_ema_match_jax(rng, tmp_path, monkeypatch):

@@ -185,9 +185,6 @@ def test_every_flag_consumed_raised_or_documented_inert():
 
 
 @pytest.mark.parametrize("flags,match", [
-    # the SPADE distiller's selective remat (item 15c), refused before it
-    # reads a checkpoint
-    (["--distiller", "spade", "--remat_policy", "dots_saveable"], "item 15c"),
     (["--n_devices", "2"], "item 16"),
     (["--n_spatial", "2"], "item 16"),
     (["--multihost", "1"], "item 16"),
@@ -324,15 +321,17 @@ def test_verb_needs_cuda_unless_cpu_is_asked_for(world, tmp_path):
         entry.real_stat_main(["--dataroot", world.data, "--output_path", str(tmp_path / "s.npz")])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry.kid_score_main(["--real", world.data, "--fake", world.data])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry.export_main(["--dataroot", world.data, "--restore_teacher_G_path", world.port_g])
     out = subprocess.run([sys.executable, "-m", "cat_tpu_torch"], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
-    assert "usage: python -m cat_tpu_torch {train,distill,profile,get_real_stat,kid_score}" \
-        in out.stderr
+    assert ("usage: python -m cat_tpu_torch {train,distill,profile,export,get_real_stat,"
+            "kid_score}") in out.stderr
 
 
 @pytest.mark.parametrize("verb, fn", [("train", "train_main"), ("distill", "distill_main"),
-                                      ("profile", "profile_main"),
+                                      ("profile", "profile_main"), ("export", "export_main"),
                                       ("get_real_stat", "real_stat_main"),
                                       ("kid_score", "kid_score_main")])
 def test_main_dispatches_each_verb(monkeypatch, verb, fn):
@@ -417,6 +416,16 @@ def test_ema_and_remat(world, tmp_path):
     assert all(torch.equal(g[k], run.state.extra["ema_G"][k]) for k in g)
     assert all(torch.equal(raw[k], run.state.g.params[k]) for k in raw)
     assert not all(torch.equal(g[k], raw[k]) for k in g)
+
+
+def test_remat_policy_is_inert_for_the_inception_distiller(world, tmp_path):
+    """--remat_policy (the SPADE distiller's selective remat, item 15c) is no
+    longer refused; the inception distiller does not read it, as in the JAX
+    package: --remat 1 with a policy trains exactly as --remat 1 alone."""
+    for name, extra in (("plain", []), ("policy", ["--remat_policy", "dots_saveable"])):
+        entry.distill_main(_args(world, tmp_path / name, "--distill_G_loss_type", "ka",
+                                 "--remat", "1", *extra), device="cpu")
+    assert _finite(tmp_path / "policy", 4) == _finite(tmp_path / "plain", 4)
 
 
 @pytest.mark.parametrize("prune_init", ["reinit", "sliced"])

@@ -1,7 +1,11 @@
 """``python -m cat_tpu_torch <verb> <flags>``: the port's verbs, with the
 flags of the JAX package's ``train.py``, ``distill.py``, ``profile.py``,
 ``export.py``, ``get_real_stat.py`` and ``tools/kid_score.py``.  They run on
-CUDA."""
+CUDA.  ``train`` and ``distill`` also run data-parallel: ``--n_devices k``
+spawns k ranks, one card each; ``--num_processes``, ``--process_id`` and
+``--coordinator_address`` (or a launcher's environment with ``--multihost
+1``, e.g. ``torchrun -m cat_tpu_torch distill ... --multihost 1``) join
+processes started one per card (``parallel/multihost.py``)."""
 
 from __future__ import annotations
 

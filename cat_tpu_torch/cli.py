@@ -93,17 +93,19 @@ def base_arguments(parser: argparse.ArgumentParser):
                    default="pt_inception-2015-12-05.pth",
                    help="FID InceptionV3 torch checkpoint (judge weights)")
     p.add_argument("--n_devices", type=int, default=1,
-                   help='data-parallel devices; only 1 is ported yet')
+                   help='data-parallel ranks on this host, one card each (0 = all cards); '
+                        'train and distill')
     p.add_argument("--n_spatial", type=int, default=1,
                    help='spatial-parallel devices (image height sharded); not ported yet')
     p.add_argument("--multihost", type=int, default=0, choices=[0, 1],
-                   help='span several hosts; not ported yet')
+                   help='join a multi-process run (a launcher\'s RANK, WORLD_SIZE, '
+                        'MASTER_ADDR, MASTER_PORT where the next three flags are absent)')
     p.add_argument("--coordinator_address", type=str, default=None,
-                   help='host:port of process 0 (multi-host; not ported yet)')
+                   help='host:port of process 0 (multi-process)')
     p.add_argument("--num_processes", type=int, default=-1,
-                   help='total process count (multi-host; not ported yet)')
+                   help='total process count (multi-process)')
     p.add_argument("--process_id", type=int, default=-1,
-                   help="this process's rank (multi-host; not ported yet)")
+                   help="this process's rank (multi-process)")
     return p
 
 
@@ -351,12 +353,7 @@ def kid_parser() -> argparse.ArgumentParser:
 
 
 def _multi_gpu(opt):
-    return (
-        ("--n_devices != 1", opt.n_devices != 1, "16, Multi-GPU"),
-        ("--n_spatial != 1", opt.n_spatial != 1, "16, Multi-GPU"),
-        ("--multihost / --num_processes > 1", bool(opt.multihost) or opt.num_processes > 1,
-         "16, Multi-GPU"),
-    )
+    return (("--n_spatial != 1", opt.n_spatial != 1, "16b, spatial parallelism"),)
 
 
 def _raise_unported(checks) -> None:
@@ -366,7 +363,7 @@ def _raise_unported(checks) -> None:
 
 
 def check_train_ported(opt) -> None:
-    """The train verb's ``check_ported``: multi-GPU raises."""
+    """The train verb's ``check_ported``: --n_spatial raises."""
     _raise_unported(_multi_gpu(opt))
 
 
@@ -424,9 +421,10 @@ def transform_spec(opt):
                          no_flip=opt.no_flip, grayscale=(opt.input_nc == 1))
 
 
-def print_options(opt, parser: argparse.ArgumentParser):
-    """Print the options and write them to ``opt.txt`` / ``opt.pkl`` in the
-    log dir, as the JAX package does."""
+def print_options(opt, parser: argparse.ArgumentParser, write: bool = True):
+    """Print the options and, with ``write`` (the primary process), write
+    them to ``opt.txt`` / ``opt.pkl`` in the log dir, as the JAX package
+    does."""
     lines = ["----------------- Options ---------------"]
     for k, v in sorted(vars(opt).items()):
         default = parser.get_default(k)
@@ -435,7 +433,7 @@ def print_options(opt, parser: argparse.ArgumentParser):
     lines.append("----------------- End -------------------")
     message = "\n".join(lines)
     print(message)
-    if opt.log_dir:
+    if write and opt.log_dir:
         os.makedirs(opt.log_dir, exist_ok=True)
         with open(os.path.join(opt.log_dir, "opt.txt"), "a") as f:
             f.write(message + "\n")

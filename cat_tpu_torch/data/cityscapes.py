@@ -17,7 +17,7 @@ one-hot semantics and the instance edges are made on the device
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 from PIL import Image
@@ -77,8 +77,11 @@ class CityscapesDataset:
 def create_cityscapes_dataloader(dataroot: str, batch_size: int, phase: str = "train",
                                  shuffle: bool = True, seed: Optional[int] = None,
                                  drop_last: bool = True, num_workers: int = 4,
-                                 worker_mode: str = "thread", **kwargs) -> DataLoader:
-    """The port's loader over ``CityscapesDataset(dataroot, phase, **kwargs)``."""
+                                 worker_mode: str = "thread",
+                                 process_shard: Optional[Tuple[int, int]] = None,
+                                 **kwargs) -> DataLoader:
+    """The port's loader over ``CityscapesDataset(dataroot, phase, **kwargs)``
+    (``process_shard``: ``loader.DataLoader``'s)."""
     return DataLoader(CityscapesDataset(dataroot, phase, **kwargs), batch_size, shuffle=shuffle,
                       seed=seed, drop_last=drop_last, num_workers=num_workers,
-                      worker_mode=worker_mode)
+                      worker_mode=worker_mode, process_shard=process_shard)

@@ -15,7 +15,7 @@ import copy
 import os
 import random
 import re
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 from PIL import Image
@@ -193,16 +193,18 @@ class UnalignedDataset:
         return (ok_files and s.preprocess == "resize_and_crop" and not s.grayscale
                 and s.aspect_ratio == 1.0 and native_filter_for(s.method) is not None)
 
-    def native_batch(self, indices: List[int], pipe, nthreads: int) -> Dict:
+    def native_batch(self, indices: List[int], pipe, nthreads: int,
+                     keep: slice = slice(None)) -> Dict:
         """A collated batch through the C++ pipeline, as NCHW arrays.  The
         path, crop and flip draws come from ``prepare``, in the order serial
         iteration makes them, so the sample stream is the other backends';
-        the pixels are the JAX package's native backend's."""
+        the pixels are the JAX package's native backend's.  Only the samples
+        ``keep`` selects are decoded (a rank's slice); the draws are made for
+        all of ``indices``."""
         spec = self.spec
         paths: List[str] = []
         cx, cy, fl = [], [], []
-        for index in indices:
-            path_a, path_b, prm_a, prm_b = self.prepare(index)
+        for path_a, path_b, prm_a, prm_b in [self.prepare(i) for i in indices][keep]:
             for p, prm in ((path_a, prm_a), (path_b, prm_b)):
                 paths.append(p)
                 cx.append(prm.crop_pos[0])
@@ -254,7 +256,9 @@ def create_dataloader(
     load_in_memory: bool = False,
     num_workers: int = 4,
     worker_mode: str = "thread",
+    process_shard: Optional[Tuple[int, int]] = None,
 ) -> DataLoader:
+    """The training loader (``process_shard``: ``loader.DataLoader``'s)."""
     if dataset_mode == "aligned":
         ds = AlignedDataset(dataroot, phase, spec, direction, max_size, seed, load_in_memory)
     elif dataset_mode == "unaligned":
@@ -272,7 +276,8 @@ def create_dataloader(
     else:
         raise NotImplementedError(f"dataset mode [{dataset_mode}] not implemented")
     return DataLoader(ds, batch_size, shuffle=not serial_batches, seed=seed,
-                      drop_last=drop_last, num_workers=num_workers, worker_mode=worker_mode)
+                      drop_last=drop_last, num_workers=num_workers, worker_mode=worker_mode,
+                      process_shard=process_shard)
 
 
 def create_eval_dataloader(

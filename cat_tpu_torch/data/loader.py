@@ -7,6 +7,10 @@ contiguous NCHW float32 tensors.
 Every random draw is made serially in the consumer (the datasets'
 ``prepare``), so the sample stream is the same for every backend and worker
 count, and the same as the JAX package's from the same folder and seed.
+With ``process_shard=(rank, world)`` ``batch_size`` is the GLOBAL batch and
+the loader decodes only the rank's contiguous slice of each batch, the JAX
+package's rule; it still makes every draw of the whole batch, so that the
+ranks' slices together are the one-process batch.
 ``device_prefetch`` copies the next batch from pinned memory on a side CUDA
 stream while the current step runs.
 """
@@ -17,7 +21,7 @@ import collections
 import multiprocessing
 import random
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,8 +69,13 @@ class DataLoader:
         drop_last: bool = True,
         num_workers: int = 4,
         worker_mode: str = "thread",
+        process_shard: Optional[Tuple[int, int]] = None,
     ):
-        """``worker_mode``:
+        """``process_shard=(rank, world)``: this rank's slice of every
+        global batch of ``batch_size`` (which ``world`` must divide; a
+        partial last batch is dropped, since it cannot be split).
+
+        ``worker_mode``:
           * ``"thread"``: per-sample decode over a thread pool, two batches
             in flight;
           * ``"process"``: ``num_workers`` worker processes (started with
@@ -78,6 +87,16 @@ class DataLoader:
             dataset's spec is unsupported."""
         if worker_mode not in ("thread", "process", "native"):
             raise ValueError(f"unknown worker_mode {worker_mode!r}")
+        self.keep = slice(None)
+        if process_shard is not None:
+            rank, world = process_shard
+            if batch_size % world:
+                raise ValueError(f"global batch {batch_size} not divisible by {world} processes")
+            if not 0 <= rank < world:
+                raise ValueError(f"process {rank} of {world}")
+            per = batch_size // world
+            self.keep = slice(rank * per, (rank + 1) * per)
+        self.process_shard = process_shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -89,7 +108,7 @@ class DataLoader:
 
     def __len__(self):
         n = len(self.dataset)
-        if self.drop_last:
+        if self.drop_last or self.process_shard is not None:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
@@ -98,9 +117,18 @@ class DataLoader:
         if self.shuffle:
             self.rng.shuffle(idx)
         batches = [idx[i: i + self.batch_size] for i in range(0, len(idx), self.batch_size)]
-        if self.drop_last:
+        if self.drop_last or self.process_shard is not None:
             batches = [b for b in batches if len(b) == self.batch_size]
         return batches
+
+    def _tasks(self, b: List[int]):
+        """(this rank's items of batch ``b``, whether they are prepared
+        tasks for ``load`` or indices): every draw of the whole batch is
+        made, in order, and the rank's slice kept."""
+        prep = getattr(self.dataset, "prepare", None)
+        if prep is not None:
+            return [prep(i) for i in b][self.keep], True
+        return b[self.keep], False
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         for batch in self._numpy_batches():
@@ -110,7 +138,9 @@ class DataLoader:
         batches = self._index_batches()
         if self.num_workers <= 0:
             for b in batches:
-                yield collate([self.dataset[i] for i in b])
+                items, prepared = self._tasks(b)
+                load = self.dataset.load if prepared else self.dataset.__getitem__
+                yield collate([load(t) for t in items])
             return
         if self.worker_mode == "process":
             yield from self._iter_processes(batches)
@@ -123,15 +153,13 @@ class DataLoader:
 
         # per-sample decode fanned out over the pool, _PREFETCH batches in
         # flight; the random draws happen here, serially
-        prep = getattr(self.dataset, "prepare", None)
-        loadf = getattr(self.dataset, "load", None)
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             window: collections.deque = collections.deque()
 
             def submit(b):
-                if prep is not None:
-                    return [pool.submit(loadf, prep(i)) for i in b]
-                return [pool.submit(self.dataset.__getitem__, i) for i in b]
+                items, prepared = self._tasks(b)
+                load = self.dataset.load if prepared else self.dataset.__getitem__
+                return [pool.submit(load, t) for t in items]
 
             for b in batches[:_PREFETCH]:
                 window.append(submit(b))
@@ -163,10 +191,10 @@ class DataLoader:
             with ThreadPoolExecutor(max_workers=1) as pool:
                 window: collections.deque = collections.deque()
                 for b in batches[:_PREFETCH]:
-                    window.append(pool.submit(fetch, b, pipe, self.num_workers))
+                    window.append(pool.submit(fetch, b, pipe, self.num_workers, self.keep))
                 for b in batches[_PREFETCH:]:
                     ready = window.popleft()
-                    window.append(pool.submit(fetch, b, pipe, self.num_workers))
+                    window.append(pool.submit(fetch, b, pipe, self.num_workers, self.keep))
                     yield ready.result()
                 while window:
                     yield window.popleft().result()
@@ -180,12 +208,9 @@ class DataLoader:
             ctx = multiprocessing.get_context("spawn")
             self._pool = ctx.Pool(self.num_workers, initializer=_init_worker,
                                   initargs=(self.dataset,))
-        prep = getattr(self.dataset, "prepare", None)
-
-        def task(b):
-            if prep is not None:  # the random draws stay in this process
-                return ("tasks", [prep(i) for i in b])
-            return ("indices", b)
+        def task(b):  # the random draws stay in this process
+            items, prepared = self._tasks(b)
+            return ("tasks" if prepared else "indices", items)
 
         depth = self.num_workers + _PREFETCH
         window: collections.deque = collections.deque()

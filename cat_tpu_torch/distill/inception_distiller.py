@@ -53,7 +53,8 @@ from cat_tpu_torch.models.discriminators import NLayerDiscriminator, check_task_
 from cat_tpu_torch.models.generator import DEFAULT_MAPPING_LAYERS, InceptionGenerator
 from cat_tpu_torch.models.losses import gan_loss, gradient_penalty, recon_loss
 from cat_tpu_torch.ops.nn import frozen_stats
-from cat_tpu_torch.train.common import GANTrainState, NetState, cast_floats, checkpointed
+from cat_tpu_torch.train.common import (GANTrainState, NetState, average_grads, cast_floats,
+                                        checkpointed, global_metrics)
 from cat_tpu_torch.train.optim import Adam
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -287,7 +288,7 @@ class InceptionDistiller:
                                              generator=state.rng)
             d_loss = d_loss + l_d_gp
         d_grads = torch.autograd.grad(d_loss, list(d_params.values()))
-        state.d.opt.step(d_grads, lr)
+        state.d.opt.step(average_grads(d_grads), lr)
 
         # --- generator + adaptor update through the updated D (no gradient into D) ---
         recon_target = real_B if aligned else t_fake
@@ -308,7 +309,7 @@ class InceptionDistiller:
         g_grads = torch.autograd.grad(l_g_gan + l_g_rec + l_g_dis, g_group,
                                       allow_unused=True, materialize_grads=True)
         state.rng.set_state(rng_now)  # a remat recompute rewound it
-        state.g.opt.step(g_grads, lr)
+        state.g.opt.step(average_grads(g_grads), lr)
 
         if hp.ema_decay > 0:
             ema = list(state.extra["ema_G"].values())
@@ -326,7 +327,7 @@ class InceptionDistiller:
             "D_loss/real": l_d_real,
             **dis_parts,
         }
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, global_metrics(metrics)
 
     # -------------------------------------------------------------- inference
 

@@ -23,6 +23,14 @@ Y is the teacher's activation, whose gradient nobody reads.
 
 KA is invariant to the order of the feature axis, so flattening NCHW
 activations gives the same value as the JAX package's NHWC flatten.
+
+Over several ranks KA is that of the GLOBAL batch, as in the JAX package,
+whose distillers compute the single-device function of a batch-sharded
+input (``tests/test_sharding.py:61-95`` holds the KA step on an 8-way mesh,
+one row a shard, to the single-device step; a KA per shard would be the
+constant 1 there).  ``ka`` gathers both taps' rows from every rank
+(``parallel/collectives.py::all_gather_rows``, the student's with its
+gradient) and runs the Gram kernels on the global rows.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import ctypes
 
 import torch
 
+from cat_tpu_torch.parallel import collectives
 from cat_tpu_torch.utils import cuda_build
 
 _MAX_BATCH = 128
@@ -295,5 +304,6 @@ class _KA(torch.autograd.Function):
 
 
 def ka(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Kernel alignment of two activation batches (any trailing shape)."""
-    return _KA.apply(x, y)
+    """Kernel alignment of two activation batches (any trailing shape); of
+    the global batch when the ranks' collectives run."""
+    return _KA.apply(collectives.all_gather_rows(x), collectives.all_gather_rows(y))

@@ -52,7 +52,8 @@ from cat_tpu_torch.models.losses import gan_loss, gradient_penalty
 from cat_tpu_torch.models.spade import MultiscaleDiscriminator, SPADEGenerator
 from cat_tpu_torch.models.vgg import VGG19Features, vgg_loss
 from cat_tpu_torch.ops.nn import frozen_stats
-from cat_tpu_torch.train.common import GANTrainState, NetState, cast_floats, checkpointed
+from cat_tpu_torch.train.common import (GANTrainState, NetState, average_grads, cast_floats,
+                                        checkpointed, global_metrics)
 from cat_tpu_torch.train.optim import Adam
 from cat_tpu_torch.train.spade_model import discriminate, feature_matching_loss, preprocess_input
 
@@ -314,7 +315,7 @@ class SPADEDistiller:
                                       [*g_params.values(), *state.adaptors.values()],
                                       allow_unused=True, materialize_grads=True)
         state.rng.set_state(rng_now)  # a remat recompute rewound it
-        state.g.opt.step(g_grads, lr_g)
+        state.g.opt.step(average_grads(g_grads), lr_g)
 
         # --- D update: the fake regenerated by the updated student in train
         # mode, its statistics writes discarded ---
@@ -336,7 +337,7 @@ class SPADEDistiller:
         l_d_real = gan_loss(up(pred_real), True, hp.gan_mode, True)
         d_grads = torch.autograd.grad(l_d_fake + l_d_real + d_loss,
                                       list(state.d.params.values()))
-        state.d.opt.step(d_grads, lr_d)
+        state.d.opt.step(average_grads(d_grads), lr_d)
 
         if hp.ema_decay > 0:
             ema = list(state.extra["ema_G"].values())
@@ -349,7 +350,7 @@ class SPADEDistiller:
         metrics = {"G_loss/gan": l_gan, "G_loss/feat": l_feat, "G_loss/vgg": l_vgg,
                    "G_loss/distill": l_dis, "D_loss/fake": l_d_fake, "D_loss/real": l_d_real,
                    **parts}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, global_metrics(metrics)
 
     # -------------------------------------------------------------- inference
 

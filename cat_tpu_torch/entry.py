@@ -30,11 +30,21 @@ dumped (``profile_distill_spade`` under ``--distiller spade``);
 ``real_stat_main`` writes the judge's statistics of a folder;
 ``kid_score_main`` scores two folders.  Every verb runs on CUDA unless the
 caller passes ``device="cpu"``.
+
+The train and distill verbs also run data-parallel, one process a device
+(``parallel/``): ``--n_devices k`` spawns k ranks on this host, and
+``--multihost 1`` / ``--num_processes`` join a group of processes started
+elsewhere.  Every rank builds the same state from the same seed and files
+(then takes rank 0's tensors), decodes its slice of every global batch,
+and computes with the others the single-device step of the global batch;
+the primary alone writes options, logs, checkpoints and dumps.  The other
+verbs run in one process, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -46,6 +56,7 @@ from cat_tpu_torch import cli, import_stdlib_profile, resolve_device
 from cat_tpu_torch.compress.profiling import profile_generator
 from cat_tpu_torch.compress.shrink import PruneBounds, shrink_generator
 from cat_tpu_torch.core.config import config_to_json
+from cat_tpu_torch.parallel import collectives, mesh, multihost
 from cat_tpu_torch.train.common import load_train_state_dict, train_state_dict
 from cat_tpu_torch.train.trainer import Trainer
 from cat_tpu_torch.utils import checkpoint as ckpt
@@ -93,17 +104,71 @@ def _maybe_restore_state(opt, state, convert):
     return state
 
 
-def make_miou_evaluator(opt, generate, eval_loader, device, input_key: Optional[str] = "A"):
+def init_parallel(opt, device=None) -> Tuple[bool, Optional[Tuple[int, int]], torch.device]:
+    """Join the process group the flags ask for (--multihost, or
+    --num_processes above 1, with --coordinator_address and --process_id or
+    a launcher's environment), or take the one a caller brought up; one
+    process otherwise.  Idempotent: the mains call it before the options
+    are written, the setups again.  Returns ``(primary, process_shard,
+    device)``: ``process_shard = (rank, world)`` for the loader and the
+    evaluators, None for a world of one; ``device`` is ``cuda:<local
+    rank>`` in a group unless the caller named one."""
+    nproc = opt.num_processes
+    if opt.multihost or nproc > 1:
+        multihost.initialize(opt.coordinator_address, nproc if nproc > 0 else None,
+                             opt.process_id if opt.process_id >= 0 else None, device=device)
+    rank, world = multihost.process_shard()
+    if device is None and collectives.active():
+        device = torch.device("cuda", multihost.local_rank(rank))
+    return rank == 0, (rank, world) if world > 1 else None, resolve_device(device)
+
+
+def _replicate(state, *nets) -> None:
+    """Every rank's replica from rank 0's tensors: the networks' parameters
+    and buffers, the adaptors and the EMA weights (built alike from one
+    seed and the same files, they should already agree)."""
+    tensors = collectives.module_tensors(*nets)
+    seen = {id(t) for t in tensors}
+    extra = [*state.adaptors.values(),
+             *(t for tree in state.extra.values() for t in tree.values())]
+    collectives.broadcast_(tensors + [t for t in extra if id(t) not in seen])
+
+
+def _verb_rank(device, main, argv: List[str]) -> None:
+    """A spawned rank of --n_devices: the verb ``main`` on ``device`` in
+    the group the spawn brought up."""
+    main(argv, device)
+
+
+def _spawned(opt, main, argv: Optional[List[str]], device) -> bool:
+    """--n_devices k (0: every card) with k above 1 and no group yet: run
+    the verb on k spawned ranks of this host and return True once they all
+    have (a failing rank raises); False leaves the verb to this process."""
+    if opt.n_devices == 1 or collectives.active():
+        return False
+    if opt.multihost or opt.num_processes > 1:
+        raise ValueError("--n_devices spawns the ranks of one host; with --multihost or "
+                         "--num_processes start one process per card instead")
+    n = mesh.n_ranks(opt.n_devices, device)
+    if n == 1:
+        return False
+    mesh.spawn(_verb_rank, n, args=(main, sys.argv[1:] if argv is None else list(argv)),
+               device=device)
+    return True
+
+
+def make_miou_evaluator(opt, generate, eval_loader, device, input_key: Optional[str] = "A",
+                        process_shard=None):
     """The mIoU evaluator of generated Cityscapes photos, where the JAX
     package makes one (a dataroot naming cityscapes, direction BtoA;
     reference distillers/inception_distiller.py:262-279), or None; warns, as
     it does, when the DRN weights or the table file are absent."""
     if "cityscapes" not in opt.dataroot or opt.direction != "BtoA":
         return None
-    return _miou_judge(opt, generate, eval_loader, device, input_key)
+    return _miou_judge(opt, generate, eval_loader, device, input_key, process_shard)
 
 
-def _miou_judge(opt, generate, eval_loader, device, input_key):
+def _miou_judge(opt, generate, eval_loader, device, input_key, process_shard=None):
     if not (opt.drn_path and os.path.exists(opt.drn_path)):
         print(f"WARNING: DRN weights not found at {opt.drn_path!r}; mIoU disabled.")
         return None
@@ -115,7 +180,8 @@ def _miou_judge(opt, generate, eval_loader, device, input_key):
 
     return MIoUEvaluator(generate, eval_loader, load_drnseg(opt.drn_path, device=device),
                          opt.table_path, data_dir=opt.cityscapes_path,
-                         batch_size=opt.eval_batch_size, input_key=input_key, device=device)
+                         batch_size=opt.eval_batch_size, input_key=input_key, device=device,
+                         process_shard=process_shard)
 
 
 def _real_stats(path: Optional[str]) -> Optional[Dict[str, np.ndarray]]:
@@ -127,17 +193,18 @@ def _real_stats(path: Optional[str]) -> Optional[Dict[str, np.ndarray]]:
     return None
 
 
-def _make_train_loader(opt, spec, device: torch.device):
-    """Host DataLoader, or the device-resident bank with --on_device_data
-    (unaligned resize_and_crop without --serial_batches; other modes fall
-    back to the host loader, as in the JAX package)."""
+def _make_train_loader(opt, spec, device: torch.device, process_shard=None):
+    """Host DataLoader (this rank's slices under ``process_shard``), or the
+    device-resident bank with --on_device_data (unaligned resize_and_crop
+    without --serial_batches, on one process; otherwise the host loader, as
+    in the JAX package)."""
     if opt.dataset_mode == "cityscapes":
         # the JAX package's generic loader has no cityscapes mode: only the
         # SPADE family's own loaders (--model spade, --distiller spade) read it
         raise NotImplementedError(f"dataset mode [{opt.dataset_mode}] not implemented")
     if opt.on_device_data:
         if (opt.dataset_mode == "unaligned" and spec.preprocess == "resize_and_crop"
-                and not spec.grayscale and not opt.serial_batches):
+                and not spec.grayscale and not opt.serial_batches and process_shard is None):
             from cat_tpu_torch.data.device_data import DeviceData, DeviceDataLoader
 
             dd, n = DeviceData.from_unaligned(opt.dataroot, opt.phase, spec.load_size,
@@ -153,7 +220,7 @@ def _make_train_loader(opt, spec, device: torch.device):
         opt.dataset_mode, opt.dataroot, opt.batch_size, spec, phase=opt.phase,
         direction=opt.direction, serial_batches=opt.serial_batches,
         max_size=opt.max_dataset_size, seed=opt.seed, load_in_memory=opt.load_in_memory,
-        num_workers=opt.num_threads, worker_mode=opt.data_backend,
+        num_workers=opt.num_threads, worker_mode=opt.data_backend, process_shard=process_shard,
     )
 
 
@@ -196,6 +263,24 @@ def _load_net(path: str, convert, what: str) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _write_student_config(opt, student_cfg, primary: bool) -> None:
+    """student_config.json, by the primary, once every rank holds the same
+    student architecture."""
+    text = config_to_json(student_cfg)
+    collectives.check_same(text, "the student config")
+    if primary:
+        with open(os.path.join(opt.log_dir, "student_config.json"), "w") as f:
+            f.write(text)
+
+
+def _trainer(opt, step_fn, loader, evaluate_fn, save_fn, logger, device, save_dir,
+             primary: bool) -> Trainer:
+    """The verb's trainer; only the primary saves and copies checkpoints."""
+    return Trainer(step_fn, loader, cli.trainer_config(opt), evaluate_fn,
+                   save_fn if primary else None, logger, device=device,
+                   copy_tag_fn=(lambda s, d: ckpt.copy_tag(save_dir, s, d)) if primary else None)
+
+
 @dataclass
 class DistillRun:
     """What ``setup_distill`` builds; ``distill_main`` returns it with the
@@ -233,12 +318,12 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
     from cat_tpu_torch.data.datasets import create_eval_dataloader
     from cat_tpu_torch.train.evaluation import FIDEvaluator, combine_evaluators
 
-    device = resolve_device(device)
+    primary, pshard, device = init_parallel(opt, device)
     cli.set_seed(opt.seed)
     spec = cli.transform_spec(opt)
     if loader is None:
-        loader = _make_train_loader(opt, spec, device)
-    logger = Logger(opt.log_dir, opt.tensorboard_dir)
+        loader = _make_train_loader(opt, spec, device, pshard)
+    logger = Logger(opt.log_dir, opt.tensorboard_dir, mute=not primary)
     save_dir = os.path.join(opt.log_dir, "checkpoints")
 
     teacher_norm = cli.norm_config(opt, opt.norm_affine)
@@ -310,8 +395,8 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
                     v.copy_(a_sd[k])
     state = _maybe_restore_state(opt, state, lambda t: jax_import.distill_state_dict(
         t, dist.student_cfg, dist.disc_cfg, adaptors=bool(state.adaptors)))
-    with open(os.path.join(opt.log_dir, "student_config.json"), "w") as f:
-        f.write(config_to_json(student_cfg))
+    _write_student_config(opt, student_cfg, primary)
+    _replicate(state, dist.netG_teacher, dist.netG_student, dist.netD, dist.netA)
     if opt.prune_only:
         logger.print_info("prune_only: student architecture emitted; exiting.")
         return DistillRun(None, state, dist, teacher_params, student_cfg, loader, logger)
@@ -328,11 +413,11 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
     if judge is not None and stats is not None:
         evs.append(FIDEvaluator(
             lambda x: dist.generate_student(state_box[0], x), eval_loader, judge, stats,
-            opt.log_dir, opt.eval_batch_size,
+            opt.log_dir if primary else None, opt.eval_batch_size,
             teacher_generate=lambda x: dist.generate_teacher(teacher_params, x),
-            device=device))
+            device=device, process_shard=pshard))
     miou = make_miou_evaluator(opt, lambda x: dist.generate_student(state_box[0], x),
-                               eval_loader, device)
+                               eval_loader, device, process_shard=pshard)
     if miou is not None:
         evs.append(miou)
     evaluate_fn = combine_evaluators(**{"": evs}) if evs else None
@@ -362,8 +447,8 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
         state_box[0] = state
         return state, metrics
 
-    trainer = Trainer(step_fn, loader, cli.trainer_config(opt), evaluate_fn, save_fn, logger,
-                      device=device, copy_tag_fn=lambda s, d: ckpt.copy_tag(save_dir, s, d))
+    trainer = _trainer(opt, step_fn, loader, evaluate_fn, save_fn, logger, device, save_dir,
+                       primary)
     return DistillRun(trainer, state, dist, teacher_params, student_cfg, loader, logger)
 
 
@@ -417,9 +502,9 @@ def setup_distill_spade(opt, device=None, loader=None) -> DistillRun:
 
     if opt.remat:
         remat_policy(opt.remat_policy)  # an unsupported name fails before any checkpoint is read
-    device = resolve_device(device)
+    primary, pshard, device = init_parallel(opt, device)
     cli.set_seed(opt.seed)
-    logger = Logger(opt.log_dir, opt.tensorboard_dir)
+    logger = Logger(opt.log_dir, opt.tensorboard_dir, mute=not primary)
     save_dir = os.path.join(opt.log_dir, "checkpoints")
 
     teacher_cfg, teacher_sd = load_spade_checkpoint(opt.restore_teacher_G_path, opt)
@@ -469,8 +554,8 @@ def setup_distill_spade(opt, device=None, loader=None) -> DistillRun:
     state, teacher_params = dist.init_state(teacher_sd, student_sd, disc_sd, seed=opt.seed)
     state = _maybe_restore_state(opt, state, lambda t: jax_import.spade_distill_state_dict(
         t, student_cfg, d_cfg))
-    with open(os.path.join(opt.log_dir, "student_config.json"), "w") as f:
-        f.write(config_to_json(student_cfg))
+    _write_student_config(opt, student_cfg, primary)
+    _replicate(state, dist.netG_teacher, dist.netG_student, dist.netD, dist.netA)
     if opt.prune_only:
         logger.print_info("prune_only: student architecture emitted; exiting.")
         return DistillRun(None, state, dist, teacher_params, student_cfg, loader, logger)
@@ -481,11 +566,12 @@ def setup_distill_spade(opt, device=None, loader=None) -> DistillRun:
             load_size=opt.load_size, crop_size=opt.crop_size, aspect_ratio=opt.aspect_ratio,
             no_instance=opt.no_instance, pairing_check=not opt.no_pairing_check,
             max_size=opt.max_dataset_size, num_workers=opt.num_threads,
-            worker_mode=opt.data_backend)
+            worker_mode=opt.data_backend, process_shard=pshard)
     state_box = [state]
     evaluate_fn = _spade_evaluators(
         opt, lambda b: dist.generate_student_raw(state_box[0], b), device,
-        teacher_generate=lambda b: dist.generate_teacher_raw(teacher_params, b))
+        teacher_generate=lambda b: dist.generate_teacher_raw(teacher_params, b),
+        primary=primary, process_shard=pshard)
 
     def save_fn(state, tag):
         # net_G holds what evaluation and deployment use (the EMA weights
@@ -508,22 +594,25 @@ def setup_distill_spade(opt, device=None, loader=None) -> DistillRun:
         state_box[0] = state
         return state, metrics
 
-    trainer = Trainer(step_fn, loader, cli.trainer_config(opt), evaluate_fn, save_fn, logger,
-                      device=device, copy_tag_fn=lambda s, d: ckpt.copy_tag(save_dir, s, d))
+    trainer = _trainer(opt, step_fn, loader, evaluate_fn, save_fn, logger, device, save_dir,
+                       primary)
     return DistillRun(trainer, state, dist, teacher_params, student_cfg, loader, logger)
 
 
-def distill_main(argv: Optional[List[str]] = None, device=None) -> DistillRun:
+def distill_main(argv: Optional[List[str]] = None, device=None) -> Optional[DistillRun]:
     """``python -m cat_tpu_torch distill <flags>``: the JAX package's distill
     flags, with the SPADE distiller's defaults (``cli.SPADE_DISTILL_DEFAULTS``)
     under --distiller spade; runs on CUDA unless ``device`` says otherwise
-    (the tests pass ``device="cpu"``)."""
+    (the tests pass ``device="cpu"``).  Under --n_devices k the ranks run in
+    spawned processes and this returns None."""
     parser = cli.distill_parser()
     opt = parser.parse_args(argv)
     cli.apply_distill_defaults(opt, parser)
     cli.check_ported(opt)
-    device = resolve_device(device)
-    cli.print_options(opt, parser)
+    if _spawned(opt, distill_main, argv, device):
+        return None
+    primary, _, device = init_parallel(opt, device)
+    cli.print_options(opt, parser, write=primary)
     run = setup_distill(opt, device)
     try:
         if run.trainer is not None:
@@ -564,12 +653,12 @@ def setup_train(opt, device=None, loader=None) -> TrainRun:
     cli.check_train_ported(opt)
     if opt.model == "spade":
         return setup_train_spade(opt, device, loader)
-    device = resolve_device(device)
+    primary, pshard, device = init_parallel(opt, device)
     cli.set_seed(opt.seed)
     spec = cli.transform_spec(opt)
     if loader is None:
-        loader = _make_train_loader(opt, spec, device)
-    logger = Logger(opt.log_dir, opt.tensorboard_dir)
+        loader = _make_train_loader(opt, spec, device, pshard)
+    logger = Logger(opt.log_dir, opt.tensorboard_dir, mute=not primary)
     save_dir = os.path.join(opt.log_dir, "checkpoints")
     gen_cfg = cli.generator_config(opt, opt.ngf)
     judge = cli.make_fid_judge(opt, device)
@@ -598,10 +687,10 @@ def setup_train(opt, device=None, loader=None) -> TrainRun:
         evs = []
         if judge is not None and stats is not None:
             evs.append(FIDEvaluator(lambda x: task.generate(state_box[0], x), eval_loader,
-                                    judge, stats, opt.log_dir, opt.eval_batch_size,
-                                    device=device))
+                                    judge, stats, opt.log_dir if primary else None,
+                                    opt.eval_batch_size, device=device, process_shard=pshard))
         miou = make_miou_evaluator(opt, lambda x: task.generate(state_box[0], x), eval_loader,
-                                   device)
+                                   device, process_shard=pshard)
         if miou is not None:
             evs.append(miou)
         evaluators = {"": evs} if evs else {}
@@ -633,12 +722,13 @@ def setup_train(opt, device=None, loader=None) -> TrainRun:
                                                  opt.eval_batch_size, spec, direction)
             evaluators[name] = FIDEvaluator(
                 lambda x, d=direction: task.generate(state_box[0], x, d), eval_loader, judge,
-                stats, opt.log_dir, opt.eval_batch_size, device=device,
-                name=f"fid_{'B' if name == 'A' else 'A'}")
+                stats, opt.log_dir if primary else None, opt.eval_batch_size, device=device,
+                name=f"fid_{'B' if name == 'A' else 'A'}", process_shard=pshard)
         nets = {f"{kind}_{n}": (net[n], cfg) for kind, net, cfg in
                 (("G", task.netG, gen_cfg), ("D", task.netD, d_cfg)) for n in "AB"}
     else:
         raise NotImplementedError(f"model [{opt.model}]")
+    _replicate(state, task.netG, task.netD)
     state_box.append(state)
 
     def save_fn(state, tag):
@@ -654,18 +744,19 @@ def setup_train(opt, device=None, loader=None) -> TrainRun:
         state_box[0] = state
         return state, metrics
 
-    trainer = Trainer(step_fn, loader, cli.trainer_config(opt),
-                      combine_evaluators(**evaluators) if evaluators else None, save_fn, logger,
-                      device=device, copy_tag_fn=lambda s, d: ckpt.copy_tag(save_dir, s, d))
+    trainer = _trainer(opt, step_fn, loader,
+                       combine_evaluators(**evaluators) if evaluators else None, save_fn, logger,
+                       device, save_dir, primary)
     return TrainRun(trainer, state, task, gen_cfg, d_cfg, loader, logger)
 
 
-def _spade_evaluators(opt, generate, device, teacher_generate=None):
+def _spade_evaluators(opt, generate, device, teacher_generate=None, primary=True,
+                      process_shard=None):
     """FID and mIoU over the Cityscapes val split for SPADE training and
     distillation (reference spade_model.evaluate_model:217-288,
     spade_distiller.py:96-172), each where its files exist; the combined
     evaluate function, or None.  ``teacher_generate``: the teacher's images
-    are dumped beside the student's."""
+    are dumped beside the student's (by the primary)."""
     from cat_tpu_torch.data.cityscapes import create_cityscapes_dataloader
     from cat_tpu_torch.train.evaluation import FIDEvaluator, combine_evaluators
 
@@ -682,11 +773,12 @@ def _spade_evaluators(opt, generate, device, teacher_generate=None):
         num_workers=opt.num_threads)
     evs = []
     if judge is not None and stats is not None:
-        evs.append(FIDEvaluator(generate, eval_loader, judge, stats, opt.log_dir,
-                                opt.eval_batch_size, teacher_generate=teacher_generate,
-                                device=device, input_key=None))
+        evs.append(FIDEvaluator(generate, eval_loader, judge, stats,
+                                opt.log_dir if primary else None, opt.eval_batch_size,
+                                teacher_generate=teacher_generate, device=device,
+                                input_key=None, process_shard=process_shard))
     if want_miou:
-        evs.append(_miou_judge(opt, generate, eval_loader, device, input_key=None))
+        evs.append(_miou_judge(opt, generate, eval_loader, device, None, process_shard))
     return combine_evaluators(**{"": evs})
 
 
@@ -700,9 +792,9 @@ def setup_train_spade(opt, device=None, loader=None) -> TrainRun:
     from cat_tpu_torch.data.cityscapes import create_cityscapes_dataloader
     from cat_tpu_torch.train.spade_model import SPADEHParams, SPADETask
 
-    device = resolve_device(device)
+    primary, pshard, device = init_parallel(opt, device)
     cli.set_seed(opt.seed)
-    logger = Logger(opt.log_dir, opt.tensorboard_dir)
+    logger = Logger(opt.log_dir, opt.tensorboard_dir, mute=not primary)
     save_dir = os.path.join(opt.log_dir, "checkpoints")
     gen_cfg = cli.spade_generator_config(opt, opt.ngf, opt.norm_G)
     d_cfg = MultiscaleDiscriminatorConfig(input_nc=gen_cfg.semantic_nc + gen_cfg.output_nc,
@@ -724,6 +816,7 @@ def setup_train_spade(opt, device=None, loader=None) -> TrainRun:
     state = task.init_state(opt.seed, g_sd)
     state = _maybe_restore_state(opt, state, lambda t: jax_import.train_state_dict(
         t, "spade", gen_cfg, d_cfg))
+    _replicate(state, task.netG, task.netD)
     if loader is None:
         loader = create_cityscapes_dataloader(
             opt.dataroot, opt.batch_size, phase=opt.phase, shuffle=not opt.serial_batches,
@@ -731,9 +824,10 @@ def setup_train_spade(opt, device=None, loader=None) -> TrainRun:
             aspect_ratio=opt.aspect_ratio, no_instance=opt.no_instance,
             pairing_check=not opt.no_pairing_check, max_size=opt.max_dataset_size,
             load_in_memory=opt.load_in_memory, num_workers=opt.num_threads,
-            worker_mode=opt.data_backend)
+            worker_mode=opt.data_backend, process_shard=pshard)
     state_box = [state]
-    evaluate_fn = _spade_evaluators(opt, lambda b: task.generate_raw(state_box[0], b), device)
+    evaluate_fn = _spade_evaluators(opt, lambda b: task.generate_raw(state_box[0], b), device,
+                                    primary=primary, process_shard=pshard)
 
     def save_fn(state, tag):
         ckpt.save_net(save_dir, tag, "G", task.netG.state_dict(), gen_cfg)
@@ -748,21 +842,24 @@ def setup_train_spade(opt, device=None, loader=None) -> TrainRun:
         state_box[0] = state
         return state, metrics
 
-    trainer = Trainer(step_fn, loader, cli.trainer_config(opt), evaluate_fn, save_fn, logger,
-                      device=device, copy_tag_fn=lambda s, d: ckpt.copy_tag(save_dir, s, d))
+    trainer = _trainer(opt, step_fn, loader, evaluate_fn, save_fn, logger, device, save_dir,
+                       primary)
     return TrainRun(trainer, state, task, gen_cfg, d_cfg, loader, logger)
 
 
-def train_main(argv: Optional[List[str]] = None, device=None) -> TrainRun:
+def train_main(argv: Optional[List[str]] = None, device=None) -> Optional[TrainRun]:
     """``python -m cat_tpu_torch train <flags>``: the JAX package's train
     flags, with its per-model defaults (``cli.TRAIN_MODEL_DEFAULTS``); runs
-    on CUDA unless ``device`` says otherwise."""
+    on CUDA unless ``device`` says otherwise.  Under --n_devices k the ranks
+    run in spawned processes and this returns None."""
     parser = cli.train_parser()
     opt = parser.parse_args(argv)
     cli.apply_train_defaults(opt, parser)
     cli.check_train_ported(opt)
-    device = resolve_device(device)
-    cli.print_options(opt, parser)
+    if _spawned(opt, train_main, argv, device):
+        return None
+    primary, _, device = init_parallel(opt, device)
+    cli.print_options(opt, parser, write=primary)
     run = setup_train(opt, device)
     try:
         run.state = run.trainer.fit(run.state)

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import json
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -220,7 +220,7 @@ def resize_bilinear(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
 
 def get_miou(fakes_m11, labels: Sequence[np.ndarray], model: DRNSeg, batch_size: int = 2,
              target_hw: Tuple[int, int] = (1024, 2048),
-             num_classes: Optional[int] = None) -> float:
+             num_classes: Optional[int] = None, hist_reduce: Optional[Callable] = None) -> float:
     """mIoU (percent, two decimals) of generated street photos against
     trainId label maps.
 
@@ -229,7 +229,10 @@ def get_miou(fakes_m11, labels: Sequence[np.ndarray], model: DRNSeg, batch_size:
     batch: to [0, 1], a bilinear upscale to ``target_hw`` *before* the judge
     (reference SegList, mIoU_score.py:72-75), Cityscapes normalisation, the
     judge, a bilinear resize of the logits to ``target_hw``, argmax and the
-    confusion matrix.  ``num_classes`` follows the judge by default."""
+    confusion matrix.  ``num_classes`` follows the judge by default.
+    ``hist_reduce``: the merge of the confusion matrix over the ranks of an
+    evaluation split between them (``parallel/multihost.py::reduce_hist``);
+    ``fakes_m11`` may then be empty."""
     device = next(model.parameters()).device
     n_cls = model.classes if num_classes is None else num_classes
     hist = torch.zeros((n_cls, n_cls), dtype=torch.int64, device=device)
@@ -241,4 +244,7 @@ def get_miou(fakes_m11, labels: Sequence[np.ndarray], model: DRNSeg, batch_size:
         for j in range(pred.shape[0]):
             label = torch.from_numpy(np.asarray(labels[i + j]).astype(np.int64)).to(device)
             hist += fast_hist(pred[j], label, n_cls)
-    return round(mean_iou(hist.cpu().numpy()), 2)
+    hist = hist.cpu().numpy()
+    if hist_reduce is not None:
+        hist = hist_reduce(hist)
+    return round(mean_iou(hist), 2)

@@ -14,7 +14,7 @@ as the reference does (metric/__init__.py:13-14).  Images are NCHW.
 from __future__ import annotations
 
 import warnings
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -96,11 +96,31 @@ def calculate_frechet_distance(mu1: np.ndarray, sigma1: np.ndarray, mu2: np.ndar
 
 
 def get_fid(fakes, model: InceptionV3FID, real_stats: Dict[str, np.ndarray],
-            batch_size: int = 32) -> float:
+            batch_size: int = 32, moments_reduce: Optional[Callable] = None,
+            distance: bool = True) -> Optional[float]:
     """FID of generated [-1, 1] NCHW images against cached real statistics
-    ({'mu', 'sigma'}, as get_real_stat writes them)."""
-    act = get_activations(tensor2im_batch(fakes), model, batch_size)
-    mu, sigma = compute_statistics(act)
+    ({'mu', 'sigma'}, as get_real_stat writes them).
+
+    ``moments_reduce``: the merge over the ranks of an evaluation split
+    between them (``parallel/multihost.py::reduce_moments``): this rank's
+    float64 moments (n, Σa, Σaaᵀ) of its activations go in, the sums over
+    the ranks come out, and mu and sigma follow from them (np.cov over the
+    joined activations, ddof 1).  ``fakes`` may then be empty.  With
+    ``distance`` off the rank joins the merge and returns None: the primary
+    alone takes the matrix square root."""
+    fakes = np.asarray(fakes) if not isinstance(fakes, torch.Tensor) else fakes
+    n = fakes.shape[0]
+    act = get_activations(tensor2im_batch(fakes), model, batch_size) if n else None
+    if moments_reduce is None:
+        mu, sigma = compute_statistics(act)
+    else:
+        a64 = None if act is None else act.astype(np.float64)
+        n, s1, s2 = moments_reduce(n, None if a64 is None else a64.sum(axis=0),
+                                   None if a64 is None else a64.T @ a64)
+        mu = s1 / n
+        sigma = (s2 - np.outer(s1, s1) / n) / (n - 1)
+    if not distance:
+        return None
     return calculate_frechet_distance(mu, sigma, real_stats["mu"], real_stats["sigma"])
 
 

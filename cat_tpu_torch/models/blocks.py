@@ -21,14 +21,17 @@ from torch import nn
 from cat_tpu_torch.core.config import InceptionBlockConfig, NormConfig
 from cat_tpu_torch.ops.instance_norm import fused_instance_norm_act
 from cat_tpu_torch.ops.nn import Norm2d, activation, instance_norm_f32, spatial_pad
+from cat_tpu_torch.parallel import collectives
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout whose mask is drawn from ``generator``."""
+    """Inverted dropout whose mask is drawn from ``generator``; over several
+    ranks, the global batch's mask on every rank, this rank's rows kept."""
     if not train or rate <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    shape = (collectives.global_rows(x.shape[0]), *x.shape[1:])
+    keep = collectives.local_rows(torch.rand(shape, generator=generator, device=x.device)) >= rate
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 

@@ -8,6 +8,8 @@ from typing import Callable, Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 
+from cat_tpu_torch.parallel import collectives
+
 Pred = Union[torch.Tensor, Sequence]
 
 
@@ -48,9 +50,12 @@ def gan_loss(prediction: Pred, target_is_real: bool, mode: str = "lsgan",
 def mixing_weights(n: int, generator: Optional[torch.Generator],
                    like: torch.Tensor) -> torch.Tensor:
     """Per-sample interpolation weights α ~ U[0, 1) of the mixed penalty,
-    shaped (n, 1, 1, 1) to broadcast over an NCHW batch."""
-    return torch.rand((n,) + (1,) * (like.dim() - 1), generator=generator,
-                      device=like.device, dtype=like.dtype)
+    shaped (n, 1, 1, 1) to broadcast over an NCHW batch.  Over several ranks
+    the global batch's weights are drawn on every rank and this rank's rows
+    kept, so the ranks draw what one process would."""
+    return collectives.local_rows(torch.rand(
+        (collectives.global_rows(n),) + (1,) * (like.dim() - 1), generator=generator,
+        device=like.device, dtype=like.dtype))
 
 
 def _leaves(out):

@@ -29,7 +29,8 @@ and its SPADE norm's, as kernel-size-homogeneous packed convolutions
 (``_packed_branches``, the JAX package's ``_packed_branches``): the same
 function of the same parameters and buffers, whose state_dict does not
 change, so checkpoints, the shrink and the transfer do not depend on the
-layout.  One device: ``syncbatch`` is batch norm.
+layout.  ``syncbatch`` and ``batch`` alike take the global batch's
+statistics when the ranks' collectives run (``ops/nn.py::batch_moments``).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from cat_tpu_torch.core.config import NormConfig
 from cat_tpu_torch.core.spade_config import (MultiscaleDiscriminatorConfig, SPADEBlockConfig,
                                              SPADEGeneratorConfig, SPADELayerConfig)
 from cat_tpu_torch.models.blocks import center_pad_kernel
-from cat_tpu_torch.ops.nn import Norm2d, activation, init_weights
+from cat_tpu_torch.ops.nn import Norm2d, activation, batch_moments, init_weights
 from cat_tpu_torch.ops.spectral import SpectralConv2d
 
 
@@ -129,9 +130,7 @@ def _packed_norm_act(y: torch.Tensor, norms: Sequence[Norm2d], train: bool,
     yf = y.float()
     widths = [n.running_mean.numel() for n in norms]
     if train:
-        mean = yf.mean(dim=(0, 2, 3))
-        var = yf.square().mean(dim=(0, 2, 3)) - mean.square()
-        n = y.shape[0] * y.shape[2] * y.shape[3]
+        mean, var, n = batch_moments(yf)  # over the global batch, as Norm2d's
         for norm, m, v in zip(norms, mean.split(widths), var.split(widths)):
             norm.track(m, v, n)
     else:

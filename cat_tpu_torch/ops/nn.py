@@ -17,6 +17,7 @@ from torch import nn
 
 from cat_tpu_torch.core.config import NormConfig
 from cat_tpu_torch.ops.spectral import SpectralConv2d
+from cat_tpu_torch.parallel import collectives
 
 # ---------------------------------------------------------------------------
 # Padding
@@ -148,8 +149,9 @@ class Norm2d(nn.Module):
     cast back to the input dtype.  Parameters are named ``weight``/``bias``
     and running statistics ``running_mean``/``running_var``, as in torch.
 
-    Batch norm (``syncbatch`` on one device is ``batch``): with ``train``
-    the batch statistics over (N, H, W) normalise, with the biased variance;
+    Batch norm (``syncbatch`` and ``batch`` alike): with ``train`` the batch
+    statistics over (N, H, W) normalise, with the biased variance, over the
+    global batch when the ranks' collectives run (``batch_moments``);
     with tracked statistics they also move the running estimates,
     ``running = (1-m)·running + m·batch`` with the *unbiased* variance,
     unless ``update_stats`` is off (``frozen_stats``).  Without ``train``
@@ -183,10 +185,9 @@ class Norm2d(nn.Module):
             return instance_norm(x, self.weight, self.bias, cfg.eps)
         xf = x.float()
         if train or not self.tracks_stats:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = xf.square().mean(dim=(0, 2, 3)) - mean.square()
+            mean, var, n = batch_moments(xf)
             if train:
-                self.track(mean, var, x.shape[0] * x.shape[2] * x.shape[3])
+                self.track(mean, var, n)
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean[:, None, None]) * torch.rsqrt(var + cfg.eps)[:, None, None]
@@ -208,6 +209,26 @@ class Norm2d(nn.Module):
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         state_dict.pop(prefix + "num_batches_tracked", None)
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+def batch_moments(xf: torch.Tensor):
+    """Per-channel mean and biased variance E[x²] - mean² of a float32 NCHW
+    batch over (N, H, W), and the count of values a channel.  When the
+    ranks' collectives run, over the global batch: the sums of x and x² are
+    all-reduced with their gradient (``parallel/collectives.py``), as the
+    JAX package's batch norm over a sharded batch axis is synchronised;
+    every rank holds an equal share, so the count is the rank's times the
+    world size."""
+    n = xf.shape[0] * xf.shape[2] * xf.shape[3]
+    if not collectives.active():
+        mean = xf.mean(dim=(0, 2, 3))
+        return mean, xf.square().mean(dim=(0, 2, 3)) - mean.square(), n
+    c = xf.shape[1]
+    n *= collectives.world()[1]
+    sums = collectives.all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                                 xf.square().sum(dim=(0, 2, 3))]))
+    mean = sums[:c] / n
+    return mean, sums[c:] / n - mean.square(), n
 
 
 @contextmanager

@@ -10,13 +10,15 @@ from __future__ import annotations
 
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from cat_tpu_torch import import_stdlib_profile
 from cat_tpu_torch.ops.nn import frozen_stats
 from cat_tpu_torch.ops.spectral import SpectralConv2d
+from cat_tpu_torch.parallel import collectives
 from cat_tpu_torch.train.optim import Adam
 from cat_tpu_torch.utils.image_pool import ImagePool
 
@@ -58,6 +60,42 @@ def net_state(net: torch.nn.Module, beta1: float) -> NetState:
     statistics, all the module's own tensors."""
     params = dict(net.named_parameters())
     return NetState(params, Adam(params.values(), beta1), dict(net.named_buffers()))
+
+
+_BUCKET_BYTES = 64 << 20  # a flattened all-reduce's size
+
+
+def average_grads(grads: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
+    """The gradients averaged over the ranks (of ``group``, the default
+    group when None): all-reduced in flattened buckets of up to 64 MiB a
+    dtype and divided by the world size.  Each rank's losses are means over
+    its equal share of the global batch, so the average is the gradient of
+    the global batch's loss.  Without a group, ``grads`` as they are.  The
+    steps call it before every optimiser step (no DDP: the steps are
+    functional, D runs several forwards an update, and remat recomputes
+    the forward)."""
+    grads = list(grads)
+    if not collectives.active():
+        return grads
+    world = dist.get_world_size(group)
+    out: List[Optional[torch.Tensor]] = [None] * len(grads)
+    for idx in collectives.buckets(grads, _BUCKET_BYTES):
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=group)
+        flat.div_(world)
+        for i, g in zip(idx, collectives.unflatten(flat, [grads[i] for i in idx])):
+            out[i] = g
+    return out
+
+
+def global_metrics(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A step's metrics (0-d tensors) detached and averaged over the ranks,
+    in one all-reduce: every rank reports the global batch's means, as the
+    JAX package's hosts do."""
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if not collectives.active() or not metrics:
+        return metrics
+    return dict(zip(metrics, average_grads([v.float() for v in metrics.values()])))
 
 
 def checkpointed(fn, net: torch.nn.Module, rng: torch.Generator, policy=None):

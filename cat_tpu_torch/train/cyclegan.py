@@ -9,7 +9,9 @@ Reference: models/cycle_gan_model.py (losses 267-290, G-first-then-D order
   2. the generators update against the *pre-update* discriminators; no
      forward of this half moves a running statistic (the JAX task never
      writes G's, and reads D's as they are);
-  3. both pools mix the detached fakes with their history;
+  3. both pools mix the detached fakes with their history: over several
+     ranks, the global batch's fakes, gathered, in one pool that every rank
+     holds alike (its draws seeded alike), each rank keeping its rows;
   4. the discriminators update on the reals and the pooled fakes, each
      net's two forwards moving its running statistics (real, then fake),
      plus the gradient penalty under wgangp.
@@ -33,7 +35,9 @@ from cat_tpu_torch.models.discriminators import NLayerDiscriminator, check_task_
 from cat_tpu_torch.models.generator import InceptionGenerator
 from cat_tpu_torch.models.losses import gan_loss, gradient_penalty, recon_loss
 from cat_tpu_torch.ops.nn import frozen_stats
-from cat_tpu_torch.train.common import GANTrainState, checkpointed, net_state
+from cat_tpu_torch.parallel.collectives import all_gather_rows, local_rows
+from cat_tpu_torch.train.common import (GANTrainState, average_grads, checkpointed,
+                                        global_metrics, net_state)
 from cat_tpu_torch.utils.image_pool import ImagePool
 
 
@@ -127,11 +131,12 @@ class CycleGANTask:
         rng_now = state.rng.get_state()
         g_grads = torch.autograd.grad(sum(losses.values()), list(state.g.params.values()))
         state.rng.set_state(rng_now)  # a remat recompute rewound it
-        state.g.opt.step(g_grads, lr)
+        state.g.opt.step(average_grads(g_grads), lr)
 
-        # --- replay pools (reference ImagePool.query) ---
-        fake_B_mixed = state.pools["fake_B"].query(fake_B.detach())
-        fake_A_mixed = state.pools["fake_A"].query(fake_A.detach())
+        # --- replay pools (reference ImagePool.query): one pool over the
+        # global batch's fakes, the same on every rank, each keeping its rows
+        fake_B_mixed = local_rows(state.pools["fake_B"].query(all_gather_rows(fake_B.detach())))
+        fake_A_mixed = local_rows(state.pools["fake_A"].query(all_gather_rows(fake_A.detach())))
 
         # --- discriminator update (reference backward_D_basic: 238-265) ---
         for name, real, fake in (("A", real_B, fake_B_mixed), ("B", real_A, fake_A_mixed)):
@@ -145,10 +150,11 @@ class CycleGANTask:
                     losses[f"D_loss/gp_{name}"], _ = gradient_penalty(
                         lambda x, net=net: net(x, train=True), real, fake, generator=state.rng)
         d_loss = sum(v for k, v in losses.items() if k.startswith("D_loss/"))
-        state.d.opt.step(torch.autograd.grad(d_loss, list(state.d.params.values())), lr)
+        state.d.opt.step(average_grads(torch.autograd.grad(d_loss, list(state.d.params.values()))),
+                         lr)
 
         state.step += 1
-        return state, {k: v.detach() for k, v in losses.items()}
+        return state, global_metrics(losses)
 
     @torch.no_grad()
     def generate(self, state: GANTrainState, x: torch.Tensor,

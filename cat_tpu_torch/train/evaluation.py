@@ -7,6 +7,13 @@ eval loader, dump sample images, compute FID against cached real statistics
 or the Cityscapes mIoU of the generated photos, track the best value and the
 mean of the last three.  The evaluators run on CUDA unless their caller
 passes ``device="cpu"``.
+
+Over several ranks (``process_shard=(rank, world)``) each rank sweeps every
+world-th val batch on its own (the step's collectives held off), the
+primary alone dumps images, and the FID moments and mIoU confusion
+matrices are merged over the ranks (``parallel/multihost.py``); the matrix
+square root runs on the primary, which sends the FID to the others.  Every
+rank calls an evaluator at the same step (the trainer's cadence).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ import torch
 
 from cat_tpu_torch import resolve_device
 from cat_tpu_torch.metrics.fid import get_fid
+from cat_tpu_torch.parallel import collectives, multihost
 from cat_tpu_torch.utils.image import save_image, tensor2im, tensor2label
 
 
@@ -74,6 +82,18 @@ def _generator_input(batch: Dict, input_key: Optional[str], device: torch.device
     return {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
 
 
+def _my_batches(loader, process_shard: Optional[Tuple[int, int]]):
+    """The eval batches this rank sweeps: every world-th, from its rank on
+    (all of them on one process)."""
+    for bi, batch in enumerate(loader):
+        if process_shard is None or bi % process_shard[1] == process_shard[0]:
+            yield batch
+
+
+def _split(process_shard: Optional[Tuple[int, int]]) -> bool:
+    return process_shard is not None and process_shard[1] > 1
+
+
 def _sample_names(batch: Dict, n: int):
     paths = batch.get("A_paths") or batch.get("path") or [str(i) for i in range(n)]
     return [os.path.splitext(os.path.basename(p))[0] for p in paths]
@@ -90,7 +110,9 @@ class FIDEvaluator:
     be None: the sweep still runs and dumps input/Sfake/Tfake(/real) images
     (the profile verb's contract, which holds without judge weights), and no
     metric is returned.  ``name`` names the metric (``metric/<name>``):
-    CycleGAN's two directions are fid_B and fid_A."""
+    CycleGAN's two directions are fid_B and fid_A.  ``log_dir`` None dumps
+    nothing (a rank other than the primary); ``process_shard`` as in the
+    module's docstring."""
 
     def __init__(
         self,
@@ -98,13 +120,14 @@ class FIDEvaluator:
         eval_loader,
         inception_model,
         real_stats: Optional[Dict[str, np.ndarray]],
-        log_dir: str,
+        log_dir: Optional[str],
         eval_batch_size: int = 32,
         dump_images: int = 10,
         teacher_generate: Optional[Callable] = None,
         device=None,
         name: str = "fid",
         input_key: Optional[str] = "A",
+        process_shard: Optional[Tuple[int, int]] = None,
     ):
         self.generate = generate
         self.eval_loader = eval_loader
@@ -116,23 +139,46 @@ class FIDEvaluator:
         self.teacher_generate = teacher_generate
         self.name = name
         self.input_key = input_key
+        self.process_shard = process_shard
         self.device = resolve_device(device)
         self.tracker = MetricTracker(larger_is_better=False)
 
     def __call__(self, step) -> Tuple[Dict[str, float], Dict[str, bool]]:
+        with collectives.local():
+            fakes = self._sweep(step)
+        if self.inception_model is None or self.real_stats is None:
+            return {}, {}
+        fakes = np.concatenate(fakes, axis=0) if fakes else np.zeros((0,), np.float32)
+        if _split(self.process_shard):
+            fid = get_fid(fakes, self.inception_model, self.real_stats,
+                          batch_size=self.eval_batch_size,
+                          moments_reduce=multihost.reduce_moments,
+                          distance=multihost.is_primary())
+            fid = multihost.broadcast_value(fid)
+        else:
+            fid = get_fid(fakes, self.inception_model, self.real_stats,
+                          batch_size=self.eval_batch_size)
+        improved = self.tracker.update(fid)
+        metrics = {f"metric/{self.name}": fid, f"metric/{self.name}-mean": self.tracker.mean,
+                   f"metric/{self.name}-best": self.tracker.best}
+        return metrics, {"is_best": improved}
+
+    def _sweep(self, step) -> list:
+        """This rank's generated images, batch by batch, with the dumps."""
         fakes = []
         dumped = 0
-        save_dir = os.path.join(self.log_dir, "eval", str(step))
+        dump = self.dump_images if self.log_dir is not None else 0
+        save_dir = os.path.join(self.log_dir or "", "eval", str(step))
         key = self.input_key
-        for batch in self.eval_loader:
+        for batch in _my_batches(self.eval_loader, self.process_shard):
             inp = _generator_input(batch, key, self.device)
             fake = self.generate(inp).float().cpu().numpy()
             fakes.append(fake)
-            if dumped < self.dump_images:
+            if dumped < dump:
                 tfake = (self.teacher_generate(inp).float().cpu().numpy()
                          if self.teacher_generate else None)
                 for j, base in enumerate(_sample_names(batch, len(fake))):
-                    if dumped >= self.dump_images:
+                    if dumped >= dump:
                         break
                     if key:
                         save_image(tensor2im(batch[key][j]),
@@ -152,14 +198,7 @@ class FIDEvaluator:
                     dumped += 1
         if dumped:
             write_eval_index(save_dir, f"{self.name} eval @ step {step}")
-        if self.inception_model is None or self.real_stats is None:
-            return {}, {}
-        fid = get_fid(np.concatenate(fakes, axis=0), self.inception_model, self.real_stats,
-                      batch_size=self.eval_batch_size)
-        improved = self.tracker.update(fid)
-        metrics = {f"metric/{self.name}": fid, f"metric/{self.name}-mean": self.tracker.mean,
-                   f"metric/{self.name}-best": self.tracker.best}
-        return metrics, {"is_best": improved}
+        return fakes
 
 
 class MIoUEvaluator:
@@ -171,7 +210,8 @@ class MIoUEvaluator:
     whose photo path ends in it, read under ``data_dir``; a sample without
     such a row (or whose label file is missing) is left out.  Labels are
     trainId maps at the judge's resolution.  ``input_key`` as in
-    ``FIDEvaluator`` (None for SPADE's raw batches)."""
+    ``FIDEvaluator`` (None for SPADE's raw batches), and ``process_shard``
+    as in the module's docstring."""
 
     def __init__(
         self,
@@ -184,6 +224,7 @@ class MIoUEvaluator:
         name: str = "mIoU",
         input_key: Optional[str] = "A",
         device=None,
+        process_shard: Optional[Tuple[int, int]] = None,
     ):
         self.generate = generate
         self.eval_loader = eval_loader
@@ -192,6 +233,7 @@ class MIoUEvaluator:
         self.name = name
         self.data_dir = data_dir
         self.input_key = input_key
+        self.process_shard = process_shard
         self.device = resolve_device(device)
         self.tracker = MetricTracker(larger_is_better=True)
         self.table = []
@@ -211,20 +253,28 @@ class MIoUEvaluator:
         from PIL import Image
 
         from cat_tpu_torch.metrics.drn import get_miou
+        from cat_tpu_torch.metrics.miou import mean_iou
 
         fakes, labels = [], []
-        for batch in self.eval_loader:
-            fake = self.generate(_generator_input(batch, self.input_key, self.device))
-            for j, name in enumerate(_sample_names(batch, fake.shape[0])):
-                label_path = self._label_for(name)
-                if label_path is None or not os.path.exists(label_path):
-                    continue
-                fakes.append(fake[j].float())
-                labels.append(np.asarray(Image.open(label_path)))
+        with collectives.local():
+            for batch in _my_batches(self.eval_loader, self.process_shard):
+                fake = self.generate(_generator_input(batch, self.input_key, self.device))
+                for j, name in enumerate(_sample_names(batch, fake.shape[0])):
+                    label_path = self._label_for(name)
+                    if label_path is None or not os.path.exists(label_path):
+                        continue
+                    fakes.append(fake[j].float())
+                    labels.append(np.asarray(Image.open(label_path)))
+        hist_reduce = multihost.reduce_hist if _split(self.process_shard) else None
         if not fakes:
-            return {}, {}
-        miou = get_miou(torch.stack(fakes), labels, self.drn_model, batch_size=self.batch_size,
-                        target_hw=labels[0].shape[:2])
+            if hist_reduce is None:
+                return {}, {}
+            # a rank whose share was empty still joins the merge
+            n = self.drn_model.classes
+            miou = round(mean_iou(hist_reduce(np.zeros((n, n), np.int64))), 2)
+        else:
+            miou = get_miou(torch.stack(fakes), labels, self.drn_model, batch_size=self.batch_size,
+                            target_hw=labels[0].shape[:2], hist_reduce=hist_reduce)
         improved = self.tracker.update(miou)
         metrics = {f"metric/{self.name}": miou, f"metric/{self.name}-mean": self.tracker.mean,
                    f"metric/{self.name}-best": self.tracker.best}

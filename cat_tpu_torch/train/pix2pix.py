@@ -30,7 +30,8 @@ from cat_tpu_torch.models.discriminators import NLayerDiscriminator, check_task_
 from cat_tpu_torch.models.generator import InceptionGenerator
 from cat_tpu_torch.models.losses import gan_loss, gradient_penalty, recon_loss
 from cat_tpu_torch.ops.nn import frozen_stats
-from cat_tpu_torch.train.common import GANTrainState, checkpointed, net_state
+from cat_tpu_torch.train.common import (GANTrainState, average_grads, checkpointed,
+                                        global_metrics, net_state)
 
 
 @dataclass(frozen=True)
@@ -105,7 +106,8 @@ class Pix2PixTask:
                 l_d_gp, _ = gradient_penalty(lambda x: self.netD(x, train=True), real_pair,
                                              fake_pair, generator=state.rng)
             d_loss = d_loss + l_d_gp
-        state.d.opt.step(torch.autograd.grad(d_loss, list(d_params.values())), lr)
+        state.d.opt.step(average_grads(torch.autograd.grad(d_loss, list(d_params.values()))),
+                         lr)
 
         # --- generator update through the updated discriminator ---
         with frozen_stats(self.netD):
@@ -115,14 +117,14 @@ class Pix2PixTask:
         rng_now = state.rng.get_state()
         g_grads = torch.autograd.grad(l_g_gan + l_g_rec, list(state.g.params.values()))
         state.rng.set_state(rng_now)  # a remat recompute rewound it
-        state.g.opt.step(g_grads, lr)
+        state.g.opt.step(average_grads(g_grads), lr)
 
         state.step += 1
         metrics = {"G_loss/gan": l_g_gan, "G_loss/recon": l_g_rec,
                    "D_loss/fake": l_d_fake, "D_loss/real": l_d_real}
         if hp.gan_mode == "wgangp":
             metrics["D_loss/gp"] = l_d_gp
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, global_metrics(metrics)
 
     @torch.no_grad()
     def generate(self, state: GANTrainState, x: torch.Tensor) -> torch.Tensor:

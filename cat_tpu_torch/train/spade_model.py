@@ -40,7 +40,8 @@ from cat_tpu_torch.models.losses import gan_loss
 from cat_tpu_torch.models.spade import MultiscaleDiscriminator, SPADEGenerator
 from cat_tpu_torch.models.vgg import VGG19Features, vgg_loss
 from cat_tpu_torch.ops.nn import frozen_stats
-from cat_tpu_torch.train.common import GANTrainState, NetState, cast_floats, checkpointed
+from cat_tpu_torch.train.common import (GANTrainState, NetState, average_grads, cast_floats,
+                                        checkpointed, global_metrics)
 from cat_tpu_torch.train.optim import Adam
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -221,7 +222,7 @@ class SPADETask:
         rng_now = state.rng.get_state()
         g_grads = torch.autograd.grad(l_gan + l_feat + l_vgg, list(state.g.params.values()))
         state.rng.set_state(rng_now)  # a remat recompute rewound it
-        state.g.opt.step(g_grads, lr_g)
+        state.g.opt.step(average_grads(g_grads), lr_g)
 
         # --- D update: the fake regenerated by the updated G, no gradient ---
         with torch.no_grad(), frozen_stats(self.netG):
@@ -231,12 +232,12 @@ class SPADETask:
         l_d_fake = gan_loss(up(pred_fake), False, hp.gan_mode, True)
         l_d_real = gan_loss(up(pred_real), True, hp.gan_mode, True)
         d_grads = torch.autograd.grad(l_d_fake + l_d_real, list(state.d.params.values()))
-        state.d.opt.step(d_grads, lr_d)
+        state.d.opt.step(average_grads(d_grads), lr_d)
 
         state.step += 1
         metrics = {"G_loss/gan": l_gan, "G_loss/feat": l_feat, "G_loss/vgg": l_vgg,
                    "D_loss/fake": l_d_fake, "D_loss/real": l_d_real}
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, global_metrics(metrics)
 
     @torch.no_grad()
     def generate(self, state: GANTrainState, sem: torch.Tensor) -> torch.Tensor:

@@ -9,7 +9,9 @@ image takes its place, else the image passes through.
 As in the JAX package the buffer is a preallocated (pool_size, C, H, W)
 tensor on the device.  The fill count and the coin and index draws stay on
 the host (a seeded CPU ``torch.Generator``), so a query is a few device
-copies and never waits for the device.
+copies and never waits for the device.  Over several ranks every rank
+holds the same pool and queries it with the global batch
+(``train/cyclegan.py``), so the draws, seeded alike, stay the same.
 """
 
 from __future__ import annotations

@@ -12,9 +12,16 @@ from typing import Dict, Optional
 
 
 class Logger:
-    def __init__(self, log_dir: str, tensorboard_dir: Optional[str] = None):
+    def __init__(self, log_dir: str, tensorboard_dir: Optional[str] = None,
+                 mute: bool = False):
+        """``mute`` (a rank other than the primary): print to this process's
+        standard output, write no file."""
         self.log_dir = log_dir
         self.writer = None
+        self.mute = mute
+        self.log_file = self.scalar_file = None
+        if mute:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self.log_file = open(os.path.join(log_dir, "log.txt"), "a")
         self.scalar_file = open(os.path.join(log_dir, "scalars.jsonl"), "a")
@@ -26,6 +33,8 @@ class Logger:
             pass
 
     def plot(self, scalars: Dict[str, float], step: int) -> None:
+        if self.mute:
+            return
         record = {"step": int(step), "time": time.time()}
         record.update({k: float(v) for k, v in scalars.items()})
         self.scalar_file.write(json.dumps(record) + "\n")
@@ -36,6 +45,8 @@ class Logger:
 
     def print_info(self, message: str) -> None:
         print(message, flush=True)
+        if self.mute:
+            return
         self.log_file.write(message.rstrip("\n") + "\n")
         self.log_file.flush()
 
@@ -52,6 +63,8 @@ class Logger:
         self.print_info(msg)
 
     def close(self):
+        if self.mute:
+            return
         self.log_file.close()
         self.scalar_file.close()
         if self.writer is not None:

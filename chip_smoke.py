@@ -130,7 +130,23 @@ Phases, in order; any failure exits non-zero before the result line:
      loaded on the card and run at batch 1 and 4 against the eager eval-mode
      student (rtol 1e-4, atol 1e-5 of its largest value), its batch-1
      latency beside the profile verb's for the same student, its size, the
-     export's seconds and peak memory.
+     export's seconds and peak memory;
+ 12. data parallelism (float32, TF32 off): (a) phase 6's recipe for 4 steps
+     in one process, twice, and in an NCCL group of one rank on cuda:0 that
+     the verb joins, with deterministic cuDNN: step 1's losses within 1e-6
+     relative, every step's within phase 10d's bound, 8 f32tma Gram
+     launches a step on 80 rows and 8 row gathers a step; (b) the same
+     recipe at global batch 80 over two gloo ranks that share cuda:0
+     (NCCL refuses two ranks on one card), 40 rows each: losses within
+     DP_LOSS_TOL of max(|loss|, 0.1) of (a)'s one-process run, 8 Gram
+     launches a step on the 80 gathered rows on both ranks, each rank's
+     step, its row gathers timed alone and its peak memory (two ranks on
+     one card: not a scaling number); (c) 10b's recipe for one epoch (3
+     steps, global batch 16) in one process and over the two ranks, its
+     losses within the same bound, then one FID + mIoU evaluation of the
+     one-process student over one and over two ranks: FID within 1e-3
+     relative, the confusion matrix exactly; then which collectives gloo
+     serves for CUDA tensors.
 
 The script prints its total seconds.
 The line before the last is a JSON object with every kernel's numbers; the
@@ -1865,6 +1881,26 @@ def spade_distill_reference(dev, card):
             "losses": card_l[-1]}
 
 
+def gaugan_paths(root, judge, stats):
+    """9c's data and teacher, phase 7's judge and statistics, 9b's DRN."""
+    data = os.path.join(root, "gaugan-origin")
+    return ["--dataroot", data, "--real_stat_path", stats,
+            "--drn_path", os.path.join(root, "drn-d-105_ms_cityscapes.pth"),
+            "--cityscapes_path", data, "--table_path", os.path.join(root, "table_gaugan.txt"),
+            "--inception_path", judge, "--restore_teacher_G_path",
+            os.path.join(root, "log_9c", "checkpoints", "latest_net_G.pth")]
+
+
+def gaugan_student_argv(root, judge, stats, log_dir):
+    """The 5p6B student recipe's flags over ``gaugan_paths``, with 9c's G
+    as the pretrained G and 9c's D."""
+    teacher = os.path.join(root, "log_9c", "checkpoints")
+    return [*gaugan_paths(root, judge, stats), "--log_dir", log_dir,
+            "--vgg_path", os.path.join(root, "vgg19.pth"),
+            "--restore_pretrained_G_path", os.path.join(teacher, "latest_net_G.pth"),
+            "--restore_D_path", os.path.join(teacher, "latest_net_D.pth"), *GAUGAN_STUDENT]
+
+
 def gaugan_student(dev, card, root, judge, stats):
     """10b: ``train_inception_student_5p6B.sh``'s flags through
     ``entry.distill_main`` at full width (batch 16, 512x256, the ngf-64
@@ -1886,19 +1922,11 @@ def gaugan_student(dev, card, root, judge, stats):
     from cat_tpu_torch.models.spade import SPADEGenerator
     from cat_tpu_torch.utils import checkpoint as ckpt
 
-    data = os.path.join(root, "gaugan-origin")
-    teacher = os.path.join(root, "log_9c", "checkpoints")
-    paths = ["--dataroot", data, "--real_stat_path", stats,
-             "--drn_path", os.path.join(root, "drn-d-105_ms_cityscapes.pth"),
-             "--cityscapes_path", data, "--table_path", os.path.join(root, "table_gaugan.txt"),
-             "--inception_path", judge, "--restore_teacher_G_path",
-             os.path.join(teacher, "latest_net_G.pth")]
     log_dir = os.path.join(root, "log_10b")
+    paths = gaugan_paths(root, judge, stats)
 
     def student_argv(log_dir):
-        return [*paths, "--log_dir", log_dir, "--vgg_path", os.path.join(root, "vgg19.pth"),
-                "--restore_pretrained_G_path", os.path.join(teacher, "latest_net_G.pth"),
-                "--restore_D_path", os.path.join(teacher, "latest_net_D.pth"), *GAUGAN_STUDENT]
+        return gaugan_student_argv(root, judge, stats, log_dir)
 
     argv = student_argv(log_dir)
     n_steps = GAUGAN_STUDENT_EPOCHS * (GAUGAN_TRAIN // GAUGAN_BATCH)
@@ -2180,6 +2208,397 @@ def export_students(dev, card, root, gaugan_profile_ms):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: data parallelism
+# ---------------------------------------------------------------------------
+
+DP_EPOCHS = 2  # 12 (a), (b): 4 steps of phase 6's recipe at batch 80
+DP_SPADE_STEPS = 3  # 12 (c): the GauGAN student recipe's first epoch at batch 16
+DP_TIMEOUT = 420  # the spawned ranks' seconds, CUDA start-up and kernel loads included
+# 12 (b), (c) against one process: |loss - loss_1| <= DP_LOSS_TOL * max(|loss_1|, 0.1).
+# The two ranks sum their halves of a batch where one process sums the batch
+# once, and Adam turns the last bits of a near-zero gradient into a step of
+# ±lr (2e-4; D 4e-4 under TTUR): on the CPU one such step moved the SPADE
+# distiller's hinge G loss of -0.0317 by 3.5e-5 (tests/test_torch_parallel.py).
+DP_LOSS_TOL = 1e-3
+GLOO_PROBE = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+              "reduce_scatter_tensor", "all_to_all_single", "reduce", "gather", "scatter")
+
+
+def _scalars(log_dir, key="loss"):
+    with open(os.path.join(log_dir, "scalars.jsonl")) as f:
+        return [{k: v for k, v in r.items() if key in k}
+                for r in map(json.loads, f) if any(key in k for k in r)]
+
+
+def _loss_gap(got, want, scale=0.1):
+    """The worst |g - w| / max(|w|, scale) over every step and loss; inf when
+    the steps or their losses do not match."""
+    if len(got) != len(want) or any(g.keys() != w.keys() for g, w in zip(got, want)):
+        return math.inf
+    return max(abs(g[k] - w[k]) / max(abs(w[k]), scale) for g, w in zip(got, want) for k in w)
+
+
+class _DPCounts:
+    """Gram launches of this process by path and the rows of each Gram
+    operand, and the row gathers with their shapes, from zero."""
+
+    def __init__(self):
+        from cat_tpu_torch.distill import ka
+        from cat_tpu_torch.parallel import collectives
+
+        self.ka, self.collectives = ka, collectives
+        ka.launches = 0
+        ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
+        self.rows, self.gathers = [], []
+        self._gram, self._gather = ka.gram, collectives.all_gather_rows
+
+        def gram(x):
+            self.rows.append(int(x.shape[0]))
+            return self._gram(x)
+
+        def gather(x):
+            if collectives.active():
+                self.gathers.append((tuple(x.shape), str(x.dtype)))
+            return self._gather(x)
+
+        ka.gram, collectives.all_gather_rows = gram, gather
+
+    def restore(self):
+        self.ka.gram, self.collectives.all_gather_rows = self._gram, self._gather
+        return {"gram": self.ka.launches, **{f"gram_{k}": v
+                                             for k, v in self.ka.path_launches.items() if v},
+                "gram_rows": sorted(set(self.rows)), "gathers": len(self.gathers)}
+
+
+def dp_verb_argv(root, log_dir):
+    """Phase 6's recipe for DP_EPOCHS epochs over its data, teacher and D."""
+    teacher = os.path.join(root, "teacher")
+    return ["--dataroot", os.path.join(root, "data"), "--log_dir", log_dir,
+            "--restore_teacher_G_path", os.path.join(teacher, "best_A_net_G_A.pth"),
+            "--restore_pretrained_G_path", os.path.join(teacher, "best_A_net_G_A.pth"),
+            "--restore_D_path", os.path.join(teacher, "best_A_net_D_A.pth"),
+            *RECIPE, "--nepochs", str(DP_EPOCHS), "--save_epoch_freq", str(DP_EPOCHS)]
+
+
+def dp_world1(card, root):
+    """12 (a): the recipe in one process with no group, twice, then in an
+    NCCL group of one rank on cuda:0 that the verb joins (``initialize`` is
+    idempotent), all with deterministic cuDNN.  Step 1's losses within 1e-6
+    relative of one process's: its forwards, and the D update the G loss
+    reads, are deterministic.  Later steps follow G updates whose backward
+    sums with atomics (the reflection pads'), which two one-process runs
+    already do not repeat bit for bit: held to phase 10d's bound (rtol
+    1e-4, atol 1e-5), the one-process runs' own gap printed beside.  8
+    f32tma Gram launches a step on 80 rows in every run, and the
+    collectives' route taken in the group (8 row gathers a step)."""
+    import torch
+    import torch.distributed as dist
+
+    from cat_tpu_torch import entry
+    from cat_tpu_torch.parallel import mesh
+
+    n_steps = DP_EPOCHS * VERB_IMAGES // VERB_BATCH
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for label in ("plain", "plain_again", "nccl"):
+            if label == "nccl":
+                dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{mesh.free_port()}",
+                                        world_size=1, rank=0, device_id=torch.device("cuda", 0))
+            counts = _DPCounts()
+            try:
+                t0 = time.perf_counter()
+                entry.distill_main(dp_verb_argv(root, os.path.join(root, f"log_12a_{label}")))
+                wall = time.perf_counter() - t0
+            finally:
+                c = counts.restore()
+                if label == "nccl":
+                    dist.destroy_process_group()
+            gathers_expected = 8 * n_steps if label == "nccl" else 0
+            if (c["gram"] != 8 * n_steps or c.get("gram_f32tma") != c["gram"]
+                    or c["gram_rows"] != [VERB_BATCH] or c["gathers"] != gathers_expected):
+                fail(f"12 (a) {label}: {c}; expected {8 * n_steps} f32tma Gram launches on "
+                     f"{VERB_BATCH} rows and {gathers_expected} row gathers")
+            out[label] = {"losses": _scalars(os.path.join(root, f"log_12a_{label}")),
+                          "counts": c, "wall_s": wall}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    plain, nccl = out["plain"]["losses"], out["nccl"]["losses"]
+    first = _loss_gap(nccl[:1], plain[:1], scale=1e-30)
+    later = _loss_gap(nccl, plain, scale=1e-30)
+    spread = _loss_gap(out["plain_again"]["losses"], plain, scale=1e-30)
+    if (len(plain) != n_steps or not first <= 1e-6 or len(nccl) != n_steps
+            or not all(math.isclose(g[k], w[k], rel_tol=1e-4, abs_tol=1e-5)
+                       for g, w in zip(nccl, plain) for k in w)):
+        fail(f"12 (a): the NCCL world of one's losses {nccl} against one process's {plain}: "
+             f"step 1 within {first:.3g} relative (bound 1e-6), all steps {later:.3g} (bound "
+             f"rtol 1e-4, atol 1e-5)")
+    log(f"12 (a): {n_steps} steps in one process (twice) and in an NCCL group of one rank: "
+        f"step 1's losses within {first:.3g} relative (bound 1e-6), every step's within "
+        f"{later:.3g} (bound rtol 1e-4, atol 1e-5); one process against itself {spread:.3g}; "
+        f"{out['nccl']['counts']} [{card}]")
+    return {"step1_gap": first, "loss_gap": later, "plain_spread": spread,
+            "counts": out["nccl"]["counts"], "losses": plain,
+            "wall_s": {k: v["wall_s"] for k, v in out.items()}}
+
+
+def _dp_spade_eval(root, judge, stats, label, process_shard=None):
+    """One FID + mIoU evaluation of 12 (c)'s one-process student through
+    the evaluators the SPADE verbs build; the merged confusion matrix that
+    the mIoU was taken from.  ``process_shard`` as the verb passes it."""
+    import numpy as np
+    import torch
+
+    from cat_tpu_torch import cli, entry
+    from cat_tpu_torch.metrics import drn
+    from cat_tpu_torch.models.spade import SPADEGenerator
+    from cat_tpu_torch.train.spade_model import preprocess_input
+    from cat_tpu_torch.utils import checkpoint as ckpt
+
+    parser = cli.distill_parser()
+    opt = parser.parse_args(gaugan_student_argv(root, judge, stats,
+                                                os.path.join(root, f"log_12c_eval_{label}")))
+    cli.apply_distill_defaults(opt, parser)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sd, cfg = ckpt.load_net(os.path.join(root, "log_12c_w1", "checkpoints"), "latest", "G")
+    gen = SPADEGenerator(cfg).to(dev)
+    gen.load_state_dict(sd)
+
+    @torch.no_grad()
+    def generate(b):
+        return gen(preprocess_input(b["label"], b.get("instance"), opt.input_nc,
+                                    opt.contain_dontcare_label))
+
+    primary = process_shard is None or process_shard[0] == 0
+    evaluate = entry._spade_evaluators(opt, generate, dev, primary=primary,
+                                       process_shard=process_shard)
+    hists, mean_iou = [], drn.mean_iou
+    drn.mean_iou = lambda h: hists.append(np.asarray(h)) or mean_iou(h)
+    try:
+        t0 = time.perf_counter()
+        metrics, _ = evaluate(None, "12c")
+        secs = time.perf_counter() - t0
+    finally:
+        drn.mean_iou = mean_iou
+    return {"fid": metrics["metric/fid"], "miou": metrics["metric/mIoU"],
+            "hist": hists[-1].tolist(), "seconds": secs}
+
+
+def dp_rank_b(device, root):
+    """12 (b) on this rank: phase 6's recipe at global batch 80, its steps
+    timed, its Gram operands' rows counted, then its row gathers timed
+    alone at the run's shapes."""
+    import torch
+
+    from cat_tpu_torch import entry
+    from cat_tpu_torch.parallel import collectives
+
+    steps, starts, waits = [], [], []
+    setup = entry.setup_distill
+    entry.setup_distill = _instrumented(setup, steps, starts, waits)
+    counts = _DPCounts()
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        entry.distill_main(dp_verb_argv(root, os.path.join(root, "log_12b")), device=device)
+        wall = time.perf_counter() - t0
+    finally:
+        entry.setup_distill = setup
+        c = counts.restore()
+    mem = torch.cuda.max_memory_allocated(device)
+    shapes = counts.gathers[:8]  # one step's: four taps, teacher and student
+    per_step = []
+    for _ in range(3):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for shape, dtype in shapes:
+            collectives.all_gather_rows(torch.ones(shape, dtype=getattr(torch, dtype[6:]),
+                                                   device=device))
+        torch.cuda.synchronize(device)
+        per_step.append(time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    return {**_loop_numbers(steps, starts, waits, VERB_BATCH // 2, mem, wall), "counts": c,
+            "gather_shapes": [list(s) for s, _ in shapes],
+            "gather_ms_per_step": [1e3 * t for t in per_step],
+            "gathered_bytes_per_step": sum(2 * math.prod(s) * 4 for s, _ in shapes)}
+
+
+def dp_rank_c(device, root, judge, stats, rank):
+    """12 (c) on this rank: the GauGAN student recipe's first epoch at
+    global batch 16, then one evaluation of (c)'s one-process student."""
+    import torch
+
+    from cat_tpu_torch import entry
+
+    counts = _DPCounts()
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        entry.distill_main([*gaugan_student_argv(root, judge, stats,
+                                                 os.path.join(root, "log_12c_w2")),
+                            "--no_fid", "--drn_path", os.path.join(root, "absent.pth"),
+                            "--nepochs", "1"], device=device)
+        wall = time.perf_counter() - t0
+    finally:
+        c = counts.restore()
+    out = {"counts": c, "wall_s": wall,
+           "peak_memory_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30,
+           "eval": _dp_spade_eval(root, judge, stats, "w2", (rank, 2))}
+    torch.cuda.empty_cache()
+    return out
+
+
+def gloo_cuda_probe(device, rank):
+    """Which collectives gloo serves for CUDA tensors: a refusal is a
+    finding, not a failure (the path uses all_reduce, broadcast and
+    all_gather).  A group with a timeout, so that a stall ends."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    probe = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=30))
+    x = torch.ones(4, device=device)
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x, group=probe),
+        "broadcast": lambda: dist.broadcast(x, 0, group=probe),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x,
+                                              group=probe),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8, device=device), x, group=probe),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(2, device=device), x, group=probe),
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x, group=probe),
+        "reduce": lambda: dist.reduce(x, 0, group=probe),
+        "gather": lambda: dist.gather(x, [torch.empty_like(x) for _ in range(2)] if rank == 0
+                                      else None, 0, group=probe),
+        "scatter": lambda: dist.scatter(x, [torch.ones_like(x) for _ in range(2)] if rank == 0
+                                        else None, 0, group=probe),
+    }
+    served = {}
+    for name in GLOO_PROBE:
+        try:
+            calls[name]()
+            torch.cuda.synchronize(device)
+            served[name] = "served"
+        except Exception as e:  # what gloo refuses for CUDA tensors
+            served[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    return served
+
+
+def _dp_rank(device, root, judge, stats):
+    """A rank of 12 (b) and (c), sharing cuda:0 with the other over gloo;
+    writes ``dp_rank<r>.json`` under ``root`` after each part."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    out = {"rank": rank, "device": str(device)}
+    path = os.path.join(root, f"dp_rank{rank}.json")
+    for part, fn in (("b", lambda: dp_rank_b(device, root)),
+                     ("c", lambda: dp_rank_c(device, root, judge, stats, rank)),
+                     ("gloo_cuda", lambda: gloo_cuda_probe(device, rank))):
+        out[part] = fn()
+        with open(path, "w") as f:
+            json.dump(out, f)
+
+
+def data_parallel(card, root, judge, stats):
+    """Phase 12: (a) the world of one; (c)'s one-process run and
+    evaluation; (b) and (c) over two gloo ranks on cuda:0 (NCCL refuses two
+    ranks on one device), held to one process.  Two ranks on one card:
+    not a scaling measurement."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from cat_tpu_torch import entry
+    from cat_tpu_torch.parallel import mesh
+
+    t_phase = time.perf_counter()
+    a = dp_world1(card, root)
+
+    # (c) in one process: its steps, then one evaluation of its student
+    quiet = ["--no_fid", "--drn_path", os.path.join(root, "absent.pth"), "--nepochs", "1"]
+    counts = _DPCounts()
+    try:
+        c1, _ = _instrumented_run("setup_distill", entry.distill_main,
+                                  [*gaugan_student_argv(root, judge, stats,
+                                                        os.path.join(root, "log_12c_w1")),
+                                   *quiet], DP_SPADE_STEPS, GAUGAN_BATCH,
+                                  "12 (c) GauGAN student, one process", card)
+    finally:
+        c1_counts = counts.restore()
+    ev1 = _dp_spade_eval(root, judge, stats, "w1")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) and (c) over two ranks
+    t0 = time.perf_counter()
+    mesh.spawn(_dp_rank, 2, args=(root, judge, stats), device="cuda:0", backend="gloo",
+               timeout=DP_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    ranks = []
+    for r in (0, 1):
+        with open(os.path.join(root, f"dp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+
+    n_steps = DP_EPOCHS * VERB_IMAGES // VERB_BATCH
+    b_losses = _scalars(os.path.join(root, "log_12b"))
+    b_gap = _loss_gap(b_losses, a["losses"])
+    c_gap = _loss_gap(_scalars(os.path.join(root, "log_12c_w2")),
+                      _scalars(os.path.join(root, "log_12c_w1")))
+    for rk in ranks:
+        b, c = rk["b"]["counts"], rk["c"]["counts"]
+        if (rk["b"]["steps"] != n_steps or b["gram"] != 8 * n_steps
+                or b.get("gram_f32tma") != b["gram"] or b["gram_rows"] != [VERB_BATCH]
+                or b["gathers"] != 8 * n_steps):
+            fail(f"12 (b) rank {rk['rank']}: {rk['b']['steps']} steps, {b}; expected {n_steps} "
+                 f"steps, 8 f32tma Gram launches a step on the {VERB_BATCH} gathered rows")
+        if (c["gram"] != 6 * DP_SPADE_STEPS or c.get("gram_f32tma") != c["gram"]
+                or c["gram_rows"] != [GAUGAN_BATCH]):
+            fail(f"12 (c) rank {rk['rank']}: {c}; expected 6 f32tma Gram launches a step on "
+                 f"the {GAUGAN_BATCH} gathered rows")
+        e, w = rk["c"]["eval"], ev1
+        if not (abs(e["fid"] - w["fid"]) <= 1e-3 * abs(w["fid"]) and e["hist"] == w["hist"]
+                and e["miou"] == w["miou"]):
+            fail(f"12 (c) rank {rk['rank']}: the evaluation over two ranks (FID {e['fid']}, "
+                 f"mIoU {e['miou']}) differs from one process's (FID {w['fid']}, mIoU "
+                 f"{w['miou']}) or its confusion matrix does")
+    if not (b_gap <= DP_LOSS_TOL and c_gap <= DP_LOSS_TOL):
+        fail(f"12 (b), (c): losses over two ranks against one process: worst gaps {b_gap:.3g} "
+             f"and {c_gap:.3g} of max(|loss|, 0.1) (bound {DP_LOSS_TOL})")
+    if c1_counts["gram"] != 6 * DP_SPADE_STEPS:
+        fail(f"12 (c) one process: {c1_counts}")
+    refused = {k: v for k, v in ranks[0]["gloo_cuda"].items() if v != "served"}
+    b0 = ranks[0]["b"]
+    log(f"12 (b): two gloo ranks on cuda:0 (not a scaling measurement), global batch "
+        f"{VERB_BATCH}: losses within {b_gap:.3g} of max(|loss|, 0.1) of one process's; per rank "
+        + "; ".join(f"rank {rk['rank']}: median step {rk['b']['step_ms_median']:.1f} ms, row "
+                    f"gathers {np.median(rk['b']['gather_ms_per_step']):.1f} ms a step alone "
+                    f"({rk['b']['gathered_bytes_per_step'] / 2**20:.0f} MiB), peak memory "
+                    f"{rk['b']['peak_memory_gib']:.2f} GiB, {rk['b']['counts']}" for rk in ranks)
+        + f" [{card}]")
+    log(f"12 (c): GauGAN student at global batch {GAUGAN_BATCH}, {DP_SPADE_STEPS} steps: losses "
+        f"within {c_gap:.3g} of max(|loss|, 0.1) of one process's (median step "
+        f"{c1['step_ms_median']:.1f} ms there); one evaluation over two ranks: FID "
+        f"{ranks[0]['c']['eval']['fid']:.6f} against {ev1['fid']:.6f}, mIoU "
+        f"{ranks[0]['c']['eval']['miou']} against {ev1['miou']}, confusion matrices equal; "
+        f"{ranks[0]['c']['eval']['seconds']:.1f} s and {ev1['seconds']:.1f} s [{card}]")
+    log(f"12: gloo for CUDA tensors serves "
+        f"{[k for k, v in ranks[0]['gloo_cuda'].items() if v == 'served']}, refuses {refused}")
+    return {"a": a, "b": {"loss_gap": b_gap, "ranks": [rk["b"] for rk in ranks]},
+            "c": {"loss_gap": c_gap, "one_process": {**c1, "counts": c1_counts},
+                  "ranks": [rk["c"] for rk in ranks], "eval_one_process": ev1},
+            "gloo_cuda": ranks[0]["gloo_cuda"], "spawn_s": spawn_s,
+            "seconds": time.perf_counter() - t_phase}
+
+
 _KERNEL_GROUPS = (  # (group, substrings of the lower-cased kernel name), first match wins
     ("gram (csrc/gram.cu)", ("gram_partial", "gram_reduce")),
     ("instance_norm_act (csrc/instance_norm.cu)", ("inorm_act",)),
@@ -2385,6 +2804,11 @@ def main() -> None:
         t0 = time.perf_counter()
         exported = export_students(dev, card, root, spade_b["profile"]["latency_ms"])
         log("export: " + json.dumps({**exported, "seconds": time.perf_counter() - t0}))
+
+        # --- 12. data parallelism: an NCCL world of one, two gloo ranks on
+        # the card for phase 6's and 10b's recipes, a split evaluation
+        dp = data_parallel(card, root, judge, stats)
+        log("parallel: " + json.dumps(dp))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

@@ -239,8 +239,6 @@ def test_train_verb_needs_cuda_unless_cpu_is_asked_for(data, tmp_path):
     # a pix2pix teacher cannot read the SPADE family's data: the JAX package's
     # generic loader has no cityscapes mode
     (["--dataset_mode", "cityscapes"], r"dataset mode \[cityscapes\] not implemented"),
-    (["--n_devices", "2"], "item 16"),
-    (["--multihost", "1"], "item 16"),
     (["--netD", "pixel"], "build only the n_layers discriminator"),
 ])
 def test_train_verb_refuses_what_is_not_ported(data, tmp_path, flags, match):
@@ -268,8 +266,6 @@ TRAIN_INERT = {
     "moving_average_decay_base_batch",
     # the SPADE distiller's
     "remat_policy", "teacher_norm_G", "student_norm_G",
-    # multi-host (item 16): refused through --multihost / --num_processes
-    "coordinator_address", "process_id",
 }
 # the distill, profile and other verbs' code, which the train verb never runs
 OTHER_VERBS = {"setup_distill", "setup_distill_inception", "distill_main", "shrink_preamble",

@@ -144,8 +144,6 @@ PORT_INERT = {
     # teacher training, read by the train verb only
     "model", "ngf", "pool_size", "lambda_A", "lambda_B", "lambda_identity", "restore_G_path",
     "real_stat_A_path", "real_stat_B_path", "norm_G",
-    # multi-host (item 16): refused through --multihost / --num_processes
-    "coordinator_address", "process_id",
 }
 
 
@@ -185,10 +183,7 @@ def test_every_flag_consumed_raised_or_documented_inert():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--n_devices", "2"], "item 16"),
     (["--n_spatial", "2"], "item 16"),
-    (["--multihost", "1"], "item 16"),
-    (["--num_processes", "2"], "item 16"),
     (["--teacher_compute_dtype", "int8"], "item 18"),
     (["--teacher_compute_dtype", "int8_static"], "item 18"),
     # the JAX package's tasks cannot build it either (a PixelDiscriminatorConfig

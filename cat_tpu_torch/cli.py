@@ -96,7 +96,8 @@ def base_arguments(parser: argparse.ArgumentParser):
                    help='data-parallel ranks on this host, one card each (0 = all cards); '
                         'train and distill')
     p.add_argument("--n_spatial", type=int, default=1,
-                   help='spatial-parallel devices (image height sharded); not ported yet')
+                   help='spatial-parallel ranks: image height split over them, n_devices * '
+                        'n_spatial ranks in all; train and distill, the inception family')
     p.add_argument("--multihost", type=int, default=0, choices=[0, 1],
                    help='join a multi-process run (a launcher\'s RANK, WORLD_SIZE, '
                         'MASTER_ADDR, MASTER_PORT where the next three flags are absent)')
@@ -352,8 +353,16 @@ def kid_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _multi_gpu(opt):
-    return (("--n_spatial != 1", opt.n_spatial != 1, "16b, spatial parallelism"),)
+def _multi_gpu(opt, spade: bool):
+    """The spatial axis (--n_spatial, ROADMAP item 16b) is ported for the
+    inception family; the SPADE family's layers under a split height (SPADE
+    norm's label-map resize per shard, the VGG loss's max pools, the
+    multiscale D's count_include_pad=False average pools, the SPADE
+    distiller's taps) are item 16c."""
+    return (("--n_spatial > 1 for the SPADE family", opt.n_spatial > 1 and spade,
+             "16c, spatial parallelism for the SPADE family (SPADE norm's label maps per "
+             "shard, the VGG loss's max pools, the multiscale D's average pools, the SPADE "
+             "distiller's taps)"),)
 
 
 def _raise_unported(checks) -> None:
@@ -363,8 +372,9 @@ def _raise_unported(checks) -> None:
 
 
 def check_train_ported(opt) -> None:
-    """The train verb's ``check_ported``: --n_spatial raises."""
-    _raise_unported(_multi_gpu(opt))
+    """The train verb's ``check_ported``: --n_spatial raises for --model
+    spade."""
+    _raise_unported(_multi_gpu(opt, opt.model == "spade"))
 
 
 def check_ported(opt) -> None:
@@ -373,7 +383,7 @@ def check_ported(opt) -> None:
     other unported paths raise where they would run: the int8 teacher in
     the distillers; the pixel D, which the JAX package's tasks cannot build
     either, raises in the tasks."""
-    _raise_unported(_multi_gpu(opt))
+    _raise_unported(_multi_gpu(opt, opt.distiller == "spade"))
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,15 @@
 //
 // Limits (checked by the Python wrapper): x contiguous NCHW, bf16 or f32;
 // scale and bias float32 (C,).
+//
+// Split planes.  When image height is split over ranks (--n_spatial), a
+// rank holds only its rows of each plane, and the statistics are those of
+// the whole plane.  Two more entry points run the kernel's two passes
+// apart, with the all-reduce of the partial sums between them:
+// inorm_stats writes each local plane's float32 (Σx, Σx²), one CTA a
+// plane; inorm_apply normalises with the given per-plane mean and rstd,
+// then affine and activation, one CTA a plane.  Both are bound by bytes:
+// the first reads the tensor once, the second reads and writes it once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,6 +130,72 @@ inorm_act(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
+// Per-plane float32 (Σx, Σx²) of x's local rows: stats[2·plane + {0, 1}].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+inorm_stats(const T* __restrict__ x, float* __restrict__ stats, long long HW, int vec) {
+  constexpr int V = 16 / sizeof(T);
+  __shared__ float red[kThreads / 32];
+  const long long plane = blockIdx.x;
+  const T* xp = x + plane * HW;
+  float s = 0.f, s2 = 0.f;
+  if (vec) {
+#pragma unroll 4
+    for (long long i = (long long)threadIdx.x * V; i < HW; i += (long long)kThreads * V) {
+      uint4 raw = *reinterpret_cast<const uint4*>(xp + i);
+      const T* v = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float f = to_f(v[k]);
+        s += f;
+        s2 += f * f;
+      }
+    }
+  } else {
+    for (long long i = threadIdx.x; i < HW; i += kThreads) {
+      const float f = to_f(xp[i]);
+      s += f;
+      s2 += f * f;
+    }
+  }
+  s = block_sum(s, red);
+  s2 = block_sum(s2, red);
+  if (threadIdx.x == 0) {
+    stats[2 * plane] = s;
+    stats[2 * plane + 1] = s2;
+  }
+}
+
+// y = act((x - mean[plane]) · rstd[plane] · scale[c] + bias[c]).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+inorm_apply(const T* __restrict__ x, const float* __restrict__ mean,
+            const float* __restrict__ rstd, const float* __restrict__ scale,
+            const float* __restrict__ bias, T* __restrict__ y, int C, long long HW, int act,
+            int vec) {
+  constexpr int V = 16 / sizeof(T);
+  const long long plane = blockIdx.x;
+  const T* xp = x + plane * HW;
+  T* yp = y + plane * HW;
+  const int c = static_cast<int>(plane % C);
+  const float m = mean[plane], r = rstd[plane], sc = scale[c], bi = bias[c];
+  if (vec) {
+#pragma unroll 4
+    for (long long i = (long long)threadIdx.x * V; i < HW; i += (long long)kThreads * V) {
+      uint4 raw = *reinterpret_cast<const uint4*>(xp + i);
+      const T* v = reinterpret_cast<const T*>(&raw);
+      uint4 outraw;
+      T* o = reinterpret_cast<T*>(&outraw);
+#pragma unroll
+      for (int k = 0; k < V; ++k) o[k] = from_f<T>(act_fn((to_f(v[k]) - m) * r * sc + bi, act));
+      *reinterpret_cast<uint4*>(yp + i) = outraw;
+    }
+  } else {
+    for (long long i = threadIdx.x; i < HW; i += kThreads)
+      yp[i] = from_f<T>(act_fn((to_f(xp[i]) - m) * r * sc + bi, act));
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -143,6 +218,42 @@ int cat_inorm_act_f32(const void* x, const void* scale, const void* bias, void* 
   inorm_act<float><<<N * C, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(scale),
       static_cast<const float*>(bias), static_cast<float*>(y), C, HW, eps, act, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split planes' passes.  stats: (N·C, 2) float32; mean, rstd: (N·C,)
+// float32; the rest as above.
+int cat_inorm_stats_bf16(const void* x, void* stats, int N, int C, long long HW, int vec,
+                         void* stream) {
+  inorm_stats<__nv_bfloat16><<<N * C, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<float*>(stats), HW, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cat_inorm_stats_f32(const void* x, void* stats, int N, int C, long long HW, int vec,
+                        void* stream) {
+  inorm_stats<float><<<N * C, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(stats), HW, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cat_inorm_apply_bf16(const void* x, const void* mean, const void* rstd, const void* scale,
+                         const void* bias, void* y, int N, int C, long long HW, int act, int vec,
+                         void* stream) {
+  inorm_apply<__nv_bfloat16><<<N * C, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(mean),
+      static_cast<const float*>(rstd), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<__nv_bfloat16*>(y), C, HW, act, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cat_inorm_apply_f32(const void* x, const void* mean, const void* rstd, const void* scale,
+                        const void* bias, void* y, int N, int C, long long HW, int act, int vec,
+                        void* stream) {
+  inorm_apply<float><<<N * C, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(mean),
+      static_cast<const float*>(rstd), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), static_cast<float*>(y), C, HW, act, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -257,8 +257,10 @@ def create_dataloader(
     num_workers: int = 4,
     worker_mode: str = "thread",
     process_shard: Optional[Tuple[int, int]] = None,
+    height_shard: Optional[Tuple[int, int]] = None,
 ) -> DataLoader:
-    """The training loader (``process_shard``: ``loader.DataLoader``'s)."""
+    """The training loader (``process_shard``, ``height_shard``:
+    ``loader.DataLoader``'s)."""
     if dataset_mode == "aligned":
         ds = AlignedDataset(dataroot, phase, spec, direction, max_size, seed, load_in_memory)
     elif dataset_mode == "unaligned":
@@ -277,7 +279,7 @@ def create_dataloader(
         raise NotImplementedError(f"dataset mode [{dataset_mode}] not implemented")
     return DataLoader(ds, batch_size, shuffle=not serial_batches, seed=seed,
                       drop_last=drop_last, num_workers=num_workers, worker_mode=worker_mode,
-                      process_shard=process_shard)
+                      process_shard=process_shard, height_shard=height_shard)
 
 
 def create_eval_dataloader(

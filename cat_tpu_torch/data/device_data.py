@@ -131,19 +131,35 @@ class DeviceData:
 class DeviceDataLoader:
     """Trainer-facing loader over ``DeviceData``: ``len(dataset) // batch``
     steps per epoch, each epoch from a fresh seed.  Its batches are already
-    on the device."""
+    on the device.  Over several ranks every rank draws the whole global
+    batch of ``batch`` and keeps its slice (``process_shard=(rank,
+    world)``) and, of each image, its rows (``height_shard=(s, S)``), as
+    the host loader does."""
 
-    def __init__(self, dd: DeviceData, batch: int, steps_per_epoch: int, seed: int = 0):
+    def __init__(self, dd: DeviceData, batch: int, steps_per_epoch: int, seed: int = 0,
+                 process_shard: Optional[Tuple[int, int]] = None,
+                 height_shard: Optional[Tuple[int, int]] = None):
         self.dd = dd
         self.batch = batch
         self.steps = steps_per_epoch
         self.seed = seed
+        self.keep = slice(None)
+        if process_shard is not None:
+            rank, world = process_shard
+            if batch % world:
+                raise ValueError(f"global batch {batch} not divisible by {world} processes")
+            per = batch // world
+            self.keep = slice(rank * per, (rank + 1) * per)
+        self.height_shard = height_shard
         self._epoch = 0
 
     def __len__(self):
         return self.steps
 
     def __iter__(self):
+        from cat_tpu_torch.data.loader import height_rows
+
         epoch = self._epoch
         self._epoch += 1
-        yield from self.dd.batches(self.seed + 1000 * epoch, self.batch, self.steps)
+        for b in self.dd.batches(self.seed + 1000 * epoch, self.batch, self.steps):
+            yield height_rows({k: v[self.keep] for k, v in b.items()}, self.height_shard)

@@ -10,7 +10,10 @@ count, and the same as the JAX package's from the same folder and seed.
 With ``process_shard=(rank, world)`` ``batch_size`` is the GLOBAL batch and
 the loader decodes only the rank's contiguous slice of each batch, the JAX
 package's rule; it still makes every draw of the whole batch, so that the
-ranks' slices together are the one-process batch.
+ranks' slices together are the one-process batch.  With
+``height_shard=(s, S)`` (image height split over S ranks) each image field
+keeps only the rank's rows (``parallel/spatial.py::rows``), cut after the
+same crop and flip one process would draw.
 ``device_prefetch`` copies the next batch from pinned memory on a side CUDA
 stream while the current step runs.
 """
@@ -54,6 +57,24 @@ def collate(samples: List[Dict]) -> Dict[str, Any]:
     return out
 
 
+def height_rows(batch: Dict[str, Any], height_shard: Optional[Tuple[int, int]]) -> Dict[str, Any]:
+    """The rows of spatial rank s of S (``height_shard``) of each (B, C, H, W)
+    field of ``batch`` (numpy arrays or tensors); the batch as it is
+    without a shard."""
+    if height_shard is None:
+        return batch
+    from cat_tpu_torch.parallel.spatial import rows
+
+    out = {}
+    for k, v in batch.items():
+        if getattr(v, "ndim", 0) == 4:
+            start, stop = rows(v.shape[2], *height_shard)
+            v = v[:, :, start:stop]
+            v = np.ascontiguousarray(v) if isinstance(v, np.ndarray) else v.contiguous()
+        out[k] = v
+    return out
+
+
 def _as_tensors(batch: Dict[str, Any]) -> Dict[str, Any]:
     return {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
             for k, v in batch.items()}
@@ -70,10 +91,13 @@ class DataLoader:
         num_workers: int = 4,
         worker_mode: str = "thread",
         process_shard: Optional[Tuple[int, int]] = None,
+        height_shard: Optional[Tuple[int, int]] = None,
     ):
         """``process_shard=(rank, world)``: this rank's slice of every
         global batch of ``batch_size`` (which ``world`` must divide; a
         partial last batch is dropped, since it cannot be split).
+        ``height_shard=(s, S)``: of each (B, C, H, W) field, the rows of
+        spatial rank s of S.
 
         ``worker_mode``:
           * ``"thread"``: per-sample decode over a thread pool, two batches
@@ -97,6 +121,7 @@ class DataLoader:
             per = batch_size // world
             self.keep = slice(rank * per, (rank + 1) * per)
         self.process_shard = process_shard
+        self.height_shard = height_shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -132,7 +157,7 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         for batch in self._numpy_batches():
-            yield _as_tensors(batch)
+            yield _as_tensors(height_rows(batch, self.height_shard))
 
     def _numpy_batches(self) -> Iterator[Dict[str, Any]]:
         batches = self._index_batches()

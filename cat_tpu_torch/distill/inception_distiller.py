@@ -32,6 +32,12 @@ masters; parameters and inputs cast to the compute dtype inside the forward
 float32; network outputs cast to float32 for the losses (``up``).  KA takes
 the taps in the compute dtype; the mse path takes them in float32.
 
+Over several ranks (``parallel/``) the step is the single-device step of
+the global batch: each rank holds its data index's rows and, with
+``--n_spatial``, its spatial index's height rows of every image; the
+networks, losses and KA take the other ranks' rows and sums through their
+collectives, and the parameter gradients are averaged over the world.
+
 Entry points run on CUDA unless ``device="cpu"`` is passed.
 """
 
@@ -53,6 +59,7 @@ from cat_tpu_torch.models.discriminators import NLayerDiscriminator, check_task_
 from cat_tpu_torch.models.generator import DEFAULT_MAPPING_LAYERS, InceptionGenerator
 from cat_tpu_torch.models.losses import gan_loss, gradient_penalty, recon_loss
 from cat_tpu_torch.ops.nn import frozen_stats
+from cat_tpu_torch.parallel import spatial
 from cat_tpu_torch.train.common import (GANTrainState, NetState, average_grads, cast_floats,
                                         checkpointed, global_metrics)
 from cat_tpu_torch.train.optim import Adam
@@ -208,7 +215,7 @@ class InceptionDistiller:
                 li = -ka(s, t)
             else:
                 mapped = F.conv2d(s, a_params[f"A{i}.weight"], a_params[f"A{i}.bias"])
-                li = (mapped - t).square().mean()
+                li = spatial.mean((mapped - t).square())
             losses[f"Specific_loss/distill{i}"] = li
             total = total + li
         return total, losses

@@ -28,9 +28,16 @@ Over several ranks KA is that of the GLOBAL batch, as in the JAX package,
 whose distillers compute the single-device function of a batch-sharded
 input (``tests/test_sharding.py:61-95`` holds the KA step on an 8-way mesh,
 one row a shard, to the single-device step; a KA per shard would be the
-constant 1 there).  ``ka`` gathers both taps' rows from every rank
-(``parallel/collectives.py::all_gather_rows``, the student's with its
-gradient) and runs the Gram kernels on the global rows.
+constant 1 there).  ``ka`` gathers both taps' rows from every rank of the
+data axis (``parallel/collectives.py::all_gather_rows``, the student's with
+its gradient) and runs the Gram kernels on the global rows.  Over a split
+height (``parallel/spatial.py``) a rank's tap is (B, C·H_local·W): a column
+subset of the global (B, F), so G = Σ over the spatial axis of the Gram of
+the rank's columns; the Gram kernels run on those columns, the partial
+Grams are all-reduced over the spatial axis, and the three scalars follow
+the sum.  The backward's M·X stays on the rank's columns; every rank of the
+axis computes the same KA from the same sums and takes the same incoming
+gradient, so the all-reduce's adjoint is that gradient times the axis size.
 """
 
 from __future__ import annotations
@@ -280,6 +287,11 @@ class _KA(torch.autograd.Function):
                 f"X and Y must share the batch dimension, got {xf.shape[0]} vs {yf.shape[0]}"
             )
         gx, gy = gram_pair(xf.contiguous(), yf.contiguous())
+        ctx.n_spatial = collectives.axis("spatial")[2]
+        if ctx.n_spatial > 1:  # the column blocks' partial Grams summed
+            b = gx.shape[0]
+            gs = collectives.all_reduce_(torch.cat([gx.reshape(-1), gy.reshape(-1)]), "spatial")
+            gx, gy = gs[:b * b].view(b, b), gs[b * b:].view(b, b)
         s = (gx * gy).sum()
         nx = (gx * gx).sum()
         ny = (gy * gy).sum()
@@ -291,6 +303,7 @@ class _KA(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, y, gx, gy, s, nx, ny = ctx.saved_tensors
+        g = g * ctx.n_spatial  # the spatial all-reduce's adjoint (see the module's docstring)
         inv = torch.rsqrt(nx * ny)
         # dKA/dG_X = (G_Y - (s/n_x) G_X) / sqrt(n_x n_y); dG_X/dX pulls back as 2 M X
         dx = dy = None

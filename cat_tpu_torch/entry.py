@@ -34,11 +34,13 @@ caller passes ``device="cpu"``.
 The train and distill verbs also run data-parallel, one process a device
 (``parallel/``): ``--n_devices k`` spawns k ranks on this host, and
 ``--multihost 1`` / ``--num_processes`` join a group of processes started
-elsewhere.  Every rank builds the same state from the same seed and files
-(then takes rank 0's tensors), decodes its slice of every global batch,
-and computes with the others the single-device step of the global batch;
-the primary alone writes options, logs, checkpoints and dumps.  The other
-verbs run in one process, as in the JAX package.
+elsewhere.  ``--n_spatial S`` splits image height over S ranks as well
+(k·S ranks on this host; the inception family, ``parallel/spatial.py``).
+Every rank builds the same state from the same seed and files (then takes
+rank 0's tensors), decodes its slice of every global batch (and of each
+image its rows), and computes with the others the single-device step of
+the global batch; the primary alone writes options, logs, checkpoints and
+dumps.  The other verbs run in one process, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -117,6 +119,7 @@ def init_parallel(opt, device=None) -> Tuple[bool, Optional[Tuple[int, int]], to
     if opt.multihost or nproc > 1:
         multihost.initialize(opt.coordinator_address, nproc if nproc > 0 else None,
                              opt.process_id if opt.process_id >= 0 else None, device=device)
+    collectives.set_layout(opt.n_spatial)
     rank, world = multihost.process_shard()
     if device is None and collectives.active():
         device = torch.device("cuda", multihost.local_rank(rank))
@@ -141,15 +144,19 @@ def _verb_rank(device, main, argv: List[str]) -> None:
 
 
 def _spawned(opt, main, argv: Optional[List[str]], device) -> bool:
-    """--n_devices k (0: every card) with k above 1 and no group yet: run
-    the verb on k spawned ranks of this host and return True once they all
-    have (a failing rank raises); False leaves the verb to this process."""
-    if opt.n_devices == 1 or collectives.active():
+    """--n_devices k (0: every card, divided by --n_spatial S) and S, with
+    k·S above 1 and no group yet: run the verb on k·S spawned ranks of this
+    host and return True once they all have (a failing rank raises); False
+    leaves the verb to this process."""
+    if opt.n_spatial > 1 and (opt.multihost or opt.num_processes > 1):
+        # the JAX package's refusal (cat_tpu/entry.py:103-109)
+        raise SystemExit("--n_spatial > 1 is not supported together with --multihost")
+    if (opt.n_devices == 1 and opt.n_spatial == 1) or collectives.active():
         return False
     if opt.multihost or opt.num_processes > 1:
         raise ValueError("--n_devices spawns the ranks of one host; with --multihost or "
                          "--num_processes start one process per card instead")
-    n = mesh.n_ranks(opt.n_devices, device)
+    n = mesh.n_ranks(opt.n_devices, device, opt.n_spatial)
     if n == 1:
         return False
     mesh.spawn(_verb_rank, n, args=(main, sys.argv[1:] if argv is None else list(argv)),
@@ -193,34 +200,50 @@ def _real_stats(path: Optional[str]) -> Optional[Dict[str, np.ndarray]]:
     return None
 
 
+def _train_shards(process_shard):
+    """(the loader's data shard, its height shard) of this rank: its index
+    on the data axis of the world's ``(data, spatial)`` grid, and on the
+    spatial axis; None for an axis of one rank."""
+    if process_shard is None:
+        return None, None
+    _, d, n_data = collectives.axis("data")
+    _, s, n_spatial = collectives.axis("spatial")
+    return ((d, n_data) if n_data > 1 else None), ((s, n_spatial) if n_spatial > 1 else None)
+
+
 def _make_train_loader(opt, spec, device: torch.device, process_shard=None):
-    """Host DataLoader (this rank's slices under ``process_shard``), or the
-    device-resident bank with --on_device_data (unaligned resize_and_crop
-    without --serial_batches, on one process; otherwise the host loader, as
-    in the JAX package)."""
+    """Host DataLoader (this rank's slices and rows under ``process_shard``),
+    or the device-resident bank with --on_device_data (unaligned
+    resize_and_crop without --serial_batches, on one process or on the
+    spawned ranks of one host, each keeping its slice and rows; otherwise
+    the host loader, as in the JAX package)."""
     if opt.dataset_mode == "cityscapes":
         # the JAX package's generic loader has no cityscapes mode: only the
         # SPADE family's own loaders (--model spade, --distiller spade) read it
         raise NotImplementedError(f"dataset mode [{opt.dataset_mode}] not implemented")
+    data_shard, height_shard = _train_shards(process_shard)
     if opt.on_device_data:
         if (opt.dataset_mode == "unaligned" and spec.preprocess == "resize_and_crop"
-                and not spec.grayscale and not opt.serial_batches and process_shard is None):
+                and not spec.grayscale and not opt.serial_batches
+                and not (opt.multihost or opt.num_processes > 1)):
             from cat_tpu_torch.data.device_data import DeviceData, DeviceDataLoader
 
             dd, n = DeviceData.from_unaligned(opt.dataroot, opt.phase, spec.load_size,
                                               spec.crop_size, no_flip=spec.no_flip,
                                               max_size=opt.max_dataset_size, device=device)
             return DeviceDataLoader(dd, opt.batch_size, max(n // opt.batch_size, 1),
-                                    seed=opt.seed)
+                                    seed=opt.seed, process_shard=data_shard,
+                                    height_shard=height_shard)
         print("WARNING: --on_device_data supports unaligned resize_and_crop without "
-              "--serial_batches; using the host loader instead.")
+              "--serial_batches, on the ranks of one host; using the host loader instead.")
     from cat_tpu_torch.data.datasets import create_dataloader
 
     return create_dataloader(
         opt.dataset_mode, opt.dataroot, opt.batch_size, spec, phase=opt.phase,
         direction=opt.direction, serial_batches=opt.serial_batches,
         max_size=opt.max_dataset_size, seed=opt.seed, load_in_memory=opt.load_in_memory,
-        num_workers=opt.num_threads, worker_mode=opt.data_backend, process_shard=process_shard,
+        num_workers=opt.num_threads, worker_mode=opt.data_backend, process_shard=data_shard,
+        height_shard=height_shard,
     )
 
 

@@ -8,6 +8,9 @@ reference CAT (models/modules/inception_modules.py): a ``ConvNormAct`` holds
 ``dw_ops.{pos}`` = (ConvNormAct 1x1, pad, ConvNormAct depthwise, dropout,
 conv 1x1), where ``pos`` counts the branches that exist, and ``pw_bn``.
 Convolutions run VALID after explicit padding, as in the JAX package.
+``height``: the input's global height where image height is split over
+ranks (``parallel/spatial.py``); the padding then takes the neighbours'
+rows.
 """
 
 from __future__ import annotations
@@ -20,29 +23,33 @@ from torch import nn
 
 from cat_tpu_torch.core.config import InceptionBlockConfig, NormConfig
 from cat_tpu_torch.ops.instance_norm import fused_instance_norm_act
-from cat_tpu_torch.ops.nn import Norm2d, activation, instance_norm_f32, spatial_pad
-from cat_tpu_torch.parallel import collectives
+from cat_tpu_torch.ops.nn import Norm2d, activation, conv2d, instance_norm_f32, spatial_pad
+from cat_tpu_torch.parallel import collectives, spatial
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator], height: Optional[int] = None) -> torch.Tensor:
     """Inverted dropout whose mask is drawn from ``generator``; over several
-    ranks, the global batch's mask on every rank, this rank's rows kept."""
+    ranks, the global batch's mask (every image at full height) on every
+    rank, this rank's batch rows and height rows kept."""
     if not train or rate <= 0.0:
         return x
-    shape = (collectives.global_rows(x.shape[0]), *x.shape[1:])
-    keep = collectives.local_rows(torch.rand(shape, generator=generator, device=x.device)) >= rate
+    shape = [collectives.global_rows(x.shape[0]), *x.shape[1:]]
+    if spatial.active():
+        shape[2] = spatial.full_height(x, height)
+    mask = torch.rand(shape, generator=generator, device=x.device)
+    keep = collectives.local_height(collectives.local_rows(mask)) >= rate
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
 def conv_norm_act(x: torch.Tensor, conv: nn.Conv2d, norm: Norm2d, act: str,
                   fused: bool, pad: int = 0, pad_mode: str = "reflect",
-                  train: bool = False) -> torch.Tensor:
+                  train: bool = False, height: Optional[int] = None) -> torch.Tensor:
     """pad -> conv -> norm -> activation.  ``fused`` routes affine instance
     norm + relu through the fused kernel (``ops/instance_norm.py``); other
     norms and activations take the plain path, as in the JAX package.
     ``train`` reaches the norm (batch statistics)."""
-    x = conv(spatial_pad(x, pad, pad_mode))
+    x = conv2d(conv, spatial_pad(x, pad, pad_mode, height), height)
     if fused and norm.cfg.kind == "instance" and norm.cfg.affine and act in ("relu", "nn.ReLU"):
         return fused_instance_norm_act(x, norm.weight.float(), norm.bias.float(),
                                        norm.cfg.eps, "relu")
@@ -63,9 +70,10 @@ class ConvNormAct(nn.Sequential):
         )
         self.act, self.pad, self.pad_mode, self.fused = act, pad, pad_mode, fused
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                height: Optional[int] = None) -> torch.Tensor:
         return conv_norm_act(x, self[0], self[1], self.act, self.fused, self.pad,
-                             self.pad_mode, train)
+                             self.pad_mode, train, height)
 
 
 def center_pad_kernel(w: torch.Tensor, k: int) -> torch.Tensor:
@@ -129,21 +137,24 @@ class InceptionBlock(nn.Module):
         self.pw_bn = None if cfg.is_empty else Norm2d(norm, dim)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                height: Optional[int] = None) -> torch.Tensor:
         cfg = self.cfg
         if cfg.is_empty:
             return x
+        if spatial.active():
+            height = spatial.full_height(x, height)
         if self.packed:
-            return self._packed_forward(x, train, generator)
+            return self._packed_forward(x, train, generator, height)
 
         total = None
         for (_, _, k), ops in zip(cfg.active_res, self.res_ops):
-            h = dropout(ops[1](x, train), self.dropout_rate, train, generator)
-            h = ops[4](spatial_pad(h, (k - 1) // 2, self.padding_type))
+            h = dropout(ops[1](x, train, height), self.dropout_rate, train, generator, height)
+            h = ops[4](spatial_pad(h, (k - 1) // 2, self.padding_type, height))
             total = h if total is None else total + h
         for ops in self.dw_ops:
-            h = ops[2](ops[0](x, train), train)
-            h = ops[4](dropout(h, self.dropout_rate, train, generator))
+            h = ops[2](ops[0](x, train), train, height)
+            h = ops[4](dropout(h, self.dropout_rate, train, generator, height))
             total = h if total is None else total + h
         return x + self.pw_bn(total, train)
 
@@ -157,7 +168,7 @@ class InceptionBlock(nn.Module):
             yf = instance_norm_f32(yf, scale, bias, self.norm.eps)
         return activation(self.active_fn)(yf).to(y.dtype)
 
-    def _packed_forward(self, x, train, generator):
+    def _packed_forward(self, x, train, generator, height=None):
         """Grouped branch packing: FLOP-exact, kernel-size-homogeneous groups.
 
         Branch convs sharing a kernel size pack into one wide conv (the k=1
@@ -182,7 +193,7 @@ class InceptionBlock(nn.Module):
         h_res, g_parts = {}, []  # res unit -> its mid activation; dw mids in order
         for k in sorted(groups):
             units = [u for _, _, u in groups[k]]
-            y = F.conv2d(spatial_pad(x, (k - 1) // 2, pad_mode),
+            y = F.conv2d(spatial_pad(x, (k - 1) // 2, pad_mode, height),
                          torch.cat([u[0].weight for u in units]),
                          torch.cat([u[0].bias for u in units]) if self.use_bias else None)
             sc = torch.cat([u[1].weight for u in units]) if affine else None
@@ -192,7 +203,7 @@ class InceptionBlock(nn.Module):
             for kind, mid, unit in groups[k]:
                 sl = y[:, off:off + mid]
                 if kind == "res":
-                    h_res[unit] = dropout(sl, self.dropout_rate, train, generator)
+                    h_res[unit] = dropout(sl, self.dropout_rate, train, generator, height)
                 else:
                     g_parts.append(sl)
                 off += mid
@@ -204,7 +215,7 @@ class InceptionBlock(nn.Module):
             kmax = max(k for _, k, _, _, _ in dw)
             mids = [mid_unit for _, _, _, mid_unit, _ in dw]
             w_dw = torch.cat([center_pad_kernel(u[0].weight, kmax) for u in mids])
-            gm = F.conv2d(spatial_pad(g_all, (kmax - 1) // 2, pad_mode), w_dw,
+            gm = F.conv2d(spatial_pad(g_all, (kmax - 1) // 2, pad_mode, height), w_dw,
                           torch.cat([u[0].bias for u in mids]) if self.use_bias else None,
                           groups=g_all.shape[1])
             gm = self._inorm_act(
@@ -212,7 +223,7 @@ class InceptionBlock(nn.Module):
                 torch.cat([u[1].weight for u in mids]) if affine else None,
                 torch.cat([u[1].bias for u in mids]) if affine else None,
             )
-            gm = dropout(gm, self.dropout_rate, train, generator)
+            gm = dropout(gm, self.dropout_rate, train, generator, height)
             off = 0
             for mid, _, _, _, _ in dw:
                 gm_parts.append(gm[:, off:off + mid])
@@ -229,7 +240,7 @@ class InceptionBlock(nn.Module):
         for k in sorted(og):
             ts = [t for t, _ in og[k]]
             xin = ts[0] if len(ts) == 1 else torch.cat(ts, 1)
-            y = F.conv2d(spatial_pad(xin, (k - 1) // 2, pad_mode),
+            y = F.conv2d(spatial_pad(xin, (k - 1) // 2, pad_mode, height),
                          torch.cat([c.weight for _, c in og[k]], 1))
             total = y if total is None else total + y
         if self.use_bias:

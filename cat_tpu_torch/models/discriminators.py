@@ -5,6 +5,10 @@ State_dict keys follow the reference's ``nn.Sequential``s: the NLayer D's
 conv last; the pixel D's ``net.{i}`` holds conv0 at 0, conv1 at 2, its norm
 at 3 and the output conv at 5.  Under a batch-like norm the convs that feed
 a norm, and the pixel D's output conv, carry no bias, as in the JAX package.
+Over a split height (``parallel/spatial.py``) every NLayer conv takes its
+height padding from the neighbours (``ops/nn.py::conv2d``); the stride-1
+layers make the shards uneven (32 rows to 31 and 30).  The pixel D's 1x1
+convs need no halo.
 """
 
 from __future__ import annotations
@@ -15,7 +19,8 @@ import torch
 from torch import nn
 
 from cat_tpu_torch.core.config import NLayerDiscriminatorConfig, PixelDiscriminatorConfig
-from cat_tpu_torch.ops.nn import Norm2d, activation, init_weights
+from cat_tpu_torch.ops.nn import Norm2d, activation, conv2d, init_weights
+from cat_tpu_torch.parallel import spatial
 
 
 class NLayerDiscriminator(nn.Module):
@@ -42,10 +47,14 @@ class NLayerDiscriminator(nn.Module):
         """``train``: batch norms normalise with batch statistics."""
         act = activation(self.cfg.active_fn, slope=0.2)
         m = self.model
-        h = act(m[0](x))
+        hh = spatial.global_height(x)  # None unless the height is split
+        h = act(conv2d(m[0], x, hh))
+        hh = spatial.conv_height(hh, m[0])
         for n in range(self.cfg.n_layers):
-            h = act(m[3 * n + 3](m[3 * n + 2](h), train))
-        return m[-1](h)
+            conv = m[3 * n + 2]
+            h = act(m[3 * n + 3](conv2d(conv, h, hh), train))
+            hh = spatial.conv_height(hh, conv)
+        return conv2d(m[-1], h, hh)
 
 
 class PixelDiscriminator(nn.Module):

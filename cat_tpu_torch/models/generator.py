@@ -10,6 +10,11 @@ so ``cat_tpu/utils/torch_import.py::import_inception_generator`` reads them.
 
 Tap names: ``encode`` is the output of the downsampling trunk and
 ``block{i}`` the output of the i-th inception block.
+
+Over a split height (``parallel/spatial.py``) the forward learns the
+input's global height once and passes each layer its input's: the stem
+and head pads, the stride-2 downsampling, the blocks' pads and the
+transposed convs take their neighbours' rows.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from torch import nn
 from cat_tpu_torch.core.config import InceptionGeneratorConfig
 from cat_tpu_torch.models.blocks import InceptionBlock, conv_norm_act
 from cat_tpu_torch.ops.nn import ConvTranspose2d, Norm2d, activation, init_weights, spatial_pad
+from cat_tpu_torch.parallel import spatial
 
 # after the encoder and after features 2/5/8
 DEFAULT_MAPPING_LAYERS = ("encode", "block2", "block5", "block8")
@@ -73,24 +79,28 @@ class InceptionGenerator(nn.Module):
         cfg = self.cfg
         acts: Dict[str, torch.Tensor] = {}
         ds = self.down_sampling
+        hh = spatial.global_height(x)  # None unless the height is split
         h = conv_norm_act(x, ds[1], ds[2], cfg.active_fn, self.fused_norms, 3,
-                          cfg.padding_type, train)
+                          cfg.padding_type, train, hh)
         for j in range(len(cfg.ds_channels) - 1):
-            h = conv_norm_act(h, ds[4 + 3 * j], ds[5 + 3 * j], cfg.active_fn,
-                              self.fused_norms, train=train)
+            conv = ds[4 + 3 * j]
+            h = conv_norm_act(h, conv, ds[5 + 3 * j], cfg.active_fn,
+                              self.fused_norms, train=train, height=hh)
+            hh = spatial.conv_height(hh, conv)
         if "encode" in taps:
             acts["encode"] = h
 
         for i, block in enumerate(self.features):
-            h = block(h, train=train, generator=generator)
+            h = block(h, train=train, generator=generator, height=hh)
             if f"block{i}" in taps:
                 acts[f"block{i}"] = h
 
         us = self.up_sampling
         act = activation(cfg.active_fn)
         for j in range(len(cfg.us_channels)):
-            h = act(us[3 * j + 1](us[3 * j](h), train))
-        y = torch.tanh(us[-1](spatial_pad(h, 3, cfg.padding_type)))
+            h = act(us[3 * j + 1](us[3 * j](h, hh), train))
+            hh = spatial.conv_transpose_height(hh, us[3 * j])
+        y = torch.tanh(us[-1](spatial_pad(h, 3, cfg.padding_type, hh)))
         if taps:
             return y, acts
         return y

@@ -1,5 +1,10 @@
 """GAN and reconstruction objectives and the WGAN-GP gradient penalty (port
-of ``cat_tpu/models/losses.py``)."""
+of ``cat_tpu/models/losses.py``).
+
+Over a split height (``parallel/spatial.py``) the means are over the global
+tensor (``spatial.mean``: shards may be uneven), and the penalty's
+per-sample norm sums its squares over the spatial axis before the square
+root."""
 
 from __future__ import annotations
 
@@ -8,7 +13,7 @@ from typing import Callable, Optional, Sequence, Union
 import torch
 import torch.nn.functional as F
 
-from cat_tpu_torch.parallel import collectives
+from cat_tpu_torch.parallel import collectives, spatial
 
 Pred = Union[torch.Tensor, Sequence]
 
@@ -28,22 +33,25 @@ def gan_loss(prediction: Pred, target_is_real: bool, mode: str = "lsgan",
             losses.append(gan_loss(pred_i, target_is_real, mode, for_discriminator))
         return sum(losses) / len(losses)
 
+    mean = spatial.mean
     if mode == "lsgan":
         target = 1.0 if target_is_real else 0.0
-        return torch.mean(torch.square(prediction - target))
+        return mean(torch.square(prediction - target))
     if mode == "vanilla":
         target = torch.full_like(prediction, 1.0 if target_is_real else 0.0)
-        return F.binary_cross_entropy_with_logits(prediction, target)
+        if not spatial.active():
+            return F.binary_cross_entropy_with_logits(prediction, target)
+        return mean(F.binary_cross_entropy_with_logits(prediction, target, reduction="none"))
     if mode == "wgangp":
-        return -torch.mean(prediction) if target_is_real else torch.mean(prediction)
+        return -mean(prediction) if target_is_real else mean(prediction)
     if mode == "hinge":
         if for_discriminator:
             if target_is_real:
-                return -torch.mean(torch.clamp_max(prediction - 1.0, 0.0))
-            return -torch.mean(torch.clamp_max(-prediction - 1.0, 0.0))
+                return -mean(torch.clamp_max(prediction - 1.0, 0.0))
+            return -mean(torch.clamp_max(-prediction - 1.0, 0.0))
         if not target_is_real:
             raise ValueError("hinge generator loss is only defined for real targets")
-        return -torch.mean(prediction)
+        return -mean(prediction)
     raise NotImplementedError(f"gan mode {mode} not implemented")
 
 
@@ -92,18 +100,18 @@ def gradient_penalty(d_apply: Callable, real: torch.Tensor, fake: torch.Tensor,
     (grads,) = torch.autograd.grad(total, x, create_graph=True)
     # the norm in float32: under bf16 the 1e-16 shift would underflow to 0
     flat = (grads.float() + 1e-16).reshape(real.shape[0], -1)
-    norm = flat.square().sum(dim=1).sqrt()
+    norm = collectives.all_reduce_sum(flat.square().sum(dim=1), "spatial").sqrt()
     return (norm - constant).square().mean() * lambda_gp, grads
 
 
 def recon_loss(x: torch.Tensor, y: torch.Tensor, kind: str = "l1") -> torch.Tensor:
     """Reconstruction objective (l1 | l2 | smooth_l1)."""
     if kind == "l1":
-        return torch.mean(torch.abs(x - y))
+        return spatial.mean(torch.abs(x - y))
     if kind == "l2":
-        return torch.mean(torch.square(x - y))
+        return spatial.mean(torch.square(x - y))
     if kind == "smooth_l1":
         d = x - y
         ad = torch.abs(d)
-        return torch.mean(torch.where(ad < 1.0, 0.5 * d * d, ad - 0.5))
+        return spatial.mean(torch.where(ad < 1.0, 0.5 * d * d, ad - 0.5))
     raise NotImplementedError(f"recon loss {kind!r} not implemented")

@@ -3,6 +3,10 @@
 Tensors are NCHW (PyTorch's layout); the JAX package keeps NHWC.  The
 numerics follow ``cat_tpu/ops/nn.py``: instance and batch statistics are
 E[x²] - mean² in float32, and the result is cast back to the input dtype.
+Over a split height (``parallel/spatial.py``) the height padding, the
+convolutions with built-in padding and the statistics take the other
+spatial ranks' rows into account; ``height`` is then the global height of
+the input where the caller knows it.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from torch import nn
 
 from cat_tpu_torch.core.config import NormConfig
 from cat_tpu_torch.ops.spectral import SpectralConv2d
-from cat_tpu_torch.parallel import collectives
+from cat_tpu_torch.parallel import collectives, spatial
 
 # ---------------------------------------------------------------------------
 # Padding
@@ -26,13 +30,31 @@ from cat_tpu_torch.parallel import collectives
 _PAD_MODES = {"reflect": "reflect", "replicate": "replicate", "zero": "constant"}
 
 
-def spatial_pad(x: torch.Tensor, pad: int, mode: str = "reflect") -> torch.Tensor:
-    """Pad H and W of an NCHW tensor (reference: nn.ReflectionPad2d et al.)."""
+def spatial_pad(x: torch.Tensor, pad: int, mode: str = "reflect",
+                height: Optional[int] = None) -> torch.Tensor:
+    """Pad H and W of an NCHW tensor (reference: nn.ReflectionPad2d et al.).
+    Over a split height, for the valid stride-1 conv of kernel 2·pad + 1
+    that follows: this rank's rows with ``pad`` rows above and below from
+    the neighbours, padded by ``mode`` only at the global top and bottom
+    (``spatial.halo``)."""
     if pad == 0:
         return x
     if mode not in _PAD_MODES:
         raise NotImplementedError(f"padding [{mode}] is not implemented")
-    return F.pad(x, (pad, pad, pad, pad), mode=_PAD_MODES[mode])
+    if not spatial.active():
+        return F.pad(x, (pad, pad, pad, pad), mode=_PAD_MODES[mode])
+    slab = spatial.halo(x, spatial.full_height(x, height), 2 * pad + 1, 1, pad, pad, mode)
+    return F.pad(slab, (pad, pad, 0, 0), mode=_PAD_MODES[mode])
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
+    """``conv(x)``.  Over a split height, a conv with built-in height
+    padding or a stride takes its rows through ``spatial.conv2d``; a valid
+    stride-1 conv runs as it is (it follows ``spatial_pad``, whose rows
+    carry the halo)."""
+    if not spatial.active() or (conv.padding[0] == 0 and conv.stride[0] == 1):
+        return conv(x)
+    return spatial.conv2d(conv, x, height)
 
 
 # ---------------------------------------------------------------------------
@@ -128,13 +150,19 @@ def init_weights(module: nn.Module, init_type: str = "normal", init_gain: float 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """Stride-2 transposed conv with kernel 3, padding 1, output_padding 1:
     exact 2x upsampling, as the JAX package's ``ConvTranspose2d``.  The
-    weight is torch's (in, out, kh, kw)."""
+    weight is torch's (in, out, kh, kw).  Over a split height each rank
+    computes its rows of the output (``spatial.conv_transpose2d``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int = 3,
                  stride: int = 2, padding: int = 1, output_padding: int = 1,
                  bias: bool = True):
         super().__init__(in_channels, out_channels, kernel, stride=stride,
                          padding=padding, output_padding=output_padding, bias=bias)
+
+    def forward(self, x: torch.Tensor, height: Optional[int] = None) -> torch.Tensor:
+        if not spatial.active():
+            return super().forward(x)
+        return spatial.conv_transpose2d(self, x, height)
 
 
 # ---------------------------------------------------------------------------
@@ -215,16 +243,21 @@ def batch_moments(xf: torch.Tensor):
     """Per-channel mean and biased variance E[x²] - mean² of a float32 NCHW
     batch over (N, H, W), and the count of values a channel.  When the
     ranks' collectives run, over the global batch: the sums of x and x² are
-    all-reduced with their gradient (``parallel/collectives.py``), as the
-    JAX package's batch norm over a sharded batch axis is synchronised;
-    every rank holds an equal share, so the count is the rank's times the
-    world size."""
+    all-reduced over the world with their gradient
+    (``parallel/collectives.py``), as the JAX package's batch norm over a
+    sharded mesh is synchronised.  Every data index holds an equal share of
+    the batch; its spatial ranks' shares of the height may be uneven, so
+    the count is the spatial axis's summed count times the data axis's
+    size."""
     n = xf.shape[0] * xf.shape[2] * xf.shape[3]
     if not collectives.active():
         mean = xf.mean(dim=(0, 2, 3))
         return mean, xf.square().mean(dim=(0, 2, 3)) - mean.square(), n
     c = xf.shape[1]
-    n *= collectives.world()[1]
+    if spatial.active():
+        n = spatial.count_sum(n) * collectives.axis("data")[2]
+    else:
+        n *= collectives.world()[1]
     sums = collectives.all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)),
                                                  xf.square().sum(dim=(0, 2, 3))]))
     mean = sums[:c] / n
@@ -248,12 +281,29 @@ def frozen_stats(*nets: nn.Module):
             m.update_stats = s
 
 
+def plane_moments(xf: torch.Tensor):
+    """Per-(sample, channel) mean and E[x²] - mean² of a float32 NCHW tensor,
+    shaped (N, C, 1, 1).  Over a split height the planes' sums of x and x²
+    are all-reduced over the spatial axis with their gradient and divided
+    by the global count."""
+    if not spatial.active():
+        mean = xf.mean(dim=(2, 3), keepdim=True)
+        return mean, xf.square().mean(dim=(2, 3), keepdim=True) - mean.square()
+    n, c = xf.shape[:2]
+    sums = collectives.all_reduce_sum(torch.cat([xf.sum(dim=(2, 3)).reshape(-1),
+                                                 xf.square().sum(dim=(2, 3)).reshape(-1)]),
+                                      "spatial")
+    count = spatial.count_sum(xf.shape[2] * xf.shape[3])
+    mean = (sums[:n * c] / count).reshape(n, c, 1, 1)
+    return mean, (sums[n * c:] / count).reshape(n, c, 1, 1) - mean.square()
+
+
 def instance_norm_f32(xf: torch.Tensor, weight: Optional[torch.Tensor],
                       bias: Optional[torch.Tensor], eps: float) -> torch.Tensor:
     """Per-(sample, channel) normalisation of a float32 NCHW tensor with
-    var = E[x²] - mean², then the optional affine in float32."""
-    mean = xf.mean(dim=(2, 3), keepdim=True)
-    var = xf.square().mean(dim=(2, 3), keepdim=True) - mean.square()
+    var = E[x²] - mean² (over the global plane, ``plane_moments``), then the
+    optional affine in float32."""
+    mean, var = plane_moments(xf)
     y = (xf - mean) * torch.rsqrt(var + eps)
     if weight is not None:
         y = y * weight.float()[:, None, None] + bias.float()[:, None, None]

@@ -1,11 +1,14 @@
-"""The devices of a data-parallel run on one host (port of
-``cat_tpu/parallel/mesh.py``'s 1-D data mesh).
+"""The devices of a parallel run on one host (port of
+``cat_tpu/parallel/mesh.py``'s ``(data, spatial)`` mesh).
 
-``--n_devices k`` runs k ranks, one process each (``spawn``): rank r on
-``cuda:r`` (or every rank on the CPU, or on one device the caller names),
-meeting on a free local port.  ``--n_devices 1``, the default, is one
-process with no group.  The JAX package's second mesh axis (``--n_spatial``,
-image height split over devices) is not ported.
+``--n_devices k --n_spatial S`` runs k·S ranks, one process each
+(``spawn``): rank r on ``cuda:r`` (or every rank on the CPU, or on one
+device the caller names), meeting on a free local port.  Rank r is data
+index r // S and spatial index r % S, as in the JAX package's grid
+(``collectives.set_layout`` makes the axes' groups); the spatial axis
+splits image height (``parallel/spatial.py``), for the inception family
+(the SPADE family's layers are ROADMAP item 16c).  ``--n_devices 1
+--n_spatial 1``, the default, is one process with no group.
 """
 
 from __future__ import annotations
@@ -19,21 +22,24 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
-def n_ranks(n_devices: int, device=None) -> int:
-    """The ranks ``--n_devices`` asks for: 0 means every visible card.
+def n_ranks(n_devices: int, device=None, n_spatial: int = 1) -> int:
+    """The ranks ``--n_devices`` and ``--n_spatial`` ask for, k·S: k = 0
+    means the visible cards divided by S (``cat_tpu/entry.py:114``).
     Raises, as the JAX package's ``make_mesh`` does, when more are asked
     for than there are cards; ranks on the CPU (``device="cpu"``) need a
     count."""
+    if n_spatial < 1:
+        raise ValueError(f"--n_spatial must be at least 1, got {n_spatial}")
     on_cpu = device is not None and torch.device(device).type == "cpu"
     if on_cpu:
         if n_devices < 1:
             raise ValueError("--n_devices 0 means every visible card; ranks on the CPU need "
                              "a count")
-        return n_devices
+        return n_devices * n_spatial
     visible = torch.cuda.device_count()
-    n = visible if n_devices <= 0 else n_devices
-    if n > visible:
-        raise ValueError(f"requested {n} devices but only {visible} available")
+    n = (visible // n_spatial if n_devices <= 0 else n_devices) * n_spatial
+    if n > visible or n < 1:
+        raise ValueError(f"requested {max(n, n_spatial)} devices but only {visible} available")
     return n
 
 

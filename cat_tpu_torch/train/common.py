@@ -68,12 +68,15 @@ _BUCKET_BYTES = 64 << 20  # a flattened all-reduce's size
 def average_grads(grads: Sequence[torch.Tensor], group=None) -> List[torch.Tensor]:
     """The gradients averaged over the ranks (of ``group``, the default
     group when None): all-reduced in flattened buckets of up to 64 MiB a
-    dtype and divided by the world size.  Each rank's losses are means over
-    its equal share of the global batch, so the average is the gradient of
-    the global batch's loss.  Without a group, ``grads`` as they are.  The
-    steps call it before every optimiser step (no DDP: the steps are
-    functional, D runs several forwards an update, and remat recomputes
-    the forward)."""
+    dtype and divided by the world size.  Each rank's objective is scaled
+    so that the ranks' objectives sum to the world size times the global
+    batch's loss (a mean over the rank's equal share of the batch; over a
+    split height, ``parallel/spatial.py::mean``'s share of it), and the
+    collectives' backwards bring every rank the gradient of that sum
+    through its own tensors, so the average is the gradient of the global
+    batch's loss.  Without a group, ``grads`` as they are.  The steps call
+    it before every optimiser step (no DDP: the steps are functional, D
+    runs several forwards an update, and remat recomputes the forward)."""
     grads = list(grads)
     if not collectives.active():
         return grads

@@ -10,8 +10,9 @@ Reference: models/cycle_gan_model.py (losses 267-290, G-first-then-D order
      forward of this half moves a running statistic (the JAX task never
      writes G's, and reads D's as they are);
   3. both pools mix the detached fakes with their history: over several
-     ranks, the global batch's fakes, gathered, in one pool that every rank
-     holds alike (its draws seeded alike), each rank keeping its rows;
+     ranks, the global batch's fakes, gathered (over a split height, whole
+     images), in one pool that every rank holds alike (its draws seeded
+     alike), each rank keeping its rows;
   4. the discriminators update on the reals and the pooled fakes, each
      net's two forwards moving its running statistics (real, then fake),
      plus the gradient penalty under wgangp.
@@ -35,7 +36,9 @@ from cat_tpu_torch.models.discriminators import NLayerDiscriminator, check_task_
 from cat_tpu_torch.models.generator import InceptionGenerator
 from cat_tpu_torch.models.losses import gan_loss, gradient_penalty, recon_loss
 from cat_tpu_torch.ops.nn import frozen_stats
-from cat_tpu_torch.parallel.collectives import all_gather_rows, local_rows
+from cat_tpu_torch.parallel import spatial
+from cat_tpu_torch.parallel.collectives import (all_gather_rows, gather_height, local_height,
+                                                local_rows)
 from cat_tpu_torch.train.common import (GANTrainState, average_grads, checkpointed,
                                         global_metrics, net_state)
 from cat_tpu_torch.utils.image_pool import ImagePool
@@ -134,9 +137,16 @@ class CycleGANTask:
         state.g.opt.step(average_grads(g_grads), lr)
 
         # --- replay pools (reference ImagePool.query): one pool over the
-        # global batch's fakes, the same on every rank, each keeping its rows
-        fake_B_mixed = local_rows(state.pools["fake_B"].query(all_gather_rows(fake_B.detach())))
-        fake_A_mixed = local_rows(state.pools["fake_A"].query(all_gather_rows(fake_A.detach())))
+        # global batch's whole fakes, the same on every rank, each keeping
+        # its rows
+        def pooled(name, fake):
+            whole = all_gather_rows(fake.detach())
+            if spatial.active():
+                whole = gather_height(whole, spatial.full_height(whole))
+            return local_height(local_rows(state.pools[name].query(whole)))
+
+        fake_B_mixed = pooled("fake_B", fake_B)
+        fake_A_mixed = pooled("fake_A", fake_A)
 
         # --- discriminator update (reference backward_D_basic: 238-265) ---
         for name, real, fake in (("A", real_B, fake_B_mixed), ("B", real_A, fake_A_mixed)):

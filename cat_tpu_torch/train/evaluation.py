@@ -9,11 +9,14 @@ mean of the last three.  The evaluators run on CUDA unless their caller
 passes ``device="cpu"``.
 
 Over several ranks (``process_shard=(rank, world)``) each rank sweeps every
-world-th val batch on its own (the step's collectives held off), the
-primary alone dumps images, and the FID moments and mIoU confusion
-matrices are merged over the ranks (``parallel/multihost.py``); the matrix
-square root runs on the primary, which sends the FID to the others.  Every
-rank calls an evaluator at the same step (the trainer's cadence).
+world-th val batch on its own, of whole images (the step's collectives
+held off, so a split height, ``--n_spatial``, does not apply: every rank of
+the world, spatial ones included, takes its own batches, and each image is
+counted once), the primary alone dumps images, and the FID moments and mIoU
+confusion matrices are merged over the ranks (``parallel/multihost.py``);
+the matrix square root runs on the primary, which sends the FID to the
+others.  Every rank calls an evaluator at the same step (the trainer's
+cadence).
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ reference recipes run as they are; and the configs and the judge built from
 them.
 
 Flags whose code path is not ported yet raise ``NotImplementedError``
-naming the ROADMAP.md item that brings it, when set away from their default
-(``check_ported``, ``check_train_ported``).  Flags the JAX package accepts
+naming the ROADMAP.md item that brings it, where that path would run (the
+int8 teacher in the distillers).  Flags the JAX package accepts
 and leaves inert on a verb are inert here too: on distill,
 --netG/--teacher_netG/--student_netG/--pretrained_netG,
 --pretrained_ngf/--teacher_ngf, --prune_continue, --prune_logging_verbose,
@@ -351,39 +351,6 @@ def kid_parser() -> argparse.ArgumentParser:
                              "MMD^2 (reference kid_score.py:205-283; never printed by the "
                              "reference's shipped flows)")
     return parser
-
-
-def _multi_gpu(opt, spade: bool):
-    """The spatial axis (--n_spatial, ROADMAP item 16b) is ported for the
-    inception family; the SPADE family's layers under a split height (SPADE
-    norm's label-map resize per shard, the VGG loss's max pools, the
-    multiscale D's count_include_pad=False average pools, the SPADE
-    distiller's taps) are item 16c."""
-    return (("--n_spatial > 1 for the SPADE family", opt.n_spatial > 1 and spade,
-             "16c, spatial parallelism for the SPADE family (SPADE norm's label maps per "
-             "shard, the VGG loss's max pools, the multiscale D's average pools, the SPADE "
-             "distiller's taps)"),)
-
-
-def _raise_unported(checks) -> None:
-    for what, asked, item in checks:
-        if asked:
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP.md queue 1, item {item}")
-
-
-def check_train_ported(opt) -> None:
-    """The train verb's ``check_ported``: --n_spatial raises for --model
-    spade."""
-    _raise_unported(_multi_gpu(opt, opt.model == "spade"))
-
-
-def check_ported(opt) -> None:
-    """Raise for a flag whose code path is not ported yet, set away from
-    its default, naming the ROADMAP.md item (queue 1) that brings it.  The
-    other unported paths raise where they would run: the int8 teacher in
-    the distillers; the pixel D, which the JAX package's tasks cannot build
-    either, raises in the tasks."""
-    _raise_unported(_multi_gpu(opt, opt.distiller == "spade"))
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ as the JAX package, so the two give the same samples.
 An item: ``label`` (H, W) float32 ids, ``instance`` (H, W) int32 (unless
 ``no_instance``), ``image`` (3, H, W) float32 in [-1, 1], ``path``.  The
 one-hot semantics and the instance edges are made on the device
-(``train/spade_model.py::preprocess_input``).
+(``train/spade_model.py::preprocess_input``).  Over a split height the
+loader cuts only the photo's rows: the label and instance maps, (B, H, W),
+stay whole on every rank (``data/loader.py::height_rows``).
 """
 
 from __future__ import annotations
@@ -79,9 +81,11 @@ def create_cityscapes_dataloader(dataroot: str, batch_size: int, phase: str = "t
                                  drop_last: bool = True, num_workers: int = 4,
                                  worker_mode: str = "thread",
                                  process_shard: Optional[Tuple[int, int]] = None,
+                                 height_shard: Optional[Tuple[int, int]] = None,
                                  **kwargs) -> DataLoader:
     """The port's loader over ``CityscapesDataset(dataroot, phase, **kwargs)``
-    (``process_shard``: ``loader.DataLoader``'s)."""
+    (``process_shard``, ``height_shard``: ``loader.DataLoader``'s)."""
     return DataLoader(CityscapesDataset(dataroot, phase, **kwargs), batch_size, shuffle=shuffle,
                       seed=seed, drop_last=drop_last, num_workers=num_workers,
-                      worker_mode=worker_mode, process_shard=process_shard)
+                      worker_mode=worker_mode, process_shard=process_shard,
+                      height_shard=height_shard)

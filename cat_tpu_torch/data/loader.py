@@ -60,7 +60,8 @@ def collate(samples: List[Dict]) -> Dict[str, Any]:
 def height_rows(batch: Dict[str, Any], height_shard: Optional[Tuple[int, int]]) -> Dict[str, Any]:
     """The rows of spatial rank s of S (``height_shard``) of each (B, C, H, W)
     field of ``batch`` (numpy arrays or tensors); the batch as it is
-    without a shard."""
+    without a shard.  (B, H, W) fields, the SPADE family's label and
+    instance maps, stay whole: every rank makes the semantics from them."""
     if height_shard is None:
         return batch
     from cat_tpu_torch.parallel.spatial import rows

@@ -35,7 +35,8 @@ height (``parallel/spatial.py``) a rank's tap is (B, C·H_local·W): a column
 subset of the global (B, F), so G = Σ over the spatial axis of the Gram of
 the rank's columns; the Gram kernels run on those columns, the partial
 Grams are all-reduced over the spatial axis, and the three scalars follow
-the sum.  The backward's M·X stays on the rank's columns; every rank of the
+the sum (a rank that owns no rows of a tap adds a zero Gram and still
+joins the all-reduce).  The backward's M·X stays on the rank's columns; every rank of the
 axis computes the same KA from the same sums and takes the same incoming
 gradient, so the all-reduce's adjoint is that gradient times the axis size.
 """
@@ -261,7 +262,10 @@ def _gram_launch(x: torch.Tensor, path: str) -> torch.Tensor:
 def gram(x: torch.Tensor) -> torch.Tensor:
     """X·Xᵀ in float32 for a 2-D batch-major operand: the CUDA kernel for a
     CUDA tensor, the plain version for a CPU tensor (past 128 rows, the
-    pair kernels' own)."""
+    pair kernels' own).  An operand of no columns (a rank that owns no rows
+    of a tap split in height) has the zero Gram, with no launch."""
+    if x.shape[1] == 0:
+        return torch.zeros((x.shape[0], x.shape[0]), dtype=torch.float32, device=x.device)
     if x.device.type == "cpu":
         return gram_pairs_plain(x) if x.shape[0] > _MAX_BATCH else gram_plain(x)
     return gram_cuda(x)

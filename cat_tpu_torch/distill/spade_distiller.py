@@ -28,6 +28,14 @@ package's ``_step`` does:
     ``jax.checkpoint_policies`` name); without ``remat`` the policy is
     ignored, as in the JAX package.
 
+Over a split height (``--n_spatial``) the step is the single-device step
+of the global batch: the semantics whole on every rank, the taps, fakes
+and photos the rank's rows (``train/spade_model.py``); KA sums its partial
+Grams over the spatial axis (``distill/ka.py``), the ``mse`` adaptors'
+means and the GAN, feature and VGG terms are over the global tensors,
+and remat's recompute replays the halo exchanges, which every rank runs
+in the same order.
+
 Mixed precision follows the JAX placement, as ``train/spade_model.py``
 does: float32 masters, parameters and inputs cast to ``compute_dtype``
 inside the forwards, norm statistics, losses and both taps in float32.
@@ -40,7 +48,6 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
@@ -52,10 +59,12 @@ from cat_tpu_torch.models.losses import gan_loss, gradient_penalty
 from cat_tpu_torch.models.spade import MultiscaleDiscriminator, SPADEGenerator
 from cat_tpu_torch.models.vgg import VGG19Features, vgg_loss
 from cat_tpu_torch.ops.nn import frozen_stats
+from cat_tpu_torch.parallel import spatial
 from cat_tpu_torch.train.common import (GANTrainState, NetState, average_grads, cast_floats,
                                         checkpointed, global_metrics)
 from cat_tpu_torch.train.optim import Adam
-from cat_tpu_torch.train.spade_model import discriminate, feature_matching_loss, preprocess_input
+from cat_tpu_torch.train.spade_model import (d_input, discriminate, feature_matching_loss,
+                                              preprocess_input)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DEFAULT_SPADE_MAPPING_LAYERS = ("head_0", "G_middle_1", "up_1")
@@ -250,8 +259,8 @@ class SPADEDistiller:
             if self.hp.distill_loss_type == "ka":
                 li = -ka(s, t)
             else:
-                mapped = F.conv2d(s, a_params[f"A{i}.weight"], a_params[f"A{i}.bias"])
-                li = (mapped - t).square().mean()
+                mapped = spatial.conv2d_fn(s, a_params[f"A{i}.weight"], a_params[f"A{i}.bias"])
+                li = spatial.mean((mapped - t).square())
             parts[f"Specific_loss/distill{i}"] = li
             total = total + li
         return total, parts
@@ -330,8 +339,8 @@ class SPADEDistiller:
                 return up(functional_call(self.netD, d_down, (x,), {"train": True}))
 
             with frozen_stats(self.netD):
-                d_loss, _ = gradient_penalty(d_apply, torch.cat([sem, down(real_B)], 1),
-                                             torch.cat([sem, fake], 1), generator=state.rng)
+                d_loss, _ = gradient_penalty(d_apply, d_input(sem, down(real_B)),
+                                             d_input(sem, fake), generator=state.rng)
         pred_fake, pred_real = discriminate(self.netD, d_down, sem, fake, down(real_B))
         l_d_fake = gan_loss(up(pred_fake), False, hp.gan_mode, True)
         l_d_real = gan_loss(up(pred_real), True, hp.gan_mode, True)

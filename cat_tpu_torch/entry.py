@@ -35,7 +35,8 @@ The train and distill verbs also run data-parallel, one process a device
 (``parallel/``): ``--n_devices k`` spawns k ranks on this host, and
 ``--multihost 1`` / ``--num_processes`` join a group of processes started
 elsewhere.  ``--n_spatial S`` splits image height over S ranks as well
-(k·S ranks on this host; the inception family, ``parallel/spatial.py``).
+(k·S ranks on this host, ``parallel/spatial.py``; both families: the
+SPADE verbs keep the label maps whole on every rank and cut the photos).
 Every rank builds the same state from the same seed and files (then takes
 rank 0's tensors), decodes its slice of every global batch (and of each
 image its rows), and computes with the others the single-device step of
@@ -325,7 +326,6 @@ class DistillRun:
 
 
 def setup_distill(opt, device=None, loader=None) -> DistillRun:
-    cli.check_ported(opt)
     if opt.distiller == "spade":
         return setup_distill_spade(opt, device, loader)
     return setup_distill_inception(opt, device, loader)
@@ -584,12 +584,13 @@ def setup_distill_spade(opt, device=None, loader=None) -> DistillRun:
         return DistillRun(None, state, dist, teacher_params, student_cfg, loader, logger)
 
     if loader is None:
+        data_shard, height_shard = _train_shards(pshard)
         loader = create_cityscapes_dataloader(
             opt.dataroot, opt.batch_size, phase=opt.phase, seed=opt.seed,
             load_size=opt.load_size, crop_size=opt.crop_size, aspect_ratio=opt.aspect_ratio,
             no_instance=opt.no_instance, pairing_check=not opt.no_pairing_check,
             max_size=opt.max_dataset_size, num_workers=opt.num_threads,
-            worker_mode=opt.data_backend, process_shard=pshard)
+            worker_mode=opt.data_backend, process_shard=data_shard, height_shard=height_shard)
     state_box = [state]
     evaluate_fn = _spade_evaluators(
         opt, lambda b: dist.generate_student_raw(state_box[0], b), device,
@@ -631,7 +632,6 @@ def distill_main(argv: Optional[List[str]] = None, device=None) -> Optional[Dist
     parser = cli.distill_parser()
     opt = parser.parse_args(argv)
     cli.apply_distill_defaults(opt, parser)
-    cli.check_ported(opt)
     if _spawned(opt, distill_main, argv, device):
         return None
     primary, _, device = init_parallel(opt, device)
@@ -673,7 +673,6 @@ def setup_train(opt, device=None, loader=None) -> TrainRun:
     from cat_tpu_torch.data.datasets import create_eval_dataloader
     from cat_tpu_torch.train.evaluation import FIDEvaluator, combine_evaluators
 
-    cli.check_train_ported(opt)
     if opt.model == "spade":
         return setup_train_spade(opt, device, loader)
     primary, pshard, device = init_parallel(opt, device)
@@ -841,13 +840,14 @@ def setup_train_spade(opt, device=None, loader=None) -> TrainRun:
         t, "spade", gen_cfg, d_cfg))
     _replicate(state, task.netG, task.netD)
     if loader is None:
+        data_shard, height_shard = _train_shards(pshard)
         loader = create_cityscapes_dataloader(
             opt.dataroot, opt.batch_size, phase=opt.phase, shuffle=not opt.serial_batches,
             seed=opt.seed, load_size=opt.load_size, crop_size=opt.crop_size,
             aspect_ratio=opt.aspect_ratio, no_instance=opt.no_instance,
             pairing_check=not opt.no_pairing_check, max_size=opt.max_dataset_size,
             load_in_memory=opt.load_in_memory, num_workers=opt.num_threads,
-            worker_mode=opt.data_backend, process_shard=pshard)
+            worker_mode=opt.data_backend, process_shard=data_shard, height_shard=height_shard)
     state_box = [state]
     evaluate_fn = _spade_evaluators(opt, lambda b: task.generate_raw(state_box[0], b), device,
                                     primary=primary, process_shard=pshard)
@@ -878,7 +878,6 @@ def train_main(argv: Optional[List[str]] = None, device=None) -> Optional[TrainR
     parser = cli.train_parser()
     opt = parser.parse_args(argv)
     cli.apply_train_defaults(opt, parser)
-    cli.check_train_ported(opt)
     if _spawned(opt, train_main, argv, device):
         return None
     primary, _, device = init_parallel(opt, device)
@@ -1138,7 +1137,6 @@ def profile_main(argv: Optional[List[str]] = None, device=None) -> Dict[str, Any
     profile flags (distill's and the evaluation verb's)."""
     parser = cli.profile_parser()
     opt = parser.parse_args(argv)
-    cli.check_ported(opt)
     device = resolve_device(device)
     cli.print_options(opt, parser)
     return profile_distill(opt, device)

@@ -31,6 +31,15 @@ function of the same parameters and buffers, whose state_dict does not
 change, so checkpoints, the shrink and the transfer do not depend on the
 layout.  ``syncbatch`` and ``batch`` alike take the global batch's
 statistics when the ranks' collectives run (``ops/nn.py::batch_moments``).
+
+Over a split height (``parallel/spatial.py``) every network computes its
+rank's rows: the generator takes the semantics whole (every rank holds
+the label maps; each conv over them cuts its rows and halo from them) and
+the activations split, their global heights from the latent's (the
+config's) through each 2x resize; its convs, packed branches and
+upsampling fetch their halo rows; the discriminator learns its input's
+global height once and follows it through its 4x4 convs (padding 2) and
+average pools.
 """
 
 from __future__ import annotations
@@ -47,23 +56,8 @@ from cat_tpu_torch.core.spade_config import (MultiscaleDiscriminatorConfig, SPAD
 from cat_tpu_torch.models.blocks import center_pad_kernel
 from cat_tpu_torch.ops.nn import Norm2d, activation, batch_moments, init_weights
 from cat_tpu_torch.ops.spectral import SpectralConv2d
-
-
-def nearest_resize(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """Nearest-neighbour resize of NCHW with ``F.interpolate(mode="nearest")``'s
-    floor convention, src = floor(dst · in / out), in integer arithmetic;
-    an exact-factor shrink is a strided slice, an exact-factor enlargement
-    a repeat."""
-    in_h, in_w = x.shape[2], x.shape[3]
-    if (in_h, in_w) == (h, w):
-        return x
-    if in_h % h == 0 and in_w % w == 0:
-        return x[:, :, :: in_h // h, :: in_w // w]
-    if h % in_h == 0 and w % in_w == 0:
-        return x.repeat_interleave(h // in_h, dim=2).repeat_interleave(w // in_w, dim=3)
-    rows = torch.arange(h, device=x.device) * in_h // h
-    cols = torch.arange(w, device=x.device) * in_w // w
-    return x.index_select(2, rows).index_select(3, cols)
+from cat_tpu_torch.parallel import spatial
+from cat_tpu_torch.parallel.spatial import nearest_resize_plain as nearest_resize
 
 
 def _norm_cfg(kind: str, affine: bool, momentum: float = 0.1, eps: float = 1e-5) -> NormConfig:
@@ -79,8 +73,13 @@ def _conv(cin: int, cout: int, k: int, groups: int = 1, bias: bool = True,
     return nn.Conv2d(cin, cout, k, padding=pad, groups=groups, bias=bias)
 
 
-def _apply(conv: nn.Module, x: torch.Tensor, train: bool) -> torch.Tensor:
-    return conv(x, train) if isinstance(conv, SpectralConv2d) else conv(x)
+def _apply(conv: nn.Module, x: torch.Tensor, train: bool, h: Optional[int] = None,
+           whole: bool = False) -> torch.Tensor:
+    """``conv(x)``, over a split height through the halo conv (``h``: x's
+    global height; ``whole``: x held at full height by every rank)."""
+    if isinstance(conv, SpectralConv2d):
+        return conv(x, train, h, whole)
+    return spatial.conv2d(conv, x, h, whole)
 
 
 class ConvNormActZ(nn.Module):
@@ -93,8 +92,8 @@ class ConvNormActZ(nn.Module):
         self.norm = Norm2d(norm, cout)
         self.act = act
 
-    def forward(self, x, train: bool = False):
-        return activation(self.act)(self.norm(_apply(self.conv, x, train), train))
+    def forward(self, x, train: bool = False, h: Optional[int] = None, whole: bool = False):
+        return activation(self.act)(self.norm(_apply(self.conv, x, train, h, whole), train))
 
 
 class PlainConv(nn.Module):
@@ -104,8 +103,8 @@ class PlainConv(nn.Module):
         super().__init__()
         self.conv = _conv(cin, cout, k, bias=bias, spectral=spectral)
 
-    def forward(self, x, train: bool = False):
-        return _apply(self.conv, x, train)
+    def forward(self, x, train: bool = False, h: Optional[int] = None):
+        return _apply(self.conv, x, train, h)
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +144,7 @@ def _packed_norm_act(y: torch.Tensor, norms: Sequence[Norm2d], train: bool,
 
 def _packed_branches(x: torch.Tensor, res_ops: nn.ModuleList, dw_ops: nn.ModuleList,
                      res_k: Sequence[int], dw_k: Sequence[int], act: str,
-                     train: bool) -> torch.Tensor:
+                     train: bool, h: Optional[int] = None, whole: bool = False) -> torch.Tensor:
     """The sum of a stage set's branches (``res_ops``/``dw_ops`` as the
     unpacked forward runs them, with kernel sizes ``res_k``/``dw_k``), packed
     as ``cat_tpu/models/spade.py::_packed_branches`` packs them:
@@ -160,7 +159,8 @@ def _packed_branches(x: torch.Tensor, res_ops: nn.ModuleList, dw_ops: nn.ModuleL
            summed once, at the end.
 
     Zero SAME padding throughout, so same-k kernels concatenate with no
-    padding inflation."""
+    padding inflation.  Every conv is ``spatial.conv2d_fn`` (``h``: x's
+    global height; ``whole``: x, the IN convs' input, held whole)."""
     dt = x.dtype
     groups: Dict[int, list] = {}
     for k, op in zip(res_k, res_ops):
@@ -171,7 +171,8 @@ def _packed_branches(x: torch.Tensor, res_ops: nn.ModuleList, dw_ops: nn.ModuleL
     for k in sorted(groups):
         units = groups[k]
         ws, bs = zip(*(_kernel(u.conv, dt, train) for u in units))
-        y = F.conv2d(x, torch.cat(ws), torch.cat(bs), padding=(k - 1) // 2)
+        y = spatial.conv2d_fn(x, torch.cat(ws), torch.cat(bs), padding=(k - 1) // 2, h=h,
+                              whole=whole)
         y = _packed_norm_act(y, [u.norm for u in units], train, act)
         for u, part in zip(units, y.split([w.shape[0] for w in ws], 1)):
             mids[u] = part
@@ -184,8 +185,8 @@ def _packed_branches(x: torch.Tensor, res_ops: nn.ModuleList, dw_ops: nn.ModuleL
         kmax = max(dw_k)
         units = [op[1] for op in dw_ops]
         ws, bs = zip(*(_kernel(u.conv, dt, train) for u in units))
-        g = F.conv2d(g, torch.cat([center_pad_kernel(w, kmax) for w in ws]), torch.cat(bs),
-                     padding=(kmax - 1) // 2, groups=g.shape[1])
+        g = spatial.conv2d_fn(g, torch.cat([center_pad_kernel(w, kmax) for w in ws]),
+                              torch.cat(bs), padding=(kmax - 1) // 2, groups=g.shape[1], h=h)
         g = _packed_norm_act(g, [u.norm for u in units], train, act)
         for op, part in zip(dw_ops, g.split([w.shape[0] for w in ws], 1)):
             outs.setdefault(1, []).append((part, op[2]))
@@ -194,8 +195,8 @@ def _packed_branches(x: torch.Tensor, res_ops: nn.ModuleList, dw_ops: nn.ModuleL
     for k in sorted(outs):
         parts, convs = zip(*outs[k])
         kbs = [_kernel(c.conv if isinstance(c, PlainConv) else c, dt, train) for c in convs]
-        y = F.conv2d(parts[0] if len(parts) == 1 else torch.cat(parts, 1),
-                     torch.cat([w for w, _ in kbs], 1), padding=(k - 1) // 2)
+        y = spatial.conv2d_fn(parts[0] if len(parts) == 1 else torch.cat(parts, 1),
+                              torch.cat([w for w, _ in kbs], 1), padding=(k - 1) // 2, h=h)
         total = y if total is None else total + y
         for _, b in kbs:
             bias = b if bias is None else bias + b
@@ -204,7 +205,8 @@ def _packed_branches(x: torch.Tensor, res_ops: nn.ModuleList, dw_ops: nn.ModuleL
 
 class InceptionSPADENorm(nn.Module):
     """out = param_free_norm(x) · (1 + γ(seg)) + β(seg); γ and β from a
-    multi-branch net over the nearest-resized segmap."""
+    multi-branch net over the nearest-resized segmap.  ``seg`` is whole on
+    every rank, x split where the height is (global height ``h``)."""
 
     def __init__(self, cfg: SPADELayerConfig, packed: bool = True):
         super().__init__()
@@ -221,24 +223,25 @@ class InceptionSPADENorm(nn.Module):
                           _conv(mid, out2, 1))
             for _, mid, k in cfg.active_dw)
 
-    def forward(self, x, seg, train: bool = False):
+    def forward(self, x, seg, train: bool = False, h: Optional[int] = None):
         normalized = self.param_free_norm(x, train)
         if self.cfg.is_empty:
             return normalized
-        seg = nearest_resize(seg, x.shape[2], x.shape[3])
+        h = x.shape[2] if h is None else h
+        seg = nearest_resize(seg, h, x.shape[3])
         cfg = self.cfg
         if self.packed:
             total = _packed_branches(seg, self.res_ops, self.dw_ops,
                                      [k for _, _, k in cfg.active_res],
-                                     [k for _, _, k in cfg.active_dw], "relu", train)
+                                     [k for _, _, k in cfg.active_dw], "relu", train, h, True)
         else:
             total = None
             for op in self.res_ops:
-                h = op[1](op[0](seg, train))
-                total = h if total is None else total + h
+                y = _apply(op[1], op[0](seg, train, h, True), train, h)
+                total = y if total is None else total + y
             for op in self.dw_ops:
-                h = op[2](op[1](op[0](seg, train), train))
-                total = h if total is None else total + h
+                y = _apply(op[2], op[1](op[0](seg, train, h, True), train, h), train, h)
+                total = y if total is None else total + y
         gamma, beta = total[:, : self.cfg.norm_nc], total[:, self.cfg.norm_nc:]
         return normalized * (1.0 + gamma) + beta
 
@@ -271,27 +274,28 @@ class SPADEBlock(nn.Module):
             self.shortcut = nn.Sequential(Norm2d(affine, fin),
                                           PlainConv(fin, fout, 1, bias=False, spectral=sp))
 
-    def _shortcut(self, x, train):
-        return self.shortcut[1](self.shortcut[0](x, train), train)
+    def _shortcut(self, x, train, h):
+        return self.shortcut[1](self.shortcut[0](x, train), train, h)
 
-    def forward(self, x, seg, train: bool = False):
+    def forward(self, x, seg, train: bool = False, h: Optional[int] = None):
+        """``h``: x's global height over a split height."""
         cfg = self.cfg
         if cfg.is_empty:
-            return self._shortcut(x, train) if cfg.learned_shortcut else x
-        tmp = activation(self.active_fn)(self.spade(x, seg, train))
+            return self._shortcut(x, train, h) if cfg.learned_shortcut else x
+        tmp = activation(self.active_fn)(self.spade(x, seg, train, h))
         if self.packed:
             total = _packed_branches(tmp, self.res_ops, self.dw_ops,
                                      [k for _, _, k in cfg.active_res],
-                                     [k for _, _, k in cfg.active_dw], self.active_fn, train)
+                                     [k for _, _, k in cfg.active_dw], self.active_fn, train, h)
         else:
             total = None
             for op in self.res_ops:
-                h = op[1](op[0](tmp, train), train)
-                total = h if total is None else total + h
+                y = op[1](op[0](tmp, train, h), train, h)
+                total = y if total is None else total + y
             for op in self.dw_ops:
-                h = op[2](op[1](op[0](tmp, train), train), train)
-                total = h if total is None else total + h
-        return total + (self._shortcut(x, train) if cfg.learned_shortcut else x)
+                y = op[2](op[1](op[0](tmp, train, h), train, h), train, h)
+                total = y if total is None else total + y
+        return total + (self._shortcut(x, train, h) if cfg.learned_shortcut else x)
 
 
 class SPADEGenerator(nn.Module):
@@ -322,9 +326,13 @@ class SPADEGenerator(nn.Module):
                         m.weight.fill_(1.0)
 
     def forward(self, seg: torch.Tensor, train: bool = False, taps: Sequence[str] = ()):
+        """``seg``, whole on every rank over a split height, gives the
+        activations' global heights: the latent's, doubled by each 2x
+        resize; the output and the taps are the rank's rows."""
         cfg = self.cfg
         acts: Dict[str, torch.Tensor] = {}
-        x = self.fc_norm(self.fc(nearest_resize(seg, *cfg.latent_size())), train)
+        h, w = cfg.latent_size()
+        x = self.fc_norm(spatial.conv2d(self.fc, nearest_resize(seg, h, w), whole=True), train)
         if "fc" in taps:
             acts["fc"] = x
         # 2x nearest before these blocks
@@ -333,11 +341,12 @@ class SPADEGenerator(nn.Module):
             up_between.add("G_middle_1")
         for name in cfg.block_names:
             if name in up_between:
-                x = nearest_resize(x, x.shape[2] * 2, x.shape[3] * 2)
-            x = getattr(self, name)(x, seg, train)
+                x = spatial.nearest_resize(x, 2 * h, 2 * x.shape[3], h)
+                h *= 2
+            x = getattr(self, name)(x, seg, train, h)
             if name in taps:
                 acts[name] = x
-        y = torch.tanh(self.conv_img(F.leaky_relu(x, 0.2)))
+        y = torch.tanh(spatial.conv2d(self.conv_img, F.leaky_relu(x, 0.2), h))
         return (y, acts) if taps else y
 
 
@@ -377,15 +386,19 @@ class SPADENLayerDiscriminator(nn.Module):
         for n, m in enumerate(mods):
             self.add_module(f"model{n}", m)
 
-    def forward(self, x, train: bool = False) -> List[torch.Tensor]:
+    def forward(self, x, train: bool = False, h: Optional[int] = None) -> List[torch.Tensor]:
+        """``h``: x's global height over a split height (learned here when
+        not given)."""
         results = []
         n_mods = self.cfg.n_layers + 1
+        h = spatial.global_height(x) if h is None else h
         for n in range(n_mods):
             m = getattr(self, f"model{n}")[0]
-            if isinstance(m, nn.Sequential):
-                x = m[1](_apply(m[0], x, train), train)
-            else:
-                x = _apply(m, x, train)
+            conv = m[0] if isinstance(m, nn.Sequential) else m
+            y = _apply(conv, x, train, h)
+            x = m[1](y, train) if isinstance(m, nn.Sequential) else y
+            h = spatial.out_height(h, 4, conv.stride if isinstance(conv, SpectralConv2d)
+                                   else conv.stride[0], 2)
             if n < n_mods - 1:
                 x = F.leaky_relu(x, 0.2)
             results.append(x)
@@ -406,8 +419,10 @@ class MultiscaleDiscriminator(nn.Module):
 
     def forward(self, x, train: bool = False) -> List[List[torch.Tensor]]:
         outs = []
+        h = spatial.global_height(x)  # None unless the height is split
         for i in range(self.cfg.num_D):
-            outs.append(getattr(self, f"discriminator_{i}")(x, train))
+            outs.append(getattr(self, f"discriminator_{i}")(x, train, h))
             if i != self.cfg.num_D - 1:
-                x = F.avg_pool2d(x, 3, 2, 1, count_include_pad=False)
+                x = spatial.avg_pool2d(x, 3, 2, 1, h)
+                h = spatial.out_height(h, 3, 2, 1)
         return outs

@@ -9,6 +9,11 @@ feeds [-1, 1] images in without ImageNet normalisation; so does this.
 ``features.{i}.weight``/``.bias`` keys), so ``vgg19.pth`` loads strictly
 after its classifier is dropped (``load_vgg19``); the forward stops at
 relu5_1.  The judge trains nothing.
+
+Over a split height (``parallel/spatial.py``) the convs and the 2x2 max
+pools take their halo rows from the neighbours (``spatial.conv2d_fn``,
+``spatial.max_pool2d``) and the L1 means are over the global tensors
+(``spatial.mean``).
 """
 
 from __future__ import annotations
@@ -17,10 +22,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from cat_tpu_torch import resolve_device
+from cat_tpu_torch.parallel import spatial
 
 # torchvision vgg19 "E" configuration: conv widths, "M" a 2x2 max pool
 _CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M", 512, 512, 512, 512, "M",
@@ -50,9 +55,14 @@ class VGG19Features(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         outs = []
+        h = spatial.global_height(x)  # None unless the height is split
         for i, m in enumerate(self.features[: _SLICE_ENDS[-1] + 1]):
             if isinstance(m, nn.Conv2d):
-                x = F.conv2d(x, m.weight.to(x.dtype), m.bias.to(x.dtype), padding=1)
+                x = spatial.conv2d_fn(x, m.weight.to(x.dtype), m.bias.to(x.dtype), padding=1,
+                                      h=h)
+            elif isinstance(m, nn.MaxPool2d):
+                x = spatial.max_pool2d(x, 2, 2, h)
+                h = spatial.out_height(h, 2, 2)
             else:
                 x = m(x)
             if i in _SLICE_ENDS:
@@ -102,5 +112,5 @@ def vgg_loss(model: VGG19Features, x: torch.Tensor, y: torch.Tensor,
         fy = model(y.detach().to(cdt))
     total = torch.zeros((), device=x.device)
     for w, a, b in zip(VGG_LOSS_WEIGHTS, fx, fy):
-        total = total + w * (a.float() - b.float()).abs().mean()
+        total = total + w * spatial.mean((a.float() - b.float()).abs())
     return total

@@ -22,9 +22,12 @@ the forward derives v from ``u``).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from cat_tpu_torch.parallel import spatial
 
 _EPS = 1e-12
 
@@ -65,10 +68,15 @@ class SpectralConv2d(nn.Module):
                 self.weight_v.copy_(_l2norm(mat.t() @ u))
         return w / sigma.to(w.dtype)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False, h: Optional[int] = None,
+                whole: bool = False) -> torch.Tensor:
+        """Over a split height the halo conv (``spatial.conv2d_fn``; ``h``,
+        ``whole`` as there); the power iteration reads the weights alone,
+        which every rank holds alike, so ``u`` stays equal on every rank."""
         w = self.normalized_weight(train)
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv2d(x, w.to(x.dtype), bias, self.stride, self.padding, 1, self.groups)
+        return spatial.conv2d_fn(x, w.to(x.dtype), bias, self.stride, self.padding, self.groups,
+                                 h, whole)
 
 
 @torch.no_grad()

@@ -6,8 +6,8 @@
 device the caller names), meeting on a free local port.  Rank r is data
 index r // S and spatial index r % S, as in the JAX package's grid
 (``collectives.set_layout`` makes the axes' groups); the spatial axis
-splits image height (``parallel/spatial.py``), for the inception family
-(the SPADE family's layers are ROADMAP item 16c).  ``--n_devices 1
+splits image height (``parallel/spatial.py``), for the inception and the
+SPADE family.  ``--n_devices 1
 --n_spatial 1``, the default, is one process with no group.
 """
 

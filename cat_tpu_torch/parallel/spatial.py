@@ -25,6 +25,19 @@ is by hand, and every layer that looks across rows calls it:
     padding (the generator's down- and upsampling, every NLayer conv) this
     way; ``ops/nn.py::spatial_pad`` pads the height of an explicitly padded
     one (reflect pads, inception blocks); widths keep their padding.
+  * **The SPADE family** (item 16c): nearest resizes of a split height
+    (``nearest_resize``, the generator's 2x upsampling: each output row
+    reads row ⌊i·h_in/h_out⌋ of the window the rank fetches), pools over
+    halo rows (``max_pool2d``, VGG's 2x2; ``avg_pool2d``, the multiscale
+    D's 3x3/2 with the padding out of the divisor, which comes from the
+    same pool over the real rows of the window), and a functional halo
+    conv (``conv2d_fn``: the packed SPADE branches, the spectral convs,
+    VGG's convs; ``conv2d`` calls it).  The label maps are not split: every
+    rank holds them whole (``whole=True``), so a conv over the semantics
+    cuts its window from them with no exchange, and the D input's
+    semantics are the rank's rows (``collectives.local_height``).  A rank
+    may own no rows of a small height (a 1-row latent over two ranks): it
+    computes an empty output and still runs every collective.
   * **Sums over the axis**: instance-norm plane sums and the gradient
     penalty's per-sample sums are all-reduced over the spatial axis, batch
     norm's over the world (``ops/nn.py``), KA's Gram partial sums over the
@@ -89,12 +102,18 @@ def full_height(x: torch.Tensor, height: Optional[int] = None) -> int:
     return x.shape[2] if h is None else h
 
 
-def conv_height(h: Optional[int], conv) -> Optional[int]:
-    """The output height of ``conv`` (an ``nn.Conv2d``) over height ``h``."""
+def out_height(h: Optional[int], k: int, stride: int = 1, pad: int = 0) -> Optional[int]:
+    """The output height of a (k, stride) window over height ``h`` padded
+    by ``pad`` rows above and below."""
     if h is None:
         return None
-    return (h + 2 * conv.padding[0] - conv.dilation[0] * (conv.kernel_size[0] - 1) - 1) \
-        // conv.stride[0] + 1
+    return (h + 2 * pad - k) // stride + 1
+
+
+def conv_height(h: Optional[int], conv) -> Optional[int]:
+    """The output height of ``conv`` (an ``nn.Conv2d``) over height ``h``."""
+    return out_height(h, conv.dilation[0] * (conv.kernel_size[0] - 1) + 1, conv.stride[0],
+                      conv.padding[0])
 
 
 def conv_transpose_height(h: Optional[int], conv) -> Optional[int]:
@@ -235,6 +254,8 @@ def _gather_window(x: torch.Tensor, plan) -> torch.Tensor:
         pool.append(x.new_zeros((*x.shape[:2], 1, x.shape[3])))
     pool = torch.cat(pool, 2) if len(pool) > 1 else (pool[0] if pool else None)
     parts = [_take(x if kind == "x" else pool, idx) for kind, idx in segments]
+    if not parts:  # an empty window
+        return x.new_zeros((*x.shape[:2], 0, x.shape[3]))
     return parts[0] if len(parts) == 1 else torch.cat(parts, 2)
 
 
@@ -273,14 +294,12 @@ def exchange(x: torch.Tensor, h: int, windows: Sequence[Tuple[int, int]],
     return _Exchange.apply(x, (group, n, *_plan(h, tuple(windows), mode, me)))
 
 
-def _output_rows(h_out: int, n: int):
-    """Every shard's rows of an output height; raises where one is empty."""
-    out = [rows(h_out, q, n) for q in range(n)]
-    for q, (o0, o1) in enumerate(out):
-        if o1 <= o0:
-            raise ValueError(f"a height of {h_out} over {n} spatial ranks leaves rank {q} no "
-                             "rows: use fewer spatial ranks or larger images")
-    return out
+def _window(o0: int, o1: int, k: int, stride: int, top: int) -> Tuple[int, int]:
+    """The input rows ``[a, b)`` (past the edges where padded by ``top``
+    rows) that a (k, stride) window turns into output rows ``[o0, o1)``; an
+    empty window for no output rows."""
+    a = o0 * stride - top
+    return (a, (o1 - 1) * stride + k - top) if o1 > o0 else (a, a)
 
 
 def halo(x: torch.Tensor, h: int, k: int, stride: int, top: int, bottom: int,
@@ -290,20 +309,68 @@ def halo(x: torch.Tensor, h: int, k: int, stride: int, top: int, bottom: int,
     rows (``mode``) turns into this rank's rows of its output."""
     _, _, n = collectives.axis("spatial")
     h_out = (h + top + bottom - k) // stride + 1
-    return exchange(x, h, [(o0 * stride - top, (o1 - 1) * stride + k - top)
-                           for o0, o1 in _output_rows(h_out, n)], mode)
+    return exchange(x, h, [_window(*rows(h_out, q, n), k, stride, top) for q in range(n)], mode)
 
 
-def conv2d(conv, x: torch.Tensor, h: Optional[int] = None) -> torch.Tensor:
-    """``conv(x)`` (an ``nn.Conv2d`` with zero padding) over a split height:
-    the height padding comes from the neighbours and is zero only at the
-    global top and bottom; the width keeps its own."""
+def _whole_window(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    """Rows ``[a, b)`` of a tensor every rank holds at full height, zero
+    past its edges (no exchange)."""
+    h = x.shape[2]
+    top = max(0, min(b, 0) - a)
+    bottom = max(0, b - max(a, h))
+    a0 = min(max(a, 0), h)
+    slab = x.narrow(2, a0, max(0, b - a - top - bottom))
+    return F.pad(slab, (0, 0, top, bottom)) if top or bottom else slab
+
+
+def window(x: torch.Tensor, k: int, stride: int, top: int, bottom: int) -> torch.Tensor:
+    """``halo``'s rows for a tensor every rank holds at full height (the
+    semantics made from the whole label maps), zero-padded: cut from it."""
+    _, me, n = collectives.axis("spatial")
+    h_out = (x.shape[2] + top + bottom - k) // stride + 1
+    return _whole_window(x, *_window(*rows(h_out, me, n), k, stride, top))
+
+
+def _valid_rows(fn, slab: torch.Tensor, k: int) -> torch.Tensor:
+    """``fn`` (a valid op of window height ``k``) over ``slab``.  A rank that
+    owns no output rows has an empty slab: it runs ``fn`` on k zero rows and
+    keeps none, so that its parameters and its window stay in the graph
+    and its backward reaches the exchange's collective."""
+    if slab.shape[2]:
+        return fn(slab)
+    return fn(F.pad(slab, (0, 0, 0, k))).narrow(2, 0, 0)
+
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def conv2d_fn(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+              stride=1, padding=0, groups: int = 1, h: Optional[int] = None,
+              whole: bool = False) -> torch.Tensor:
+    """``F.conv2d(x, weight, bias, stride, padding, 1, groups)`` with zero
+    padding.  Over a split height this rank's output rows: the height
+    padding comes from the neighbours (``halo``) and is zero only at the
+    global top and bottom, the width keeps its own; ``whole``: x is held
+    at full height by every rank (``window``: no exchange).  ``h``: x's
+    global height where the caller knows it."""
+    stride, padding = _pair(stride), _pair(padding)
+    if not active():
+        return F.conv2d(x, weight, bias, stride, padding, 1, groups)
+    k = weight.shape[2]
+    if whole:
+        slab = window(x, k, stride[0], padding[0], padding[0])
+    else:
+        slab = halo(x, full_height(x, h), k, stride[0], padding[0], padding[0], "zero")
+    return _valid_rows(lambda t: F.conv2d(t, weight, bias, stride, (0, padding[1]), 1, groups),
+                       slab, k)
+
+
+def conv2d(conv, x: torch.Tensor, h: Optional[int] = None, whole: bool = False) -> torch.Tensor:
+    """``conv(x)`` (an ``nn.Conv2d`` with zero padding) through ``conv2d_fn``."""
     if conv.dilation[0] != 1 or conv.padding_mode != "zeros":
         raise NotImplementedError("split-height convolutions take dilation 1, zero padding")
-    slab = halo(x, full_height(x, h), conv.kernel_size[0], conv.stride[0], conv.padding[0],
-                conv.padding[0], "zero")
-    return F.conv2d(slab, conv.weight, conv.bias, conv.stride, (0, conv.padding[1]),
-                    conv.dilation, conv.groups)
+    return conv2d_fn(x, conv.weight, conv.bias, conv.stride, conv.padding, conv.groups, h, whole)
 
 
 def conv_transpose2d(conv, x: torch.Tensor, h: Optional[int] = None) -> torch.Tensor:
@@ -318,11 +385,106 @@ def conv_transpose2d(conv, x: torch.Tensor, h: Optional[int] = None) -> torch.Te
                                   "dilation 1")
     _, me, n = collectives.axis("spatial")
     windows, cuts = [], []
-    for o0, o1 in _output_rows(conv_transpose_height(h, conv), n):
+    for o0, o1 in (rows(conv_transpose_height(h, conv), q, n) for q in range(n)):
         a = -((-(o0 + p - k + 1)) // s)  # ceil
-        windows.append((a, (o1 - 1 + p) // s + 1))
+        windows.append((a, max(a, (o1 - 1 + p) // s + 1)))
         cuts.append((o0 + p - a * s, o1 - o0))
     slab = exchange(x, h, windows, "zero")
-    y = F.conv_transpose2d(slab, conv.weight, conv.bias, conv.stride, (0, conv.padding[1]),
-                           (0, conv.output_padding[1]), conv.groups, conv.dilation)
-    return y.narrow(2, *cuts[me])
+    y = _valid_rows(lambda t: F.conv_transpose2d(
+        t, conv.weight, conv.bias, conv.stride, (0, conv.padding[1]), (0, conv.output_padding[1]),
+        conv.groups, conv.dilation), slab, 1)
+    return y.narrow(2, *cuts[me]) if y.shape[2] else y
+
+
+# ---------------------------------------------------------------------------
+# resizes and pools
+# ---------------------------------------------------------------------------
+
+
+def nearest_resize_plain(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """Nearest-neighbour resize of NCHW with ``F.interpolate(mode="nearest")``'s
+    floor convention, src = floor(dst · in / out), in integer arithmetic;
+    an exact-factor shrink is a strided slice, an exact-factor enlargement
+    a repeat."""
+    in_h, in_w = x.shape[2], x.shape[3]
+    if (in_h, in_w) == (h, w):
+        return x
+    if in_h % h == 0 and in_w % w == 0:
+        return x[:, :, :: in_h // h, :: in_w // w]
+    if h % in_h == 0 and w % in_w == 0:
+        return x.repeat_interleave(h // in_h, dim=2).repeat_interleave(w // in_w, dim=3)
+    rows_ = torch.arange(h, device=x.device) * in_h // h
+    cols = torch.arange(w, device=x.device) * in_w // w
+    return x.index_select(2, rows_).index_select(3, cols)
+
+
+def _pick(x: torch.Tensor, dim: int, idx: Sequence[int]) -> torch.Tensor:
+    """Entries ``idx`` of x along ``dim``: a slice where they are evenly
+    spaced, a repeat where each of a run of entries repeats f times (as
+    ``nearest_resize_plain`` takes them), a gather otherwise."""
+    n = len(idx)
+    if n == 0:
+        return x.narrow(dim, 0, 0)
+    a, step = idx[0], (idx[1] - idx[0] if n > 1 else 1)
+    if step > 0 and list(idx) == list(range(a, a + step * n, step)):
+        span = x.narrow(dim, a, step * (n - 1) + 1)
+        return span[(slice(None),) * dim + (slice(None, None, step),)]
+    f = idx.count(a)
+    if n % f == 0 and list(idx) == [a + j // f for j in range(n)]:
+        return x.narrow(dim, a, n // f).repeat_interleave(f, dim=dim)
+    return x.index_select(dim, _index(tuple(idx), str(x.device)))
+
+
+def nearest_resize(x: torch.Tensor, out_h: int, out_w: int,
+                   h: Optional[int] = None) -> torch.Tensor:
+    """``nearest_resize_plain(x, out_h, out_w)`` of an activation whose
+    height is split: this rank's output rows, row i read from input row
+    ⌊i·h/out_h⌋ of the window of rows it fetches (``exchange``; with
+    heights that divide, as in the generator's 2x upsampling, its own rows
+    and no collective).  ``h``: x's global height where known."""
+    if not active():
+        return nearest_resize_plain(x, out_h, out_w)
+    h = full_height(x, h)
+    _, me, n = collectives.axis("spatial")
+    windows = []
+    for o0, o1 in (rows(out_h, q, n) for q in range(n)):
+        a = o0 * h // out_h
+        windows.append((a, (o1 - 1) * h // out_h + 1) if o1 > o0 else (a, a))
+    slab = exchange(x, h, windows)
+    o0, o1 = rows(out_h, me, n)
+    y = _pick(slab, 2, [i * h // out_h - windows[me][0] for i in range(o0, o1)])
+    return _pick(y, 3, [j * x.shape[3] // out_w for j in range(out_w)])
+
+
+def max_pool2d(x: torch.Tensor, k: int, stride: int, h: Optional[int] = None) -> torch.Tensor:
+    """``F.max_pool2d(x, k, stride)`` (no padding) over a split height: a
+    rank's first output row can need its neighbour's last rows (an odd
+    ⌈h/S⌉), fetched by ``halo``."""
+    if not active():
+        return F.max_pool2d(x, k, stride)
+    slab = halo(x, full_height(x, h), k, stride, 0, 0)
+    return _valid_rows(lambda t: F.max_pool2d(t, k, stride), slab, k)
+
+
+def avg_pool2d(x: torch.Tensor, k: int, stride: int, pad: int,
+               h: Optional[int] = None) -> torch.Tensor:
+    """``F.avg_pool2d(x, k, stride, pad, count_include_pad=False)`` over a
+    split height: the divisor counts only real pixels.  Rows from a
+    neighbour are real, the global top and bottom pad rows are not, so the
+    rank's halo window is pooled over its width padding alone and divided
+    by the same pool over a map of its real rows (ones, zero on the pad
+    rows)."""
+    if not active():
+        return F.avg_pool2d(x, k, stride, pad, count_include_pad=False)
+    h = full_height(x, h)
+    _, me, n = collectives.axis("spatial")
+    slab = halo(x, h, k, stride, pad, pad, "zero")
+    a, b = _window(*rows(out_height(h, k, stride, pad), me, n), k, stride, pad)
+    real = torch.tensor([float(0 <= i < h) for i in range(a, b)], dtype=x.dtype,
+                        device=x.device)
+    real = real.reshape(1, 1, -1, 1).expand(1, 1, b - a, x.shape[3])
+
+    def pool(t):
+        return F.avg_pool2d(t, k, stride, (0, pad), count_include_pad=False)
+
+    return _valid_rows(pool, slab, k) / _valid_rows(pool, real, k)

@@ -20,6 +20,13 @@ modules/spade_modules/spade_model_modules.py.  As in the JAX package:
     gradient, leaving G's statistics alone, and writes D's ``u``
     (spade_model.py:207-215, spade_model_modules.py:118-126).
 
+Over a split height (``--n_spatial``, ``parallel/spatial.py``) the label
+and instance maps stay whole on every rank (the loader cuts only the
+photos' rows): the one-hot semantics and the instance edges are the
+single-device ones, with no halo; the generators read them whole, D's
+input takes the rank's rows of them (``d_input``), and the losses are means
+over the global tensors.
+
 ``compute_dtype`` "bfloat16" runs G's forwards and the D step in bf16 with
 float32 masters; the G step's D forward runs in float32 on bf16-rounded
 inputs, as the JAX package's mixed-dtype convs promote.  Entry points run
@@ -40,6 +47,7 @@ from cat_tpu_torch.models.losses import gan_loss
 from cat_tpu_torch.models.spade import MultiscaleDiscriminator, SPADEGenerator
 from cat_tpu_torch.models.vgg import VGG19Features, vgg_loss
 from cat_tpu_torch.ops.nn import frozen_stats
+from cat_tpu_torch.parallel import collectives, spatial
 from cat_tpu_torch.train.common import (GANTrainState, NetState, average_grads, cast_floats,
                                         checkpointed, global_metrics)
 from cat_tpu_torch.train.optim import Adam
@@ -116,19 +124,28 @@ class SPADEHParams:
 
 def feature_matching_loss(pred_fake, pred_real) -> torch.Tensor:
     """L1 over every intermediate D feature (the logits left out), the
-    real's held constant, averaged over scales (spade_model_modules.py:100-112)."""
+    real's held constant, averaged over scales (spade_model_modules.py:100-112);
+    over a split height, means over the global features."""
     num_d = len(pred_fake)
     total = torch.zeros((), device=pred_fake[0][0].device)
     for scale_f, scale_r in zip(pred_fake, pred_real):
         for f, r in zip(scale_f[:-1], scale_r[:-1]):
-            total = total + (f - r.detach()).abs().mean() / num_d
+            total = total + spatial.mean((f - r.detach()).abs()) / num_d
     return total
+
+
+def d_input(sem: torch.Tensor, image: torch.Tensor) -> torch.Tensor:
+    """D's input: the semantics beside an image.  Over a split height the
+    semantics are whole on every rank (made from the whole label maps) and
+    the image holds the rank's rows, so the semantics' rows are cut to
+    match."""
+    return torch.cat([collectives.local_height(sem), image], 1)
 
 
 def discriminate(net_d, params, sem, fake, real):
     """D over fake and real, concatenated once, in train mode;
     (pred_fake, pred_real)."""
-    both = torch.cat([torch.cat([sem, fake], 1), torch.cat([sem, real], 1)], 0)
+    both = torch.cat([d_input(sem, fake), d_input(sem, real)], 0)
     out = functional_call(net_d, params, (both,), {"train": True})
     half = sem.shape[0]
     return ([[t[:half] for t in scale] for scale in out],

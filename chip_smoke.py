@@ -65,7 +65,7 @@ Phases, in order; any failure exits non-zero before the result line:
      and CycleGAN, on the card and on the CPU, losses and running
      statistics compared; (b) ``entry.train_main`` with
      ``scripts/cycle_gan/horse2zebra/train_inception_teacher.sh``'s flags
-     (batch 32) over phase 6's unaligned PNGs for 2 epochs (10 steps), fid_B
+     (batch 32) over phase 6's unaligned PNGs for 1 epoch (5 steps), fid_B
      against phase 7's statistics (with ``--remat 1`` where batch 32 does not
      fit the card without it, said on a line): the pools hold 50 after step
      2, G_A, G_B, D_A, D_B and the state are written, the reloaded G_A gives
@@ -165,8 +165,28 @@ Phases, in order; any failure exits non-zero before the result line:
      version and timed on the run's own half-height taps; (c) the norm
      kernel's split entry points against their plain versions at the
      flagship's ConvNormAct shapes cut in two heights, bf16 and float32,
-     timed beside their bounds.  Two or four ranks on one card measure
-     the path, not scaling.
+     timed beside their bounds; (a) also takes the 1 x 2 distiller's step-1
+     gap apart: D's per-layer outputs over the split height against one
+     process's, D's parameters after step 1 (how many differ by more than
+     0.5·lr: Adam's first step is lr·sign(g)) and the two updated Ds'
+     per-layer outputs; (e) the GauGAN family: two tiny float32 steps each
+     of the SPADE teacher task and the SPADE distiller with KA, with
+     ``mse``, under wgangp (fixed α) and under ``--remat 1`` (10a's sizes,
+     a 1-row latent that the second spatial rank does not own), in one
+     process and over 1 x 2 and 2 x 2 gloo ranks on cuda:0: losses within
+     DP_LOSS_TOL, D's ``u`` alike on every rank, 6 Gram launches a step on
+     the ranks that own the latent and 4 on the others (their head_0
+     operands have no columns); (d) the 5p6B GauGAN student recipe (10b's
+     flags, 9c's teacher and D) with ``--n_spatial 2`` over two ranks on
+     cuda:0 for its first epoch (3 steps at batch 16): step 1's losses
+     within DP_LOSS_TOL of phase 12 (c)'s one process (later steps' gaps
+     printed), 6 f32tma Gram launches a step on each rank on (16, F/2)
+     operands, each rank's median step, halo exchanges of a step replayed
+     alone and peak memory, the Gram held against its plain version and
+     timed on the run's own six half-height taps, then one FID + mIoU
+     evaluation of its student over the two ranks against one process's
+     (FID within 1e-3 relative, the confusion matrix exactly).  Two or
+     four ranks on one card measure the path, not scaling.
 
 The script prints its total seconds.
 The line before the last is a JSON object with every kernel's numbers; the
@@ -175,6 +195,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -1027,12 +1048,12 @@ def evaluation(dev, card, root):
 # ---------------------------------------------------------------------------
 
 TEACHER_BATCH = 32  # both teacher recipes' batch
-TEACHER_EPOCHS = 2  # 160 images a side at batch 32: 5 steps an epoch, 10 steps
+TEACHER_EPOCHS = 1  # 160 images a side at batch 32: 5 steps an epoch
 MAPS_TRAIN, MAPS_VAL = VERB_IMAGES, 40
 ALPHA = (0.3, 0.8)  # 8a's fixed weights of the mixed gradient penalty
 
 # scripts/cycle_gan/horse2zebra/train_inception_teacher.sh, but for the
-# paths and the schedule (2 epochs, losses printed every step)
+# paths and the schedule (1 epoch, losses printed every step)
 H2Z_TEACHER = ["--model", "cycle_gan", "--batch_size", str(TEACHER_BATCH), "--norm_affine",
                "--norm_affine_D", "--channels_reduction_factor", "6", "--kernel_sizes", "1", "3",
                "5", "--nepochs", str(TEACHER_EPOCHS), "--nepochs_decay", "0", "--print_freq",
@@ -1190,7 +1211,7 @@ def run_train_verb(root, label, argv, dev, card, nets):
 
 def train_h2z(dev, card, root, judge, stats):
     """8b: the horse2zebra CycleGAN teacher recipe at batch 32 over phase 6's
-    unaligned PNGs for 10 steps, fid_B against phase 7's statistics; with
+    unaligned PNGs for 5 steps, fid_B against phase 7's statistics; with
     --remat 1 where batch 32 does not fit the card without it."""
     import gc
 
@@ -1235,7 +1256,7 @@ def train_h2z(dev, card, root, judge, stats):
 
 def train_maps(dev, card, root, judge):
     """8c: the map2sat pix2pix teacher recipe (tracked batch norm, BtoA) at
-    batch 32 over seeded aligned 512x256 PNGs for 10 steps, FID of G's A
+    batch 32 over seeded aligned 512x256 PNGs for 5 steps, FID of G's A
     images against the val set's A halves."""
     import torch
 
@@ -2364,10 +2385,11 @@ def dp_world1(card, root):
             "wall_s": {k: v["wall_s"] for k, v in out.items()}}
 
 
-def _dp_spade_eval(root, judge, stats, label, process_shard=None):
-    """One FID + mIoU evaluation of 12 (c)'s one-process student through
-    the evaluators the SPADE verbs build; the merged confusion matrix that
-    the mIoU was taken from.  ``process_shard`` as the verb passes it."""
+def _dp_spade_eval(root, judge, stats, label, process_shard=None, log_dir="log_12c_w1"):
+    """One FID + mIoU evaluation of the student ``root/log_dir`` holds (12
+    (c)'s one-process student by default) through the evaluators the SPADE
+    verbs build; the merged confusion matrix that the mIoU was taken from.
+    ``process_shard`` as the verb passes it."""
     import numpy as np
     import torch
 
@@ -2382,7 +2404,7 @@ def _dp_spade_eval(root, judge, stats, label, process_shard=None):
                                                 os.path.join(root, f"log_12c_eval_{label}")))
     cli.apply_distill_defaults(opt, parser)
     dev = torch.device("cuda", torch.cuda.current_device())
-    sd, cfg = ckpt.load_net(os.path.join(root, "log_12c_w1", "checkpoints"), "latest", "G")
+    sd, cfg = ckpt.load_net(os.path.join(root, log_dir, "checkpoints"), "latest", "G")
     gen = SPADEGenerator(cfg).to(dev)
     gen.load_state_dict(sd)
 
@@ -2641,12 +2663,12 @@ def sp_shard(x, rank, n_spatial, world):
     return x[d * b:(d + 1) * b, :, start:stop]
 
 
-def sp_tiny(name, dev, fused=False):
+def sp_tiny(name, dev, fused=False, keep=None):
     """13 (a)'s tiny float32 task ``name`` on ``dev`` from seeds: (step
     function of a batch -> metrics, train state).  The distiller: instance
     norm, lsgan, KA on two taps (``fused``: its ConvNormAct sites through the
     norm kernel); pix2pix: tracked batch norm, wgangp; CycleGAN: instance
-    norm, lsgan, a pool of 3."""
+    norm, lsgan, a pool of 3.  ``keep``: a dict that receives the task."""
     import torch
 
     from cat_tpu_torch.core.config import (InceptionGeneratorConfig, NLayerDiscriminatorConfig,
@@ -2669,6 +2691,8 @@ def sp_tiny(name, dev, fused=False):
                             mapping_layers=("encode", "block1"), fused_norms=fused)
         task = InceptionDistiller(tc, sc, dc, hp, dev)
         state, tparams = task.init_state(teacher.state_dict(), seed=3)
+        if keep is not None:
+            keep["task"] = task
         return (lambda b: task.train_step(state, tparams, b, LR)[1]), state
     if name == "pix2pix":
         task = Pix2PixTask(*cfgs("batch", 8, 6), Pix2PixHParams(gan_mode="wgangp"), dev)
@@ -2723,39 +2747,58 @@ def _sp_counts():
             **{f"split_{k}": v for k, v in inorm.split_launches.items()}}
 
 
-def sp_tiny_runs(dev, root, tasks, rank=0, n_spatial=1, world=1):
-    """Each tiny task's two steps on this process's part of the batches.
-    Step 2 starts from the one-process state after step 1 (``root``'s
-    ``13a_<task>.pt``; the one process writes it), so that Adam's ±lr on
-    float32-noise gradients does not compound (phase 8a's rule).  The
-    launches of each task's steps are counted from zero."""
+def sp_tiny_runs(dev, root, tasks, rank=0, n_spatial=1, world=1, make=None, batches=None,
+                 part=None, phase="13a", keep_u=False):
+    """Each tiny task's two steps on this process's part of the batches
+    (``make``, ``batches`` and ``part``: 13 (a)'s ``sp_tiny``,
+    ``sp_batches`` and ``sp_shard`` by default).  Step 2 starts from the
+    one-process state after step 1 (``root``'s ``<phase>_<task>.pt``; the
+    one process writes it), so that Adam's ±lr on float32-noise gradients
+    does not compound (phase 8a's rule); a split world's rank 0 keeps its
+    own state after step 1 beside it (``..._w<world>.pt``, for the
+    diagnosis).  The launches of each task's steps are counted from zero,
+    and the Gram operands' shapes recorded; ``keep_u``: D's spectral ``u``
+    after the steps too."""
     import torch
 
+    from cat_tpu_torch.distill import ka
     from cat_tpu_torch.train.common import load_train_state_dict, train_state_dict
 
-    batches = sp_batches()
+    make = make or sp_tiny
+    batches = sp_batches() if batches is None else batches
+    part = part or (lambda b, *a: {k: sp_shard(v, *a) for k, v in b.items()})
     out = {}
+    gram = ka.gram
     for name in tasks:
-        step, state = sp_tiny(name.split("_")[0], dev, fused=name.endswith("fused"))
+        step, state = make(name.split("_")[0], dev, fused=name.endswith("fused"))
         _sp_counts_reset()
-        losses = []
-        for i, b in enumerate(batches):
-            if i == 1:
-                path = os.path.join(root, f"13a_{name}.pt")
-                if world == 1:
-                    torch.save(train_state_dict(state), path)
-                load_train_state_dict(state, torch.load(path, map_location="cpu",
-                                                        weights_only=False))
-            m = step({k: sp_shard(v, rank, n_spatial, world).to(dev) for k, v in b.items()})
-            losses.append({k: float(v) for k, v in m.items()})
+        losses, shapes = [], []
+        ka.gram = lambda x: shapes.append(list(x.shape)) or gram(x)
+        try:
+            for i, b in enumerate(batches):
+                if i == 1:
+                    path = os.path.join(root, f"{phase}_{name}.pt")
+                    if world == 1:
+                        torch.save(train_state_dict(state), path)
+                    elif rank == 0:
+                        torch.save(train_state_dict(state), path[:-3] + f"_w{world}.pt")
+                    load_train_state_dict(state, torch.load(path, map_location="cpu",
+                                                            weights_only=False))
+                m = step({k: v.to(dev) for k, v in part(b, rank, n_spatial, world).items()})
+                losses.append({k: float(v) for k, v in m.items()})
+        finally:
+            ka.gram = gram
         torch.cuda.synchronize(dev)
-        out[name] = {"losses": losses, "counts": _sp_counts()}
+        out[name] = {"losses": losses, "counts": _sp_counts(), "gram_shapes": shapes}
+        if keep_u:
+            out[name]["d_u"] = {k: v.cpu().tolist() for k, v in state.d.stats.items()
+                                if k.endswith("weight_u")}
     return out
 
 
 def sp_rank_a(device, root, n_spatial):
-    """13 (a) on one rank of a ``(data, spatial)`` world sharing cuda:0;
-    writes ``sp_a<world>_<rank>.json``."""
+    """13 (a) and (e) on one rank of a ``(data, spatial)`` world sharing
+    cuda:0; writes ``sp_a<world>_<rank>.json``."""
     import torch
     import torch.distributed as dist
 
@@ -2771,8 +2814,82 @@ def sp_rank_a(device, root, n_spatial):
         out = sp_tiny_runs(device, root, tasks, rank, n_spatial, world)
     finally:
         undo()
+    if world == n_spatial:  # the diagnosis: D's layers over the split height
+        layers = sp_d_layers(device, sp_shard(sp_batches()[0]["B"], rank, n_spatial, world))
+        if rank == 0:
+            torch.save(layers, os.path.join(root, "13a_d_layers_split.pt"))
+    out["spade"] = sp_spade_runs(device, root, rank, n_spatial, world)  # 13 (e)
     with open(os.path.join(root, f"sp_a{world}_{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def sp_d_layers(dev, x, d_state=None):
+    """13 (a)'s distiller's D (its seeded start, or the parameters of
+    ``d_state``, a train state's ``"d"``) in train mode, statistics left
+    alone, on ``x`` (this rank's rows of an image batch): each conv's
+    output, joined to full height over the spatial axis, on the CPU."""
+    import torch
+
+    from cat_tpu_torch.models import discriminators
+    from cat_tpu_torch.ops.nn import frozen_stats
+    from cat_tpu_torch.parallel import collectives, spatial
+
+    keep = {}
+    sp_tiny("distill", dev, keep=keep)
+    net = keep["task"].netD
+    if d_state is not None:
+        net.load_state_dict({**d_state["params"], **d_state["stats"]})
+    outs, conv2d = [], discriminators.conv2d
+
+    def recorded(conv, t, h=None):
+        outs.append(conv2d(conv, t, h))
+        return outs[-1]
+
+    discriminators.conv2d = recorded
+    try:
+        with torch.no_grad(), frozen_stats(net):
+            net(x.to(dev), train=True)
+    finally:
+        discriminators.conv2d = conv2d
+    return [collectives.gather_height(y, spatial.full_height(y)).cpu() for y in outs]
+
+
+def sp_diagnose(dev, root, card):
+    """The 1 x 2 plain distiller's step-1 G-loss gap, taken apart on the
+    card: D's per-layer outputs over the split height against one
+    process's (the seeded D, the same input: the forward path alone); D's
+    parameters after step 1, split against one process (elements past
+    0.5·lr apart: Adam's first step is lr·sign(g), so those are gradients
+    whose sign the two runs' float sums disagree on); and the per-layer
+    outputs of the two updated Ds in one process on the same input (what
+    the G loss reads after D's step)."""
+    import torch
+
+    x = sp_batches()[0]["B"]
+    split = torch.load(os.path.join(root, "13a_d_layers_split.pt"))
+    whole = sp_d_layers(dev, x)
+    fwd = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(split, whole)]
+    one = torch.load(os.path.join(root, "13a_distill.pt"), map_location="cpu", weights_only=False)
+    two = torch.load(os.path.join(root, "13a_distill_w2.pt"), map_location="cpu",
+                     weights_only=False)
+    params = {}
+    for k, v in one["d"]["params"].items():
+        diff = (two["d"]["params"][k] - v).detach().abs()
+        params[k] = {"max_abs": float(diff.max()), "past_half_lr": int((diff > 0.5 * LR).sum()),
+                     "numel": v.numel()}
+    outs = [float((a - b).abs().max() / b.abs().max()) for a, b in
+            zip(sp_d_layers(dev, x, two["d"]), sp_d_layers(dev, x, one["d"]))]
+    flips = sum(p["past_half_lr"] for p in params.values())
+    by_tensor = {k: (p["past_half_lr"], round(p["max_abs"], 7)) for k, p in params.items()}
+    log(f"13 (a) diagnosis of the 1 x 2 distiller's step-1 gap: D's per-layer outputs over two "
+        f"spatial ranks against one process, seeded D, same input: max rel diff "
+        f"{['%.3g' % v for v in fwd]}; D after step 1: {flips} of "
+        f"{sum(p['numel'] for p in params.values())} parameters more than 0.5·lr apart (Adam's "
+        f"first step is lr·sign(g)), by tensor (count, max |diff|) {by_tensor}; the two "
+        f"updated Ds' per-layer outputs in one process: max rel diff "
+        f"{['%.3g' % v for v in outs]} [{card}]")
+    return {"forward_rel": fwd, "params": params, "updated_outputs_rel": outs,
+            "sign_flips": flips}
 
 
 class _HaloLog:
@@ -2968,13 +3085,285 @@ def sp_norm_kernels(dev, t_channels, s_channels, card):
     return out["bfloat16"]
 
 
-def spatial_parallel(card, root, dp, teacher_cfg, student_cfg):
+SP_SPADE_TASKS = ("teacher", "ka", "mse", "wgangp", "remat")  # 13 (e)
+SP_SPADE_BATCH = 4
+
+
+def sp_spade_tiny(name, dev, fused=False):
+    """13 (e)'s tiny float32 GauGAN task ``name`` on ``dev`` from seeds, at
+    10a's sizes (teacher ngf 16, student ngf 8, 35 labels + dontcare +
+    edges, kernels 1, 3, 5, 64 x 32: a 1-row latent, which the second of two
+    spatial ranks does not own; VGG, the spectral multiscale D): (step
+    function of a raw batch -> metrics, train state).  "teacher": the SPADE
+    teacher task (hinge); "ka", "wgangp" (its penalty's weights fixed by
+    the caller), "remat": the distiller with KA on head_0, G_middle_1 and
+    up_1; "mse": with the adaptors."""
+    import torch
+
+    from cat_tpu_torch.core.spade_config import (MultiscaleDiscriminatorConfig,
+                                                 SPADEGeneratorConfig)
+    from cat_tpu_torch.distill.spade_distiller import SPADEDistiller, SPADEDistillHParams
+    from cat_tpu_torch.models.spade import SPADEGenerator
+    from cat_tpu_torch.models.vgg import VGG19Features
+    from cat_tpu_torch.train.spade_model import SPADEHParams, SPADETask
+
+    kw = dict(semantic_nc=37, channels_reduction_factor=6, kernel_sizes=(1, 3, 5),
+              num_upsampling_layers="normal", crop_size=64, aspect_ratio=2.0)
+    tcfg = SPADEGeneratorConfig.make(ngf=16, **kw)
+    dcfg = MultiscaleDiscriminatorConfig(input_nc=40, ndf=16, n_layers=4, num_D=2)
+    vgg = VGG19Features()
+    vgg.load_state_dict(_sp_vgg_weights())
+    if name == "teacher":
+        task = SPADETask(tcfg, dcfg, SPADEHParams(), vgg=vgg, input_nc=35,
+                         contain_dontcare=True, device=dev)
+        state = task.init_state(10)
+        return (lambda b: task.train_step(state, b, LR)[1]), state
+    teacher = SPADEGenerator(tcfg, "xavier", generator=torch.Generator().manual_seed(10))
+    hp = SPADEDistillHParams(distill_loss_type="mse" if name == "mse" else "ka",
+                             gan_mode="wgangp" if name == "wgangp" else "hinge",
+                             remat=name == "remat")
+    dist = SPADEDistiller(tcfg, SPADEGeneratorConfig.make(ngf=8, **kw), dcfg, hp, vgg=vgg,
+                          input_nc=35, contain_dontcare=True, device=dev)
+    state, tparams = dist.init_state(teacher.state_dict(), seed=10)
+    return (lambda b: dist.train_step(state, tparams, b, LR)[1]), state
+
+
+@functools.lru_cache(maxsize=1)
+def _sp_vgg_weights():
+    """13 (e)'s seeded VGG19 weights (10a's seed), drawn once a process."""
+    from cat_tpu_torch.models.vgg import random_vgg19_state_dict
+
+    return random_vgg19_state_dict(seed=19)
+
+
+def sp_spade_batches():
+    """13 (e)'s two raw batches (global batch 4, 64 x 32, 10a's labels)."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(13)
+    gen = torch.Generator().manual_seed(13)
+    out = []
+    for _ in range(2):
+        label = rs.randint(0, 34, (SP_SPADE_BATCH, 32, 64)).astype(np.float32)
+        label[:, :4] = 255
+        inst = np.repeat(np.repeat(rs.randint(0, 9, (SP_SPADE_BATCH, 4, 8)), 8, 1), 8, 2)
+        out.append({"label": torch.from_numpy(label),
+                    "instance": torch.from_numpy(inst.astype(np.int32)),
+                    "image": torch.rand(SP_SPADE_BATCH, 3, 32, 64, generator=gen) * 2 - 1})
+    return out
+
+
+def sp_spade_part(batch, rank, n_spatial, world):
+    """A rank's part of a raw SPADE batch: its data index's rows of every
+    field, of the photo its height rows only (the label maps stay whole,
+    as the verbs' loader keeps them)."""
+    b = batch["image"].shape[0] // (world // n_spatial)
+    d = rank // n_spatial
+    return {k: sp_shard(v, rank, n_spatial, world) if k == "image" else v[d * b:(d + 1) * b]
+            for k, v in batch.items()}
+
+
+def sp_spade_runs(dev, root, rank=0, n_spatial=1, world=1):
+    """13 (e)'s tasks' two steps on this process's part of the batches
+    (``sp_tiny_runs``), the penalty's weights fixed."""
+    undo = _sp_fixed_alpha()
+    try:
+        return sp_tiny_runs(dev, root, SP_SPADE_TASKS, rank, n_spatial, world,
+                            make=sp_spade_tiny, batches=sp_spade_batches(), part=sp_spade_part,
+                            phase="13e", keep_u=True)
+    finally:
+        undo()
+
+
+def sp_rank_d(device, root, judge, stats, card):
+    """13 (d) on one of two ranks sharing cuda:0: the 5p6B GauGAN student
+    recipe with --n_spatial 2 through the distill verb for its first epoch
+    (3 steps at global batch 16); its Gram launches and operands, its halo
+    exchanges (replayed alone afterwards); the Gram held against its plain
+    version on the run's own six half-height taps (rank 0 times it while
+    rank 1 waits); then one FID + mIoU evaluation of the run's final
+    student over the two ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from cat_tpu_torch import entry
+    from cat_tpu_torch.distill import ka
+    from cat_tpu_torch.parallel import spatial
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    steps, starts, waits, operands = [], [], [], []
+    halo = _HaloLog()
+    setup = entry.setup_distill
+    entry.setup_distill = _instrumented(setup, steps, starts, waits,
+                                        after_step=lambda _: halo.marks.append(len(halo.calls)))
+    gram = ka.gram
+    ka.gram = lambda x: operands.append(tuple(x.shape)) or gram(x)
+    _sp_counts_reset()
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        run = entry.distill_main([*gaugan_student_argv(root, judge, stats,
+                                                       os.path.join(root, "log_13d")),
+                                  "--no_fid", "--drn_path", os.path.join(root, "absent.pth"),
+                                  "--nepochs", "1", "--n_spatial", "2"], device=device)
+        wall = time.perf_counter() - t0
+        counts = _sp_counts()
+    finally:
+        entry.setup_distill = setup
+        ka.gram = gram
+        halo.restore()
+    mem = torch.cuda.max_memory_allocated(device)
+    step2 = halo.step(1)
+    replay_ms = sp_replay(step2, device)
+    # the run's own taps: this rank's rows of teacher and student at the three taps
+    batch = {k: v.to(device) if isinstance(v, torch.Tensor) else v
+             for k, v in next(iter(run.loader)).items()}
+    sem = run.distiller.semantics(batch)
+    with torch.no_grad():
+        taps = [acts[name] for net in (run.distiller.netG_teacher, run.distiller.netG_student)
+                for acts in [net(sem, taps=SPADE_TAPS)[1]] for name in SPADE_TAPS]
+    tap_shapes = [list(t.shape) for t in taps]
+    tap_heights = [spatial.full_height(t) for t in taps]
+    taps = [t.reshape(t.shape[0], -1).contiguous() for t in taps]
+    del run, sem, batch
+    torch.cuda.empty_cache()
+    kern = None
+    dist.barrier()
+    if rank == 0:
+        l2 = torch.empty(128 << 20, dtype=torch.uint8, device=device)
+        kern = gram_numbers(taps, l2.zero_, card, "f32tma",
+                            names=[f"{who} {name}" for who in ("teacher", "student")
+                                   for name in SPADE_TAPS], per_step=1)
+        kern["b"], kern["f"] = taps[0].shape[0], [x.shape[1] for x in taps]
+        del l2
+    dist.barrier()
+    del taps
+    torch.cuda.empty_cache()
+    ev = _dp_spade_eval(root, judge, stats, "13d_w2", (rank, 2), log_dir="log_13d")
+    out = {"rank": rank, **_loop_numbers(steps, starts, waits, GAUGAN_BATCH, mem, wall),
+           "counts": counts, "operands": sorted(set(operands)), "tap_shapes": tap_shapes,
+           "tap_heights": tap_heights, "exchanges_per_step": len(step2),
+           "halo_bytes_per_step": sum(map(_HaloLog.strip_bytes, step2)),
+           "halo_ms_alone": replay_ms, "kern": kern, "eval": ev}
+    with open(os.path.join(root, f"sp_d_{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def sp_spade_check(ranks, one, world, n_spatial, card):
+    """13 (e) over one world: each rank's tiny GauGAN steps (``ranks``)
+    against one process's on the card (``one``): losses within
+    DP_LOSS_TOL, D's ``u`` alike on every rank, 6 Gram launches a step (KA)
+    on the ranks that own the 1-row latent and 4 on those that own none of
+    it (its two head_0 operands have no columns: a zero Gram, no launch)."""
+    grid = f"{world // n_spatial}x{n_spatial}"
+    gaps = {}
+    for name in SP_SPADE_TASKS:
+        gaps[name] = max(_loss_gap(rk[name]["losses"], one[name]["losses"]) for rk in ranks)
+        if not gaps[name] <= DP_LOSS_TOL:
+            fail(f"13 (e) {name} over {grid} ranks: losses {ranks[0][name]['losses']} against "
+                 f"one process's {one[name]['losses']}: worst gap {gaps[name]:.3g} of "
+                 f"max(|loss|, 0.1) (bound {DP_LOSS_TOL})")
+        if any(rk[name]["d_u"] != ranks[0][name]["d_u"] for rk in ranks):
+            fail(f"13 (e) {name} over {grid} ranks: D's spectral u differs between ranks")
+        for r, rk in enumerate(ranks):
+            c, shapes = rk[name]["counts"], rk[name]["gram_shapes"]
+            owns_latent = r % n_spatial == 0
+            want = 0 if name in ("teacher", "mse") else (12 if owns_latent else 8)
+            empty = 0 if owns_latent or not want else 4
+            if (c["gram"] != want or c.get("gram_f32tma", 0) + c.get("gram_f32", 0) != want
+                    or sum(f == 0 for _, f in shapes) != empty):
+                fail(f"13 (e) {name} over {grid} ranks, rank {r}: {c}, operands {shapes}; "
+                     f"expected {want} launches in 2 steps, {empty} operands of no columns")
+    counts = {k: v["counts"] for k, v in ranks[-1].items()}
+    log(f"13 (e): tiny f32 GauGAN steps (teacher task, KA, mse, wgangp, remat; a 1-row latent) "
+        f"over {world} gloo ranks on cuda:0 ({grid}) against one process on the card: worst "
+        f"loss gaps {gaps} of max(|loss|, 0.1) (bound {DP_LOSS_TOL}); D's u alike on every "
+        f"rank; the last rank's launches {counts} [{card}]")
+    return {"loss_gaps": gaps, "counts": counts}
+
+
+def sp_gaugan(card, root, judge, stats):
+    """13 (d): the 5p6B GauGAN student recipe's first epoch with --n_spatial
+    2 over two gloo ranks on cuda:0 (``sp_rank_d``) against phase 12 (c)'s
+    one process: step 1's losses within DP_LOSS_TOL, 6 f32tma Gram launches
+    a step on each rank on (16, F/2) operands; one FID + mIoU evaluation of
+    its student over the two ranks against one process's (FID within 1e-3
+    relative, the confusion matrix exactly)."""
+    import numpy as np
+    import torch
+
+    from cat_tpu_torch.parallel import mesh
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh.spawn(sp_rank_d, 2, args=(root, judge, stats, card), device="cuda:0", backend="gloo",
+               timeout=SP_TIMEOUT)
+    spawn_d = time.perf_counter() - t0
+    ranks_d = []
+    for r in (0, 1):
+        with open(os.path.join(root, f"sp_d_{r}.json")) as f:
+            ranks_d.append(json.load(f))
+    d_losses = _scalars(os.path.join(root, "log_13d"))
+    d_want = _scalars(os.path.join(root, "log_12c_w1"))  # 12 (c)'s one-process first epoch
+    d_gaps = [_loss_gap(d_losses[:i + 1], d_want[:i + 1]) for i in range(len(d_want))]
+    for rk in ranks_d:
+        c = rk["counts"]
+        if (rk["steps"] != DP_SPADE_STEPS or c["gram"] != 6 * DP_SPADE_STEPS
+                or c.get("gram_f32tma") != c["gram"]
+                or [2 * s[2] for s in rk["tap_shapes"]] != rk["tap_heights"]
+                or sorted({f for _, f in rk["operands"]})
+                != sorted({s[1] * s[2] * s[3] for s in rk["tap_shapes"]})
+                or any(b != GAUGAN_BATCH for b, _ in rk["operands"])):
+            fail(f"13 (d) rank {rk['rank']}: {rk['steps']} steps, {c}, Gram operands "
+                 f"{rk['operands']}, taps {rk['tap_shapes']}; expected {DP_SPADE_STEPS} steps, "
+                 f"6 f32tma Gram launches a step on ({GAUGAN_BATCH}, F/2) operands (taps of "
+                 f"half of {rk['tap_heights']} rows)")
+    if (not d_gaps or not d_gaps[0] <= DP_LOSS_TOL or len(d_losses) != DP_SPADE_STEPS
+            or not all(math.isfinite(v) for r in d_losses for v in r.values())):
+        fail(f"13 (d): losses over two spatial ranks {d_losses} against one process's {d_want}: "
+             f"step 1's gap {d_gaps[:1]} of max(|loss|, 0.1) (bound {DP_LOSS_TOL}), all finite")
+    ev1 = _dp_spade_eval(root, judge, stats, "13d_w1", log_dir="log_13d")
+    for rk in ranks_d:
+        ev = rk["eval"]
+        if not (abs(ev["fid"] - ev1["fid"]) <= 1e-3 * abs(ev1["fid"]) and ev["hist"] == ev1["hist"]
+                and ev["miou"] == ev1["miou"]):
+            fail(f"13 (d) rank {rk['rank']}: the evaluation over two spatial ranks (FID "
+                 f"{ev['fid']}, mIoU {ev['miou']}) differs from one process's (FID "
+                 f"{ev1['fid']}, mIoU {ev1['miou']}) or its confusion matrix does")
+    log(f"13 (d): the GauGAN 5p6B student recipe at global batch {GAUGAN_BATCH}, 512x256, "
+        f"--n_spatial 2 over two gloo ranks on cuda:0 (not a scaling measurement): step 1's "
+        f"losses within {d_gaps[0]:.3g} of max(|loss|, 0.1) of one process's (phase 12 (c); "
+        f"bound {DP_LOSS_TOL}), through steps 1-{len(d_gaps)} "
+        f"{[float(f'{g:.3g}') for g in d_gaps]}; "
+        + "; ".join(f"rank {rk['rank']}: median step {rk['step_ms_median']:.1f} ms (steps "
+                    f"{rk['step_ms']}), {rk['exchanges_per_step']} halo exchanges a step, "
+                    f"{rk['halo_bytes_per_step'] / 2 ** 20:.0f} MiB sent, "
+                    f"{np.median(rk['halo_ms_alone']):.1f} ms alone, peak memory "
+                    f"{rk['peak_memory_gib']:.2f} GiB, loader wait "
+                    f"{rk['loader_wait_ms_per_step']:.1f} ms a step, {rk['counts']}"
+                    for rk in ranks_d)
+        + f"; one evaluation of its student over the two ranks: FID "
+          f"{ranks_d[0]['eval']['fid']:.6f} against {ev1['fid']:.6f} in one process, mIoU "
+          f"{ranks_d[0]['eval']['miou']} against {ev1['miou']}, confusion matrices equal; "
+          f"{ranks_d[0]['eval']['seconds']:.1f} s and {ev1['seconds']:.1f} s [{card}]")
+    return {"loss_gap": d_gaps[0], "loss_gaps_by_step": d_gaps, "losses": d_losses,
+            "ranks": ranks_d, "eval_one_process": ev1, "spawn_s": spawn_d}
+
+
+def spatial_parallel(card, root, dp, teacher_cfg, student_cfg, judge, stats):
     """Phase 13: (a) the tiny tasks in one process on the card, then over
     two gloo ranks sharing cuda:0 as 1 x 2 and over four as 2 x 2 (and the
-    fused-norm distiller at 1 x 2: the split entry points); (b) phase 6's
-    recipe with --n_spatial 2 over two ranks against phase 12 (a)'s one
-    process; (c) the split entry points against their plain versions.  Two
-    or four ranks on one card measure the path, not scaling."""
+    fused-norm distiller at 1 x 2: the split entry points), and the
+    diagnosis of the 1 x 2 distiller's step-1 gap; (e) the tiny GauGAN
+    tasks the same way, on the same ranks; (b) phase 6's recipe with --n_spatial 2 over two
+    ranks against phase 12 (a)'s one process; (d) the 5p6B GauGAN student
+    recipe with --n_spatial 2 against phase 12 (c)'s one process, and one
+    evaluation of its student over the two ranks against one process's;
+    (c) the split entry points against their plain versions.  Two or four
+    ranks on one card measure the path, not scaling."""
     import numpy as np
     import torch
 
@@ -2988,8 +3377,9 @@ def spatial_parallel(card, root, dp, teacher_cfg, student_cfg):
         one = sp_tiny_runs(dev, root, SP_TASKS + ("distill_fused",))
     finally:
         undo()
+    one_e = sp_spade_runs(dev, root)  # (e) in one process
     torch.cuda.empty_cache()
-    a = {}
+    a, e = {}, {}
     for world, n_spatial in SP_WORLDS:
         t0 = time.perf_counter()
         mesh.spawn(sp_rank_a, world, args=(root, n_spatial), device="cuda:0", backend="gloo",
@@ -2998,6 +3388,8 @@ def spatial_parallel(card, root, dp, teacher_cfg, student_cfg):
         for r in range(world):
             with open(os.path.join(root, f"sp_a{world}_{r}.json")) as f:
                 ranks.append(json.load(f))
+        e[f"{world // n_spatial}x{n_spatial}"] = sp_spade_check(
+            [rk.pop("spade") for rk in ranks], one_e, world, n_spatial, card)
         gaps, worst = {}, {}
         for name in ranks[0]:
             gaps[name] = max(_loss_gap(rk[name]["losses"], one[name]["losses"]) for rk in ranks)
@@ -3034,6 +3426,8 @@ def spatial_parallel(card, root, dp, teacher_cfg, student_cfg):
             f"one-process value) {worst}; rank 0's launches "
             f"{a[f'{world // n_spatial}x{n_spatial}']['counts']} "
             f"[{card}]")
+        if world == n_spatial:
+            a["diagnosis"] = sp_diagnose(dev, root, card)
 
     # (b) the flagship recipe at full width over two ranks
     t0 = time.perf_counter()
@@ -3083,11 +3477,14 @@ def spatial_parallel(card, root, dp, teacher_cfg, student_cfg):
                     f"{rk['peak_memory_gib']:.2f} GiB, {rk['counts']}" for rk in ranks)
         + f" [{card}]")
 
+    # (d) the GauGAN student recipe at full width over two ranks
+    d = sp_gaugan(card, root, judge, stats)
+
     # (c) the split entry points at the flagship's shapes, half height
     kern_c = sp_norm_kernels(dev, teacher_cfg.ds_channels, student_cfg.ds_channels, card)
     out = {"a": a, "b": {"loss_gap": b_gap, "loss_gaps_by_step": b_gaps, "losses": b_losses,
                          "ranks": ranks, "spawn_s": spawn_s},
-           "c": kern_c, "seconds": time.perf_counter() - t_phase}
+           "c": kern_c, "e": e, "d": d, "seconds": time.perf_counter() - t_phase}
     return out
 
 
@@ -3304,10 +3701,11 @@ def main() -> None:
 
         # --- 13. spatial parallelism: tiny steps over 1 x 2 and 2 x 2 gloo
         # ranks, phase 6's recipe over two spatial ranks, the split norm
-        sp = spatial_parallel(card, root, dp, teacher_cfg, res.config)
-        log("spatial: " + json.dumps({k: v for k, v in sp.items() if k != "b"}))
-        log("spatial 13 (b): " + json.dumps({**sp["b"], "ranks": [
-            {k: v for k, v in rk.items() if k != "kern"} for rk in sp["b"]["ranks"]]}))
+        sp = spatial_parallel(card, root, dp, teacher_cfg, res.config, judge, stats)
+        log("spatial: " + json.dumps({k: v for k, v in sp.items() if k not in "bd"}))
+        for part in "bd":
+            log(f"spatial 13 ({part}): " + json.dumps({**sp[part], "ranks": [
+                {k: v for k, v in rk.items() if k != "kern"} for rk in sp[part]["ranks"]]}))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3378,6 +3776,15 @@ def main() -> None:
                        f"{VERB_BATCH}, float32, on the run's own (80, F/2) taps (f32tma kernel; "
                        f"phase 13 (b)'s {sp_rank0['steps']} steps)"),
                  "fma_ms": sp_k["fma_ms"], "bound_full_square_ms": sp_k["bound_full_square_ms"]})
+    # the float32 kernel on 13 (d)'s GauGAN half-height taps (rank 0's launches)
+    sd_k, sd_rank0 = sp["d"]["ranks"][0]["kern"], sp["d"]["ranks"][0]
+    rows.append({**row("gram (GauGAN spatial shards, float32, B = 16)", *gram_src,
+                       sd_rank0["counts"]["gram"], sd_k,
+                       f"one training step's launches on one of two spatial ranks at batch "
+                       f"{GAUGAN_BATCH}, float32, on the run's own six (16, F/2) taps "
+                       f"{', '.join(SPADE_TAPS)} of teacher and student, F/2 = {sd_k['f']} "
+                       f"(f32tma kernel; phase 13 (d)'s {sd_rank0['steps']} steps)"),
+                 "fma_ms": sd_k["fma_ms"], "bound_full_square_ms": sd_k["bound_full_square_ms"]})
     fused_counts = sp["a"]["1x2"]["counts"]["distill_fused"]
     for part, entry_point in (("stats", "cat_inorm_stats_*"), ("apply", "cat_inorm_apply_*")):
         k = {**sp["c"][part], "library_ms": None}

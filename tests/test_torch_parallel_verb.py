@@ -5,9 +5,8 @@ with ``--process_id`` and ``--coordinator_address``, and ``--n_devices 2``
 (ranks spawned by the verb).  Only rank 0 writes the options, the logs and
 the checkpoints; both ranks print the same losses; the checkpoints equal a
 one-process run's within Adam's 2.5·lr·steps (its ±lr on float32-noise
-gradients, tests/test_torch_teacher.py's bound).  The flags that still
-raise (the SPADE family under ``--n_spatial``), and the one-process
-default, which creates no process group.
+gradients, tests/test_torch_teacher.py's bound).  The one-process default
+creates no process group.
 
 Each group of ranks gets 120 s and is killed past it.
 """
@@ -216,19 +215,6 @@ def test_n_devices_beyond_the_visible_cards_raises(data, tmp_path):
     with pytest.raises(ValueError, match=f"requested {n} devices but only "
                                          f"{n - 2} available"):
         entry.distill_main(distill_args(data, tmp_path, "--n_devices", str(n)))
-    assert not os.path.exists(tmp_path / "opt.txt")
-
-
-@pytest.mark.parametrize("verb", ["distill", "train"])
-def test_n_spatial_raises_naming_item_16b(data, tmp_path, verb):
-    """The spatial axis (item 16b) runs the inception family
-    (tests/test_torch_spatial_verb.py); the SPADE family's verbs refuse it,
-    naming item 16c, before anything is written."""
-    argv = ([*distill_args(data, tmp_path), "--distiller", "spade"] if verb == "distill"
-            else train_args(data, "spade", tmp_path))
-    main = entry.distill_main if verb == "distill" else entry.train_main
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 16c"):
-        main([*argv, "--n_spatial", "2"], device="cpu")
     assert not os.path.exists(tmp_path / "opt.txt")
 
 

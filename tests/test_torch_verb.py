@@ -183,8 +183,6 @@ def test_every_flag_consumed_raised_or_documented_inert():
 
 
 @pytest.mark.parametrize("flags,match", [
-    # the spatial axis runs the inception family; the SPADE family's is item 16c
-    (["--n_spatial", "2", "--distiller", "spade"], "item 16"),
     (["--teacher_compute_dtype", "int8"], "item 18"),
     (["--teacher_compute_dtype", "int8_static"], "item 18"),
     # the JAX package's tasks cannot build it either (a PixelDiscriminatorConfig

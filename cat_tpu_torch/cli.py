@@ -4,9 +4,9 @@ and KID parsers, with the same name, type, choices and default, so the
 reference recipes run as they are; and the configs and the judge built from
 them.
 
-Flags whose code path is not ported yet raise ``NotImplementedError``
-naming the ROADMAP.md item that brings it, where that path would run (the
-int8 teacher in the distillers).  Flags the JAX package accepts
+Every flag's code path is ported; where the JAX package's own tasks fail
+on a flag (``--netD pixel``, ``--dataset_mode cityscapes`` outside the
+SPADE family) the port raises too.  Flags the JAX package accepts
 and leaves inert on a verb are inert here too: on distill,
 --netG/--teacher_netG/--student_netG/--pretrained_netG,
 --pretrained_ngf/--teacher_ngf, --prune_continue, --prune_logging_verbose,
@@ -155,8 +155,13 @@ def train_arguments(parser: argparse.ArgumentParser):
                    help='distill-step compute dtype (float32 master weights)')
     p.add_argument("--teacher_compute_dtype", type=str, default="",
                    choices=["", "int8", "int8_static"],
-                   help="frozen-teacher compute override; '' follows --compute_dtype (the "
-                        "int8 teachers are not ported yet)")
+                   help="frozen-teacher compute override (inception and SPADE distillers): "
+                        "int8 runs the teacher forward with dynamic int8 convolutions "
+                        "(per-channel weight scales, a per-conv activation scale taken "
+                        "on the card at each call, int32 accumulation, taps dequantised "
+                        "to the compute dtype; ops/quant.py); int8_static calibrates the "
+                        "per-conv activation scales on the first batch and keeps them "
+                        "(no per-step abs-max passes); '' follows --compute_dtype")
     p.add_argument("--vgg_compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="dtype of the VGG19 perceptual sweep (SPADE family)")

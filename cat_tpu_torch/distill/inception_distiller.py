@@ -18,7 +18,10 @@ One ``train_step`` does what the JAX package's ``_step`` does:
     trained with the student by one Adam, as in the JAX package's {G, A}
     parameter group);
   * with ``ema_decay`` > 0, an exponential moving average of the student's
-    weights follows every G step and is what evaluation and deployment use.
+    weights follows every G step and is what evaluation and deployment use;
+  * with ``teacher_compute_dtype`` 'int8' the teacher's convolutions run in
+    int8 (``ops/quant.py``), with 'int8_static' at activation scales
+    calibrated on the first batch (``ops/quant.py::teacher_forward``).
 
 Under batch norm the forwards that move running statistics are the JAX
 package's mutable ones: the student's forward and D's fake and real
@@ -59,6 +62,7 @@ from cat_tpu_torch.models.discriminators import NLayerDiscriminator, check_task_
 from cat_tpu_torch.models.generator import DEFAULT_MAPPING_LAYERS, InceptionGenerator
 from cat_tpu_torch.models.losses import gan_loss, gradient_penalty, recon_loss
 from cat_tpu_torch.ops.nn import frozen_stats
+from cat_tpu_torch.ops.quant import TEACHER_DTYPES, teacher_forward
 from cat_tpu_torch.parallel import spatial
 from cat_tpu_torch.train.common import (GANTrainState, NetState, average_grads, cast_floats,
                                         checkpointed, global_metrics)
@@ -81,7 +85,7 @@ class DistillHParams:
     init_gain: float = 0.02
     mapping_layers: Tuple[str, ...] = DEFAULT_MAPPING_LAYERS
     compute_dtype: str = "float32"  # float32 | bfloat16
-    teacher_compute_dtype: str = ""  # '' follows compute_dtype (int8 not ported yet)
+    teacher_compute_dtype: str = ""  # '' follows compute_dtype; int8 | int8_static (ops/quant.py)
     fused_norms: bool = False  # affine instance norm + relu through the fused kernel
     packed_blocks: bool = True  # branch-packed inception blocks (same math)
     remat: bool = False  # recompute the student forward in the backward
@@ -89,11 +93,8 @@ class DistillHParams:
 
 
 def _check_ported(hp: DistillHParams) -> None:
-    """Raise for the hyperparameters whose code paths are not ported yet,
-    naming the ROADMAP.md item that brings them."""
-    if hp.teacher_compute_dtype.startswith("int8"):
-        raise NotImplementedError("teacher_compute_dtype=int8 is not ported yet: ROADMAP.md "
-                                  "queue 1, item 18, Extras")
+    if hp.teacher_compute_dtype not in TEACHER_DTYPES:
+        raise ValueError(f"teacher_compute_dtype must be one of {TEACHER_DTYPES}")
     if hp.distill_loss_type not in ("ka", "mse"):
         raise NotImplementedError(hp.distill_loss_type)
     if hp.compute_dtype not in _DTYPES:
@@ -143,6 +144,7 @@ class InceptionDistiller:
         self.netG_student: Optional[InceptionGenerator] = None
         self.netD: Optional[NLayerDiscriminator] = None
         self.netA: Optional[nn.ModuleDict] = None  # adaptors, mse only
+        self._act_scales: Optional[Tuple[float, ...]] = None  # int8_static: calibrated by the first step
 
     # ------------------------------------------------------------------ state
 
@@ -247,11 +249,9 @@ class InceptionDistiller:
         aligned = hp.dataset_mode == "aligned"
 
         # --- teacher forward: frozen, eval mode ---
-        with torch.no_grad():
-            t_fake, t_acts = functional_call(
-                self.netG_teacher, down(teacher_params), (real_A,),
-                {"train": False, "taps": taps},
-            )
+        (t_fake, t_acts), self._act_scales = teacher_forward(
+            self._teacher_fn, down(teacher_params), real_A, hp.teacher_compute_dtype,
+            self._act_scales)
         t_fake, t_acts = up(t_fake), up_acts(t_acts)
 
         # --- student forward once, graph kept; it alone moves the student's
@@ -335,6 +335,10 @@ class InceptionDistiller:
             **dis_parts,
         }
         return state, global_metrics(metrics)
+
+    def _teacher_fn(self, params, x):
+        return functional_call(self.netG_teacher, params, (x,),
+                               {"train": False, "taps": self.hp.mapping_layers})
 
     # -------------------------------------------------------------- inference
 

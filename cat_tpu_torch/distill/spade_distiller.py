@@ -26,7 +26,10 @@ package's ``_step`` does:
   * with ``remat`` the student's forward is recomputed in the backward
     (``torch.utils.checkpoint``), selectively under ``remat_policy`` (a
     ``jax.checkpoint_policies`` name); without ``remat`` the policy is
-    ignored, as in the JAX package.
+    ignored, as in the JAX package;
+  * with ``teacher_compute_dtype`` 'int8' or 'int8_static' the teacher's
+    convolutions run in int8, as in the inception distiller
+    (``ops/quant.py``; static scales calibrated on the first batch).
 
 Over a split height (``--n_spatial``) the step is the single-device step
 of the global batch: the semantics whole on every rank, the taps, fakes
@@ -59,6 +62,7 @@ from cat_tpu_torch.models.losses import gan_loss, gradient_penalty
 from cat_tpu_torch.models.spade import MultiscaleDiscriminator, SPADEGenerator
 from cat_tpu_torch.models.vgg import VGG19Features, vgg_loss
 from cat_tpu_torch.ops.nn import frozen_stats
+from cat_tpu_torch.ops.quant import TEACHER_DTYPES, teacher_forward
 from cat_tpu_torch.parallel import spatial
 from cat_tpu_torch.train.common import (GANTrainState, NetState, average_grads, cast_floats,
                                         checkpointed, global_metrics)
@@ -132,13 +136,12 @@ class SPADEDistillHParams:
     remat_policy: str = ""  # a jax.checkpoint_policies name (REMAT_POLICIES), read under remat
     packed_blocks: bool = True  # both generators' branches packed (models/spade.py)
     ema_decay: float = 0.0  # student-weight EMA (--moving_average_decay); 0 = off
-    teacher_compute_dtype: str = ""  # '' follows compute_dtype (int8 not ported yet)
+    teacher_compute_dtype: str = ""  # '' follows compute_dtype; int8 | int8_static (ops/quant.py)
 
 
 def _check_ported(hp: SPADEDistillHParams) -> None:
-    if hp.teacher_compute_dtype.startswith("int8"):
-        raise NotImplementedError("teacher_compute_dtype=int8 is not ported yet: ROADMAP.md "
-                                  "queue 1, item 18b, Extras")
+    if hp.teacher_compute_dtype not in TEACHER_DTYPES:
+        raise ValueError(f"teacher_compute_dtype must be one of {TEACHER_DTYPES}")
     if hp.distill_loss_type not in ("ka", "mse"):
         raise NotImplementedError(hp.distill_loss_type)
     if hp.compute_dtype not in _DTYPES:
@@ -176,6 +179,7 @@ class SPADEDistiller:
         self.netG_student: Optional[SPADEGenerator] = None
         self.netD: Optional[MultiscaleDiscriminator] = None
         self.netA: Optional[nn.ModuleDict] = None
+        self._act_scales: Optional[Tuple[float, ...]] = None  # int8_static: calibrated by the first step
 
     @property
     def lr_mults(self) -> Tuple[float, float]:
@@ -286,9 +290,9 @@ class SPADEDistiller:
         taps = hp.mapping_layers
 
         # --- the teacher: frozen, eval mode ---
-        with torch.no_grad():
-            _, t_acts = functional_call(self.netG_teacher, down(teacher_params), (sem,),
-                                        {"train": False, "taps": taps})
+        (_, t_acts), self._act_scales = teacher_forward(
+            self._teacher_fn, down(teacher_params), sem, hp.teacher_compute_dtype,
+            self._act_scales)
         t_acts = up(t_acts)
 
         # --- G update against the old D ---
@@ -360,6 +364,10 @@ class SPADEDistiller:
                    "G_loss/distill": l_dis, "D_loss/fake": l_d_fake, "D_loss/real": l_d_real,
                    **parts}
         return state, global_metrics(metrics)
+
+    def _teacher_fn(self, params, sem):
+        return functional_call(self.netG_teacher, params, (sem,),
+                               {"train": False, "taps": self.hp.mapping_layers})
 
     # -------------------------------------------------------------- inference
 

@@ -23,6 +23,8 @@ data index), each a group of its own:
     incoming gradient is the same on every rank, and once the parameter
     gradients are averaged (``train/common.py::average_grads``) each row's
     gradient counts once;
+  * ``all_reduce_max``: the int8 teacher's activation abs-max over the
+    world (``ops/quant.py``), outside autograd;
   * ``local_rows`` and ``local_height``: this rank's batch rows and height
     rows of a tensor every rank holds whole (the random draws over the
     global batch: dropout masks, the penalty's mixing weights, the pool's
@@ -171,6 +173,17 @@ def all_reduce_(x: torch.Tensor, axis_name: str) -> torch.Tensor:
     if n > 1:
         dist.all_reduce(x, group=group)
     return x
+
+
+@torch.no_grad()
+def all_reduce_max(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the world, outside autograd
+    (the int8 teacher's global activation scales, ``ops/quant.py``)."""
+    if not active():
+        return x
+    y = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX)
+    return y
 
 
 def _gather(x: torch.Tensor, group, n: int, dim: int = 0) -> torch.Tensor:

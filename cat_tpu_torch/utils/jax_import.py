@@ -1,7 +1,8 @@
 """Carry weights of the JAX package into the port.
 
-A JAX generator (inception or SPADE), NLayer-, pixel- or multiscale
-discriminator, DRN judge or distillation-adaptor parameter tree, given as
+A JAX generator (inception, SPADE or the UNet), NLayer-, pixel- or
+multiscale discriminator, DRN or DeepLab v2 judge or distillation-adaptor
+(the distillers' and ``GenericDistiller``'s) parameter tree, given as
 nested dicts of numpy arrays (``variables["params"]``, as
 ``utils/checkpoint.py::read_msgpack`` returns it from a ``.msgpack`` file),
 with its batch-norm statistics tree (``variables["batch_stats"]``, the same
@@ -456,3 +457,53 @@ def spade_distill_state_dict(tree: Dict, student_cfg, disc_cfg) -> Dict:
         "adaptors": adaptor_state_dict(g["params"].get("A") or {}),
         "extra": ema,
     }
+
+
+# ---------------------------------------------------------------------------
+# The UNet family and DeepLab v2
+# ---------------------------------------------------------------------------
+
+
+def unet_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
+    """The port's ``models/unet.py::UNet`` state_dict from a JAX ``UNet``'s
+    params (the same module names): a conv's HWIO kernel -> OIHW, a Dense
+    kernel (in, out) -> weight (out, in), a GroupNorm's scale -> weight."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        if "kernel" in tree:
+            k = np.asarray(tree["kernel"])
+            sd[f"{prefix}.weight"] = _t(k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T)
+            sd[f"{prefix}.bias"] = _t(tree["bias"])
+        elif "scale" in tree:
+            sd[f"{prefix}.weight"] = _t(tree["scale"])
+            sd[f"{prefix}.bias"] = _t(tree["bias"])
+        else:
+            for name, sub in tree.items():
+                walk(sub, f"{prefix}.{name}" if prefix else name)
+
+    walk(params, "")
+    return sd
+
+
+def deeplabv2_state_dict(params: Dict) -> Dict[str, torch.Tensor]:
+    """The port's ``metrics/deeplabv2.py::DeepLabV2`` state_dict (the
+    reference checkpoint's layout) from a JAX ``DeepLabV2``'s params (its
+    frozen batch norms keep their statistics as ``bn_mean``/``bn_var``); the
+    inverse of ``cat_tpu/metrics/deeplabv2.py::convert_torch_deeplabv2``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(tree, prefix):
+        if "bn_mean" in tree:
+            for ours, theirs in (("weight", "bn_scale"), ("bias", "bn_bias"),
+                                 ("running_mean", "bn_mean"), ("running_var", "bn_var")):
+                sd[f"{prefix}.{ours}"] = _t(tree[theirs])
+            sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+        elif "kernel" in tree:
+            _conv(sd, prefix, tree)
+        else:
+            for name, sub in tree.items():
+                walk(sub, f"{prefix}.{name}" if prefix else name)
+
+    walk(params, "")
+    return sd

@@ -39,7 +39,8 @@ Phases, in order; any failure exits non-zero before the result line:
      ``scripts/cycle_gan/horse2zebra/train_inception_student_2p6B.sh`` (batch
      80, 2.6e9-MAC student, KA, lsgan, pretrained-G transfer and D restore)
      over a seeded unaligned dataset of 256x256 PNGs (160 per training side,
-     120 in valA and 140 in valB, horse2zebra's test split), 8 steps, three
+     120 in valA and 140 in valB, horse2zebra's test split), 4 steps (8
+     before phase 14), three
      times: (a) float32 with the host loader, (b) bfloat16 with the
      device-resident bank, (c) float32 with ``--data_backend native`` (the
      C++ image pipeline), timed for its loader wait beside (a).  The Gram
@@ -186,7 +187,29 @@ Phases, in order; any failure exits non-zero before the result line:
      timed on the run's own six half-height taps, then one FID + mIoU
      evaluation of its student over the two ranks against one process's
      (FID within 1e-3 relative, the confusion matrix exactly).  Two or
-     four ranks on one card measure the path, not scaling.
+     four ranks on one card measure the path, not scaling;
+ 14. the int8 teacher, the UNet, DeepLab v2: (a) every distinct conv of the
+     flagship teacher (stem, down, pointwise, packed, depthwise, transposed,
+     head) at batch 80 in bf16 on seeded inputs: the card's int32
+     accumulator (im2col + ``torch._int_mm`` for groups 1,
+     ``csrc/int8_conv.cu`` otherwise) equal to the float64 plain version
+     bit for bit, the dequantised output equal to the plain one; times of
+     the quantisation, the accumulator, the dequantisation, the whole
+     int8 conv, the plain version and cuDNN's bf16 conv, beside the bound
+     (2·MACs at the dense int8 peak, or the bytes); (b) phase 6 (b)'s run
+     with ``--teacher_compute_dtype int8`` and ``int8_static``, 4 steps
+     each: 8 bf16 Gram launches a step, both int8 paths launched, the step
+     beside 6 (b)'s, the teacher's taps against the bf16 teacher's on the
+     same batch, one calibrated scale per teacher conv, the Gram held
+     against its plain version on the int8 run's taps; (c) 10b's GauGAN
+     student recipe with ``int8_static`` for 3 steps: step, peak memory, 6
+     f32tma Gram launches a step; (d) ``GenericDistiller`` at
+     ``tools/bench_unet_distill.py``'s configuration (UNet base 64 -> 32,
+     256 px, batch 32, bf16, KA on down1, mid, up1): 1 + 3 steps, peak
+     memory, 6 Gram launches a step, the Gram on the run's own taps; (e)
+     DeepLabV2 in ResNet-101 DeepLab v2's layout (182 classes) under MSC on
+     one 513 x 513 image, card against CPU within 1e-4 of the largest
+     logit, and its milliseconds an image.
 
 The script prints its total seconds.
 The line before the last is a JSON object with every kernel's numbers; the
@@ -195,6 +218,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -212,7 +236,7 @@ FUSED_STEPS = 2
 LR = 2e-4
 VERB_BATCH = 80  # the student recipe's batch
 VERB_IMAGES = 160  # per side: 2 steps per epoch
-VERB_EPOCHS = 4
+VERB_EPOCHS = 2  # phase 6: 4 steps a run (8 before phase 14 took the time)
 VAL_IMAGES = {"valA": 120, "valB": 140}  # horse2zebra's test split
 PAIRS_BATCH = 256  # a batch past 128 rows: the pair kernels' (phases 2, 4b and 4c)
 PAIRS_STEPS = 2  # phases 4b and 4c: 1 warm-up + 1 timed step
@@ -3488,6 +3512,515 @@ def spatial_parallel(card, root, dp, teacher_cfg, student_cfg, judge, stats):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the int8 teacher, the UNet with GenericDistiller, DeepLab v2
+# ---------------------------------------------------------------------------
+
+INT8_PEAK_OPS = 1978.9e12  # dense int8 tensor-core operations/s, H100 SXM
+INT8_EPOCHS = 2  # 14 (b): 4 steps of phase 6's recipe at batch 80
+UNET_BATCH, UNET_STEPS = 32, 4  # 14 (d): tools/bench_unet_distill.py's batch; 1 warm-up + 3
+DEEPLAB_HW = 513  # 14 (e): the reference's evaluation crop
+INT8_CPU_IMAGES = 2  # 14 (b): the card's int8 teacher against the CPU's on this many images
+INT8_CPU_TOL = 5e-3  # 14 (b): the first float32 tap's relative L2 error, card against CPU
+
+
+def record_convs(fn, *args):
+    """The convolutions of ``fn(*args)`` (under no_grad) in call order:
+    {signature: [count, weight, input shape without the batch, the conv's
+    keyword arguments]} and the number of calls."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from cat_tpu_torch.ops import quant as tq
+
+    seen = {}
+
+    class Recorder(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            parse = tq._CONVS.get(func)
+            if parse is not None:
+                x, w, _, kw = parse(*args, **(kwargs or {}))
+                key = (tuple(x.shape[1:]), tuple(w.shape), json.dumps(kw, sort_keys=True))
+                entry = seen.setdefault(key, [0, w.detach().clone(), tuple(x.shape[1:]), kw])
+                entry[0] += 1
+            return func(*args, **(kwargs or {}))
+
+    with torch.no_grad(), Recorder():
+        fn(*args)
+    return seen, sum(v[0] for v in seen.values())
+
+
+def teacher_convs(dev, teacher_cfg, teacher_sd):
+    """The flagship teacher's convolutions in call order, as one bf16
+    forward runs them (``record_convs``)."""
+    import torch
+
+    from cat_tpu_torch.models.generator import InceptionGenerator
+
+    teacher = InceptionGenerator(teacher_cfg, packed_blocks=True)
+    teacher.load_state_dict(teacher_sd)
+    teacher = teacher.to(dev).bfloat16().eval()
+    return record_convs(teacher, torch.zeros(1, 3, SIZE, SIZE, device=dev, dtype=torch.bfloat16))
+
+
+def int8_conv_numbers(dev, card, convs, batch=VERB_BATCH, dtype_name="bfloat16",
+                      timed_paths=("intmm", "grouped"), what="the flagship teacher"):
+    """Every distinct conv of a teacher (``record_convs``) at ``batch`` in
+    ``dtype_name``, on seeded inputs: the int32 accumulator of the card's
+    path (im2col + torch._int_mm for groups 1, csrc/int8_conv.cu otherwise;
+    a transposed conv through its stride-1 lowering) equal to the float64
+    plain version bit for bit (a transposed conv's held against
+    F.conv_transpose2d in float64 itself), and the dequantised output in
+    that dtype (for a grouped conv the kernel's fused store) equal to the
+    plain dequantisation's.  For the paths in ``timed_paths``, times of the
+    quantisation (activation and weight), the accumulator, the
+    dequantisation (for a grouped conv, the kernel with it fused), the
+    whole ``int8_conv``, the plain version (float64 accumulator between the
+    same quantisation and dequantisation) and cuDNN's conv in that dtype;
+    the bound is the larger of the input's, output's and weight's bytes
+    over 3.35 TB/s and 2·MACs over the dense int8 peak.  Returns each
+    path's totals over one teacher forward (each shape times its count)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cat_tpu_torch.ops import quant as tq
+
+    dtype = getattr(torch, dtype_name)
+    l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        l2.zero_()
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms", "quant_ms",
+            "conv_ms", "dequant_ms")
+    tot = {path: {**dict.fromkeys(keys, 0.0), "err": 0.0, "convs": 0, "shapes": 0,
+                  "timed": path in timed_paths}
+           for path in ("intmm", "grouped")}
+    for count, w, xshape, kw in convs.values():
+        kw = dict(kw)
+        transposed, g = kw.get("transposed", False), kw["groups"]
+        x = torch.randn(batch, *xshape, generator=gen, device=dev).to(dtype)
+        w = w.to(dtype)
+        wr = tq.transposed_weight(w, g) if transposed else w
+
+        def quantised():
+            qx = tq.act_scale(x)
+            qw = tq.weight_scale(wr)
+            return qx, qw, tq.quantize(x, qx), tq.quantize(wr, qw.view(-1, 1, 1, 1))
+
+        qx, qw, xq, wq = quantised()
+        scale = qx * qw
+        if transposed:
+            def lowered():
+                return tq.lower_transposed(xq, wr.shape[2:], kw["stride"], kw["padding"],
+                                           kw["output_padding"], kw["dilation"])
+            conv_args = (1, 0, kw["dilation"], g)
+        else:
+            def lowered():
+                return xq
+            conv_args = (kw["stride"], kw["padding"], kw["dilation"], g)
+        xl = lowered()
+        acc = tq.int8_conv_acc(xl, wq, *conv_args)
+        if transposed:
+            wq_t = tq.quantize(w, qw.view(1, -1, 1, 1))  # groups 1: output channels on dim 1
+            want = F.conv_transpose2d(xq.double(), wq_t.double(), None, kw["stride"],
+                                      kw["padding"], kw["output_padding"], g,
+                                      kw["dilation"]).to(torch.int32)
+            del wq_t
+        else:
+            want = tq.int8_conv_acc_plain(xl, wq, *conv_args)
+        y = tq.conv_dequant(xl, wq, scale, dtype, *conv_args)
+        y_plain = (want.float() * scale.view(1, -1, 1, 1)).to(dtype)
+        torch.cuda.synchronize()
+        shape = f"int8 conv x {tuple(x.shape)} w {tuple(w.shape)} {kw} ({dtype_name})"
+        if not torch.equal(acc, want):
+            fail(f"{shape}: the card's int32 accumulator differs from the float64 plain version "
+                 f"at {int((acc != want).sum())} of {acc.numel()} values")
+        if not torch.equal(y, y_plain):
+            fail(f"{shape}: the dequantised output differs from the plain dequantisation")
+        path = "intmm" if g == 1 else "grouped"
+        tot[path]["convs"] += count
+        tot[path]["shapes"] += 1
+        desc = (f"int8 conv {path:7s} x {tuple(x.shape)} w {tuple(w.shape)} stride "
+                f"{kw['stride']} pad {kw['padding']} groups {g}"
+                f"{' transposed' if transposed else ''} (x{count} a forward)")
+        if path not in timed_paths:
+            log(f"{desc}: accumulator exact, {dtype_name} output bit-equal [{card}]")
+            del x, xq, xl, acc, y, want, y_plain
+            continue
+        macs = (x.shape[0] * xshape[0] * xshape[1] * xshape[2] * w.shape[1] * w.shape[2]
+                * w.shape[3] if transposed else acc.numel() * wr.shape[1] * wr.shape[2]
+                * wr.shape[3])
+        del want, y_plain
+
+        def library():
+            if transposed:
+                return F.conv_transpose2d(x, w, None, kw["stride"], kw["padding"],
+                                          kw["output_padding"], g, kw["dilation"])
+            return F.conv2d(x, w, None, kw["stride"], kw["padding"], kw["dilation"], g)
+
+        t = {"quant_ms": timed(quantised, flush, iters=5),
+             "conv_ms": timed(lambda: tq.int8_conv_acc(lowered(), wq, *conv_args), flush,
+                              iters=5),
+             "ms": timed(lambda: tq.int8_conv(x, w, None, **kw), flush, iters=5),
+             "library_ms": timed(library, flush, iters=5)}
+        if g == 1:
+            t["dequant_ms"] = timed(
+                lambda: (acc.float() * scale.view(1, -1, 1, 1)).to(dtype), flush, iters=5)
+        else:  # the kernel with the dequantisation fused, less the accumulator alone
+            fused = timed(lambda: tq.conv_dequant(xl, wq, scale, dtype, *conv_args),
+                          flush, iters=5)
+            t["dequant_ms"] = fused - t["conv_ms"]
+        plain_acc = timed(lambda: tq.int8_conv_acc_plain(lowered(), wq, *conv_args), flush,
+                          iters=3)
+        t["plain_ms"] = t["quant_ms"] + plain_acc + max(t["dequant_ms"], 0.0)
+        t["bytes_ms"] = (1e3 * x.element_size() * (x.numel() + w.numel() + y.numel())
+                         / HBM_BYTES_PER_S)
+        t["ops_ms"] = 1e3 * 2 * macs / INT8_PEAK_OPS
+        t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+        log(f"{desc}: quantise {t['quant_ms']:.4f} ms, accumulator {t['conv_ms']:.4f} ms, "
+            f"dequantise {t['dequant_ms']:.4f} ms, int8_conv {t['ms']:.4f} ms, plain (float64 "
+            f"accumulator) {t['plain_ms']:.4f} ms, cuDNN {dtype_name} conv "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes {t['bytes_ms']:.4f}, "
+            f"2·MACs = {2 * macs / 1e9:.2f} GOP at 1978.9 TOP/s {t['ops_ms']:.4f}); accumulator "
+            f"exact, {dtype_name} output bit-equal [{card}]")
+        for k in keys:
+            tot[path][k] += count * t[k]
+        del x, xq, xl, acc, y
+        torch.cuda.empty_cache()
+    del l2
+    torch.cuda.empty_cache()
+    for path, t in tot.items():
+        if not t["timed"]:
+            log(f"int8 conv {path}: {what} at batch {batch}, {dtype_name}: {t['convs']} convs, "
+                f"{t['shapes']} shapes, every accumulator exact and every output bit-equal "
+                f"[{card}]")
+            continue
+        log(f"int8 conv {path}: one forward of {what} at batch {batch}, {dtype_name} "
+            f"({t['convs']} convs, {t['shapes']} shapes): int8_conv {t['ms']:.3f} ms (quantise "
+            f"{t['quant_ms']:.3f}, accumulator {t['conv_ms']:.3f}, dequantise "
+            f"{t['dequant_ms']:.3f}), cuDNN {dtype_name} {t['library_ms']:.3f} ms, bound "
+            f"{t['bound_ms']:.3f} ms, plain {t['plain_ms']:.3f} ms; every accumulator exact "
+            f"[{card}]")
+    return tot
+
+
+@contextlib.contextmanager
+def plain_accumulator():
+    """Within the block ``int8_conv`` takes every accumulator from the
+    float64 plain version (on the card too) and dequantises it plainly:
+    the yardstick of a whole int8 forward."""
+    from cat_tpu_torch.ops import quant as tq
+
+    def dequant(xq, wq, scale, dtype, stride=1, padding=0, dilation=1, groups=1):
+        acc = tq.int8_conv_acc_plain(xq, wq, stride, padding, dilation, groups)
+        return (acc.float() * scale.view(1, -1, 1, 1)).to(dtype)
+
+    card = tq.conv_dequant
+    tq.conv_dequant = dequant
+    try:
+        yield
+    finally:
+        tq.conv_dequant = card
+
+
+def _rel_errs(got, ref):
+    """Each tap's relative L2 error against ``ref`` (both on one device)."""
+    return {k: float((got[k].float() - ref[k].float()).norm() / ref[k].float().norm())
+            for k in ref}
+
+
+def int8_verbs(dev, card, root, verb_b, n_convs):
+    """14 (b): phase 6 (b)'s run (bf16, the bank) with --teacher_compute_dtype
+    int8 and int8_static, 4 steps each: 8 bf16 TMA Gram launches a step and
+    the int8 paths launched; the step beside 6 (b)'s; the teacher's taps
+    against the bf16 teacher's on the run's batch, and bit-equal to the same
+    forward over the float64 plain accumulator (``plain_accumulator``); the
+    forward in float32 on the card held against the CPU's (the plain
+    accumulator) on the run's first INT8_CPU_IMAGES images, with the run's
+    weights and scales: the first tap within INT8_CPU_TOL, the later ones
+    within 0.25; int8_static's scales one per teacher conv; the Gram held
+    against its plain version on the int8 run's own taps."""
+    import copy
+
+    import torch
+    from torch.func import functional_call
+
+    from cat_tpu_torch.ops import quant as tq
+    from cat_tpu_torch.train.common import cast_floats
+
+    l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    out, kern = {}, None
+    for mode in ("int8", "int8_static"):
+        tq.launches.update(dict.fromkeys(tq.launches, 0))
+        res, run, x = run_verb(root, f"14b_{mode}", ["--compute_dtype", "bfloat16",
+                                                    "--on_device_data", "1",
+                                                    "--teacher_compute_dtype", mode],
+                               "tma", dev, card, epochs=INT8_EPOCHS)
+        launches = dict(tq.launches)
+        if not (launches["intmm"] and launches["grouped"]):
+            fail(f"14 (b) {mode}: the int8 paths were not both launched: {launches}")
+        dist = run.distiller
+        scales = dist._act_scales
+        params = cast_floats(dict(dist.netG_teacher.named_parameters()), torch.bfloat16)
+        xb = x.to(torch.bfloat16)
+        (_, ref), _ = tq.teacher_forward(dist._teacher_fn, params, xb, "", None)
+        (_, got), _ = tq.teacher_forward(dist._teacher_fn, params, xb, mode, scales)
+        rel = _rel_errs(got, ref)
+        if not all(r < 0.25 for r in rel.values()):
+            fail(f"14 (b) {mode}: the int8 teacher's taps are far from the bf16 teacher's: {rel}")
+        # the same forward with every accumulator taken from the float64
+        # plain version on the card: the rest of the forward is the same
+        # code on the same device, so an exact accumulator gives equal bits
+        with plain_accumulator():
+            (_, plain), _ = tq.teacher_forward(dist._teacher_fn, params, xb, mode, scales)
+        unequal = [k for k in plain if not torch.equal(got[k], plain[k])]
+        if unequal:
+            fail(f"14 (b) {mode}: the int8 teacher's taps {unequal} differ from those of the "
+                 f"same forward over the float64 plain accumulator: {_rel_errs(got, plain)}")
+        # the card's forward against the CPU's, in float32: the norms sum in
+        # another order, an int8 value that this moves across a rounding
+        # boundary changes its conv's outputs by a level's share, and those
+        # move later boundaries in turn, so only the first tap is held tight
+        cpu_net = copy.deepcopy(dist.netG_teacher).cpu().float()
+        tap_names = dist.hp.mapping_layers
+
+        def cpu_fn(p, xc):
+            return functional_call(cpu_net, p, (xc,), {"train": False, "taps": tap_names})
+
+        xs = x[:INT8_CPU_IMAGES].float()
+        t0 = time.perf_counter()
+        (_, cpu_taps), _ = tq.teacher_forward(cpu_fn, dict(cpu_net.named_parameters()),
+                                              xs.cpu(), mode, scales)
+        cpu_s = time.perf_counter() - t0
+        (_, card_taps), _ = tq.teacher_forward(
+            dist._teacher_fn, cast_floats(dict(dist.netG_teacher.named_parameters()),
+                                          torch.float32), xs, mode, scales)
+        cpu_rel = _rel_errs({k: v.cpu() for k, v in card_taps.items()}, cpu_taps)
+        bounds = {k: INT8_CPU_TOL if k == tap_names[0] else 0.25 for k in cpu_rel}
+        if not all(cpu_rel[k] <= bounds[k] for k in cpu_rel):
+            fail(f"14 (b) {mode}: the card's float32 int8 teacher against the CPU's on "
+                 f"{INT8_CPU_IMAGES} images: relative L2 errors {cpu_rel}, bounds {bounds}")
+        n_scales = None
+        if mode == "int8_static":
+            n_scales = len(scales)
+            if n_scales != n_convs:
+                fail(f"14 (b): {n_scales} calibrated scales, the teacher runs {n_convs} convs")
+        res.update(mode=mode, int8_launches=launches, taps_rel_err=rel, scales=n_scales,
+                   cpu_rel_err=cpu_rel, step_ms_6b=verb_b["step_ms_median"])
+        log(f"14 (b) {mode}: median step {res['step_ms_median']:.1f} ms against 6 (b)'s bf16 "
+            f"teacher {verb_b['step_ms_median']:.1f} ms; int8 launches {launches} in "
+            f"{res['steps']} steps; the teacher's taps against the bf16 teacher's on the same "
+            f"batch, relative L2 error {rel}; bit-equal to the same forward over the float64 "
+            f"plain accumulator; in float32 on {INT8_CPU_IMAGES} of its images, the card's "
+            f"taps against the CPU's, relative L2 error {cpu_rel} (bounds {bounds}; CPU "
+            f"forward {cpu_s:.1f} s); scales {n_scales} (teacher convs {n_convs}) [{card}]")
+        if mode == "int8":
+            with torch.no_grad():
+                taps = [got["encode"].reshape(xb.shape[0], -1).contiguous(),
+                        dist.netG_student(x, taps=("encode",))[1]["encode"]
+                        .reshape(x.shape[0], -1).to(torch.bfloat16).contiguous()]
+            kern = gram_numbers(taps, l2.zero_, card, "tma")
+            del taps
+        out[mode] = res
+        del run, dist, params, ref, got, plain, cpu_net, cpu_taps, card_taps
+        torch.cuda.empty_cache()
+    del l2
+    return out, kern
+
+
+def gaugan_teacher_convs(dev, card, dist):
+    """14 (c): every distinct conv of the distiller's GauGAN teacher
+    (packed branches, depthwise convs at SPADE widths, groups-1 convs at
+    512x256) held on the card at the recipe's batch in its float32
+    (``int8_conv_numbers``: accumulators exact, the fused float32 store and
+    the plain dequantisation bit-equal), its grouped convs timed; their
+    count equal to the calibrated scales'."""
+    import torch
+
+    from cat_tpu_torch.train.common import cast_floats
+
+    cfg = dist.netG_teacher.cfg
+    sh, sw = cfg.latent_size()
+    up = 2 ** {"normal": 5, "more": 6, "most": 7}[cfg.num_upsampling_layers]
+    params = cast_floats(dict(dist.netG_teacher.named_parameters()), dist.cdt)
+    sem = torch.zeros(1, cfg.semantic_nc, sh * up, sw * up, device=dev, dtype=dist.cdt)
+    convs, n_convs = record_convs(dist._teacher_fn, params, sem)
+    if dist._act_scales is not None and n_convs != len(dist._act_scales):
+        fail(f"14 (c): the GauGAN teacher runs {n_convs} convs, {len(dist._act_scales)} "
+             "calibrated scales")
+    log(f"14 (c): the GauGAN teacher runs {n_convs} convs, {len(convs)} distinct, over "
+        f"{sh * up}x{sw * up} semantics")
+    tot = int8_conv_numbers(dev, card, convs, GAUGAN_BATCH, str(dist.cdt).split(".")[1],
+                            ("grouped",), "the GauGAN teacher")
+    return tot, n_convs
+
+
+def int8_gaugan(dev, card, root, judge, stats, spade_b):
+    """14 (c): the 5p6B GauGAN student recipe (10b's flags, 9c's teacher)
+    with --teacher_compute_dtype int8_static for its first epoch (3 steps,
+    no evaluations): median step beside 10b's, peak memory, 6 f32tma Gram
+    launches a step, the int8 paths launched, the calibrated scales; then
+    the teacher's convs on the card (``gaugan_teacher_convs``)."""
+    from cat_tpu_torch import entry
+    from cat_tpu_torch.distill import ka
+    from cat_tpu_torch.ops import quant as tq
+
+    ka.launches = 0
+    ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
+    tq.launches.update(dict.fromkeys(tq.launches, 0))
+    log_dir = os.path.join(root, "log_14c")
+    out, run = _instrumented_run(
+        "setup_distill", entry.distill_main,
+        [*gaugan_student_argv(root, judge, stats, log_dir), "--no_fid", "--drn_path",
+         os.path.join(root, "absent.pth"), "--nepochs", "1", "--teacher_compute_dtype",
+         "int8_static", *(["--remat", "1"] if spade_b["remat"] else [])],
+        REMAT_STEPS, GAUGAN_BATCH, "14c GauGAN student, int8_static teacher", card)
+    launches = dict(tq.launches)
+    if ka.path_launches["f32tma"] != 6 * REMAT_STEPS or ka.launches != 6 * REMAT_STEPS:
+        fail(f"14 (c): {ka.path_launches['f32tma']} f32tma Gram launches in {REMAT_STEPS} "
+             "steps; expected 6 a step")
+    if not (launches["intmm"] and launches["grouped"]) or not run.distiller._act_scales:
+        fail(f"14 (c): int8 launches {launches}, scales {run.distiller._act_scales}")
+    out.update(gram_launches=ka.launches, int8_launches=launches,
+               scales=len(run.distiller._act_scales), step_ms_10b=spade_b["step_ms_median"])
+    log(f"14 (c): median step {out['step_ms_median']:.1f} ms against 10b's float32 teacher "
+        f"{spade_b['step_ms_median']:.1f} ms, peak memory {out['peak_memory_gib']:.2f} GiB "
+        f"(10b {spade_b['peak_memory_gib']:.2f}); {ka.launches} f32tma Gram launches; int8 "
+        f"launches {launches}; {out['scales']} calibrated scales [{card}]")
+    out["convs"], _ = gaugan_teacher_convs(dev, card, run.distiller)
+    return out
+
+
+def unet_distill(dev, card):
+    """14 (d): GenericDistiller at tools/bench_unet_distill.py's
+    configuration (teacher base 64 -> student base 32, mults 1, 2, 4, two res
+    blocks, 256 px, batch 32, bf16, KA on down1, mid and up1, l2
+    reconstruction, λ 1 and 1; seeded random weights and inputs): 1 warm-up
+    and 3 timed steps, peak memory, 6 bf16 TMA Gram launches a step, and the
+    Gram held against its plain version on the run's own six taps."""
+    import numpy as np
+    import torch
+
+    from cat_tpu_torch.distill import ka
+    from cat_tpu_torch.distill.generic import GenericDistillHParams, GenericDistiller
+    from cat_tpu_torch.models.unet import UNet, UNetConfig
+    from cat_tpu_torch.train.common import cast_floats
+
+    torch.manual_seed(0)
+    t_cfg = UNetConfig(base=64, mults=(1, 2, 4), res_blocks=2)
+    s_cfg = UNetConfig(base=32, mults=(1, 2, 4), res_blocks=2)
+    taps = ("down1", "mid", "up1")
+    hp = GenericDistillHParams(distill_loss_type="ka", recon_loss_type="l2", lambda_recon=1.0,
+                               lambda_distill=1.0, mapping_layers=taps,
+                               compute_dtype="bfloat16")
+    dist = GenericDistiller(UNet(t_cfg), UNet(s_cfg), t_cfg.tap_widths, s_cfg.tap_widths, hp,
+                            device=dev)
+    state, tparams = dist.init_state(seed=0)
+    x = torch.randn(UNET_BATCH, 3, SIZE, SIZE, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    ka.launches = 0
+    ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(UNET_STEPS):
+        t0 = time.perf_counter()
+        state, m = dist.train_step(state, tparams, (x,), 1e-4)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append({k: float(v) for k, v in m.items()})
+    mem = torch.cuda.max_memory_allocated()
+    if (ka.launches != 6 * UNET_STEPS or ka.path_launches["tma"] != ka.launches
+            or not all(math.isfinite(v) for r in losses for v in r.values())):
+        fail(f"14 (d) UNet: Gram launches {ka.launches} ({ka.path_launches['tma']} tma) in "
+             f"{UNET_STEPS} steps, expected 6 a step; losses {losses}")
+    step_ms = 1e3 * float(np.median(times[1:]))
+    out = {"steps": UNET_STEPS, "step_ms": [round(1e3 * t, 1) for t in times],
+           "step_ms_median": step_ms, "images_per_s": UNET_BATCH / (step_ms / 1e3),
+           "peak_memory_gib": mem / 2 ** 30, "gram_launches": ka.launches,
+           "last_losses": losses[-1]}
+    log(f"14 (d) UNet GenericDistiller: median step {step_ms:.1f} ms over steps 2-{UNET_STEPS} "
+        f"({out['images_per_s']:.1f} images/s; warm-up {1e3 * times[0]:.0f} ms), peak memory "
+        f"{mem / 2**30:.2f} GiB, {ka.launches} Gram launches (tma), losses {losses[-1]} [{card}]")
+    l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    with torch.no_grad():
+        xb = x.to(torch.bfloat16)
+        ops = [acts[name].reshape(UNET_BATCH, -1).contiguous()
+               for net, p in ((dist.teacher, tparams), (dist.student, state.params))
+               for acts in [torch.func.functional_call(
+                   net, cast_floats(p, torch.bfloat16), (xb,), {"taps": taps})[1]]
+               for name in taps]
+    names = [f"{who} {name}" for who in ("teacher", "student") for name in taps]
+    kern = gram_numbers(ops, l2.zero_, card, "tma", names=names, per_step=1)
+    kern["b"], kern["f"] = UNET_BATCH, [o.shape[1] for o in ops]
+    del ops, l2, dist, state, tparams, x
+    torch.cuda.empty_cache()
+    return out, kern
+
+
+def deeplab(dev, card):
+    """14 (e): DeepLabV2 in ResNet-101 DeepLab v2's published layout
+    (n_blocks 3, 4, 23, 3; atrous rates 6, 12, 18, 24; 182 classes) under
+    MSC, seeded random weights and batch-norm statistics, on one 513 x 513
+    image: the card's logits against the CPU's (float32, TF32 off; within
+    1e-4 of the largest |logit|), and the card's milliseconds an image."""
+    import torch
+
+    from cat_tpu_torch.metrics import MSC, DeepLabV2
+
+    torch.manual_seed(0)
+    msc = MSC(DeepLabV2(182, (3, 4, 23, 3), (6, 12, 18, 24))).eval()
+    g = torch.Generator().manual_seed(2)
+    with torch.no_grad():
+        for m in msc.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+                m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
+    x = torch.randn(1, 3, DEEPLAB_HW, DEEPLAB_HW, generator=g)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = msc(x)
+    cpu_s = time.perf_counter() - t0
+    msc = msc.to(dev)
+    xd = x.to(dev)
+    with torch.no_grad():
+        got = msc(xd).cpu()
+        l2 = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+        ms = timed(lambda: msc(xd), l2.zero_, iters=5)
+    del l2
+    scale = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    if got.shape != ref.shape or not torch.isfinite(got).all() or not err <= 1e-4 * scale:
+        fail(f"14 (e) DeepLabV2/MSC: card against CPU, shape {tuple(got.shape)} "
+             f"{tuple(ref.shape)}, max |err| {err:.3g} past 1e-4 of {scale:.3g}")
+    log(f"14 (e) DeepLabV2 (ResNet-101 layout, 182 classes) under MSC on one {DEEPLAB_HW}^2 "
+        f"image: logits {tuple(got.shape)}, card against CPU max |err| {err:.3g} (bound 1e-4 "
+        f"of {scale:.3g}); {ms:.2f} ms an image on the card (the CPU {1e3 * cpu_s:.0f} ms) "
+        f"[{card}]")
+    return {"ms_per_image": ms, "max_abs_err": err, "max_abs_logit": scale,
+            "cpu_ms": 1e3 * cpu_s, "logits": list(got.shape)}
+
+
+def int8_unet_deeplab(dev, card, root, judge, stats, teacher_cfg, teacher_sd, verb_b, spade_b):
+    """Phase 14: (a) the int8 conv at the flagship teacher's shapes, (b) the
+    distill verb with the int8 teachers, (c) the GauGAN student recipe with
+    int8_static and its teacher's convs, (d) the UNet, (e) DeepLab v2."""
+    t_phase = time.perf_counter()
+    convs, n_convs = teacher_convs(dev, teacher_cfg, teacher_sd)
+    log(f"14 (a): the flagship teacher runs {n_convs} convs, {len(convs)} distinct")
+    a = int8_conv_numbers(dev, card, convs)
+    b, b_kern = int8_verbs(dev, card, root, verb_b, n_convs)
+    c = int8_gaugan(dev, card, root, judge, stats, spade_b)
+    d, d_kern = unet_distill(dev, card)
+    e = deeplab(dev, card)
+    return {"a": a, "b": b, "c": c, "d": d, "e": e, "b_kern": b_kern, "d_kern": d_kern,
+            "teacher_convs": n_convs, "seconds": time.perf_counter() - t_phase}
+
+
 _KERNEL_GROUPS = (  # (group, substrings of the lower-cased kernel name), first match wins
     ("gram (csrc/gram.cu)", ("gram_partial", "gram_reduce")),
     ("instance_norm_act (csrc/instance_norm.cu)", ("inorm_act",)),
@@ -3568,9 +4101,9 @@ def main() -> None:
 
     # --- 2. kernels
     t0 = time.perf_counter()
-    cuda_build.build_all(["gram", "instance_norm"])
+    cuda_build.build_all(["gram", "instance_norm", "int8_conv"])
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc, in parallel)")
-    for name in ("gram", "instance_norm"):
+    for name in ("gram", "instance_norm", "int8_conv"):
         with open(f"{cuda_build._lib_path(name)}.log") as f:
             for line in f:
                 if "registers" in line or "spill" in line:
@@ -3706,6 +4239,12 @@ def main() -> None:
         for part in "bd":
             log(f"spatial 13 ({part}): " + json.dumps({**sp[part], "ranks": [
                 {k: v for k, v in rk.items() if k != "kern"} for rk in sp[part]["ranks"]]}))
+
+        # --- 14. the int8 teacher (its convs at the flagship teacher's
+        # shapes, the distill verb, the GauGAN recipe), the UNet, DeepLab v2
+        q = int8_unet_deeplab(dev, card, root, judge, stats, teacher_cfg, teacher_sd, verb[1],
+                              spade_b)
+        log("int8: " + json.dumps({k: v for k, v in q.items() if not k.endswith("kern")}))
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3794,6 +4333,46 @@ def main() -> None:
                         f"one call at each of the flagship's six ConvNormAct shapes cut in two "
                         f"heights, batch {BATCH}, bf16; launches: phase 13 (a)'s fused tiny "
                         f"distiller over two spatial ranks, 2 steps"))
+    # phase 14: the Gram on the int8 teacher's and the UNet's taps, and the
+    # int8 conv's two paths (not TPU kernels: XLA's conv in the JAX package)
+    b8 = q["b"]["int8"]
+    rows.append({**row("gram (int8 teacher, distill verb, bf16)", *gram_src, b8["gram_launches"],
+                       q["b_kern"], f"one training step's launches at batch {VERB_BATCH}, bf16, "
+                       f"on the int8 run's own taps (tma kernel; phase 14 (b)'s {b8['steps']} "
+                       f"steps; 14 (c)'s GauGAN run: {q['c']['gram_launches']} f32tma launches "
+                       f"in {q['c']['steps']} steps)"),
+                 "bound_full_square_ms": q["b_kern"]["bound_full_square_ms"]})
+    d_k = q["d_kern"]
+    rows.append({**row("gram (UNet GenericDistiller, bf16, B = 32)", *gram_src,
+                       q["d"]["gram_launches"], d_k,
+                       f"one training step's launches at batch {UNET_BATCH}, bf16, on the run's "
+                       f"own taps down1, mid, up1 of teacher and student, F = {d_k['f']} (tma "
+                       f"kernel; phase 14 (d)'s {q['d']['steps']} steps)"),
+                 "bound_full_square_ms": d_k["bound_full_square_ms"]})
+    for path, name, src in (("intmm", "int8_conv (im2col + torch._int_mm, groups 1)",
+                             "cat_tpu_torch/ops/quant.py"),
+                            ("grouped", "int8_conv (direct kernel, groups > 1)",
+                             "cat_tpu_torch/csrc/int8_conv.cu")):
+        k = q["a"][path]
+        rows.append({**row(name, src, "not a TPU kernel: cat_tpu/ops/quant.py:85 hands the "
+                           "int8 conv to XLA", b8["int8_launches"][path], k,
+                           f"the {k['convs']} {path} convs of one flagship teacher forward at "
+                           f"batch {VERB_BATCH}, bf16 ({k['shapes']} shapes, phase 14 (a)), "
+                           f"quantisation and dequantisation included; library_ms: cuDNN's bf16 "
+                           f"conv of the same shapes; launches: phase 14 (b)'s int8 run, "
+                           f"{b8['steps']} steps"),
+                     **{key: k[key] for key in ("quant_ms", "conv_ms", "dequant_ms")}})
+    k, c = q["c"]["convs"]["grouped"], q["c"]
+    rows.append({**row("int8_conv (direct kernel, groups > 1, float32 store)",
+                       "cat_tpu_torch/csrc/int8_conv.cu", "not a TPU kernel: "
+                       "cat_tpu/ops/quant.py:85 hands the int8 conv to XLA",
+                       c["int8_launches"]["grouped"], k,
+                       f"the {k['convs']} grouped convs of one GauGAN teacher forward at batch "
+                       f"{GAUGAN_BATCH}, 512x256, float32 ({k['shapes']} shapes, phase 14 (c)), "
+                       f"quantisation and dequantisation included; library_ms: cuDNN's float32 "
+                       f"conv (TF32 off) of the same shapes; launches: phase 14 (c)'s run, "
+                       f"{c['steps']} steps, the first one's teacher forward calibrating"),
+                 **{key: k[key] for key in ("quant_ms", "conv_ms", "dequant_ms")}})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

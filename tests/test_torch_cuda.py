@@ -273,3 +273,67 @@ def test_device_bank_samples_the_same_patches_on_the_card(cuda, rng):
 
     assert torch.equal(pixels(got), pixels(ref))
     assert float((got - ref).abs().max()) <= 2 ** -23
+
+
+# ---------------------------------------------------------------------------
+# The int8 convolutions (ops/quant.py)
+# ---------------------------------------------------------------------------
+
+INT8_CONVS = {  # (n, cin, cout, h, w, k, stride, pad, dilation, groups)
+    "dense": (2, 16, 24, 19, 21, 3, 1, 1, 1, 1),
+    "strided": (2, 16, 24, 19, 21, 3, 2, 1, 1, 1),
+    "stem": (3, 3, 13, 33, 31, 7, 1, 3, 1, 1),  # K = 147, N = 13: both padded to 8
+    "dilated": (1, 8, 16, 17, 17, 3, 1, 2, 2, 1),
+    "depthwise_k5": (2, 40, 40, 17, 19, 5, 1, 2, 1, 40),
+    "grouped": (2, 16, 32, 15, 13, 3, 2, 1, 1, 4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(INT8_CONVS))
+def test_int8_conv_accumulator_is_exact_on_the_card(cuda, rng, kind):
+    """The card's int32 accumulator (im2col + torch._int_mm for groups 1,
+    csrc/int8_conv.cu otherwise; one launch of the path counted) equals the
+    float64 plain version bit for bit, chunked im2col included; the grouped
+    kernel's fused dequantisation equals acc · scale cast to float32 and to
+    bf16, bit for bit."""
+    from cat_tpu_torch.ops import quant as tq
+
+    n, cin, cout, h, w, k, s, p, d, g = INT8_CONVS[kind]
+    xq = torch.from_numpy(rng.randint(-127, 128, (n, cin, h, w)).astype(np.int8))
+    wq = torch.from_numpy(rng.randint(-127, 128, (cout, cin // g, k, k)).astype(np.int8))
+    want = tq.int8_conv_acc_plain(xq, wq, s, p, d, g)
+    before = dict(tq.launches)
+    got = tq.int8_conv_acc(xq.to(cuda), wq.to(cuda), s, p, d, g)
+    torch.cuda.synchronize()
+    path = "intmm" if g == 1 else "grouped"
+    assert tq.launches[path] == before[path] + 1
+    assert torch.equal(got.cpu(), want)
+    if g == 1:
+        rows = want.shape[2] * want.shape[3]
+        chunked = tq.im2col_acc(xq.to(cuda), wq.to(cuda), s, p, d,
+                                max_bytes=rows * 8 * -(-cin * k * k // 8))
+        assert torch.equal(chunked.cpu(), want)
+    else:
+        scale = torch.from_numpy(rng.uniform(1e-5, 1e-3, cout).astype(np.float32))
+        for dtype in (torch.float32, torch.bfloat16):
+            fused = tq.conv_dequant(xq.to(cuda), wq.to(cuda), scale.to(cuda), dtype, s, p, d, g)
+            ref = (want.float() * scale.view(1, -1, 1, 1)).to(dtype)
+            assert torch.equal(fused.cpu(), ref), dtype
+
+
+@pytest.mark.cuda
+def test_int8_conv_raises_instead_of_falling_back(cuda):
+    """A grouped conv the kernel cannot take, or an output dtype its store
+    does not write, raises; nothing falls back to a float conv or to a
+    plain dequantisation."""
+    from cat_tpu_torch.ops import quant as tq
+
+    x = torch.zeros(1, 4, 8, 8, dtype=torch.int8, device=cuda)
+    w = torch.zeros(6, 2, 3, 3, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        tq.grouped_conv_cuda(x, w, None, torch.int32, groups=3)
+    with pytest.raises(ValueError):
+        tq.grouped_conv_cuda(x.float(), w, None, torch.int32, groups=2)
+    with pytest.raises(ValueError):
+        tq.conv_dequant(x, w, torch.ones(6, device=cuda), torch.float16, groups=2)

@@ -180,11 +180,23 @@ def test_profile_verb_spade_times_counts_and_evaluates(spade_teacher, tmp_path):
     assert shrunk["metrics"] == {}
 
 
-def test_distill_verb_spade_refuses_int8_teacher(spade_teacher, tmp_path):
-    """The int8 teacher raises naming its item."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 18b"):
-        entry.distill_main([*spade_teacher["flags"], "--log_dir", str(tmp_path),
-                            "--teacher_compute_dtype", "int8"], device="cpu")
+@pytest.mark.parametrize("mode", ["int8", "int8_static"])
+def test_distill_verb_spade_int8_teacher(spade_teacher, tmp_path, mode):
+    """The int8 teacher (refused until the int8 convolutions were ported,
+    ``ops/quant.py``) runs through the verb: the run checks of
+    ``check_spade_distill_run`` hold, the losses are the float teacher's
+    run's keys, finite, step 1's distill loss within 2% of the float run's
+    and not equal to it; int8_static keeps the scales of one calibration."""
+    ref_run, _ = spade_distill_run(spade_teacher, tmp_path / "float", "--nepochs", "1")
+    run, calls = spade_distill_run(spade_teacher, tmp_path / mode, "--nepochs", "1",
+                                   "--teacher_compute_dtype", mode)
+    check_spade_distill_run(spade_teacher, str(tmp_path / mode), run, calls)
+    ref, got = _scalars(tmp_path / "float"), _scalars(tmp_path / mode)
+    assert [r.keys() for r in got] == [r.keys() for r in ref]
+    assert all(np.isfinite(v) for r in got for v in r.values())
+    np.testing.assert_allclose(got[0]["G_loss/distill"], ref[0]["G_loss/distill"], rtol=2e-2)
+    assert got[0]["G_loss/distill"] != ref[0]["G_loss/distill"]
+    assert (run.distiller._act_scales is None) == (mode == "int8")
 
 
 def _scalars(log_dir):

@@ -217,12 +217,23 @@ def test_bf16_step_keeps_float32_masters(rng):
     assert all(p.dtype == torch.float32 for p in state.d.params.values())
 
 
-@pytest.mark.parametrize("kw", [{"teacher_compute_dtype": "int8"},
-                                {"teacher_compute_dtype": "int8_static"}])
-def test_unported_hyperparameters_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.mark.parametrize("mode", ["int8", "int8_static"])
+def test_int8_teacher_hyperparameters_build_and_check(rng, mode):
+    """The int8 teachers (refused until the int8 convolutions were ported):
+    the distiller builds and steps; int8_static calibrates on its first
+    batch, int8 keeps no scales; an unknown teacher dtype raises."""
+    hp = DistillHParams(mapping_layers=("encode",), teacher_compute_dtype=mode)
+    td = InceptionDistiller(to_port(_gen_cfg(8)), to_port(_gen_cfg(4)), hp=hp, device="cpu")
+    state, tparams = td.init_state(InceptionGenerator(
+        to_port(_gen_cfg(8)), packed_blocks=True,
+        generator=torch.Generator().manual_seed(1)).state_dict())
+    x = torch.from_numpy(rng.randn(2, 3, SIZE, SIZE).astype(np.float32))
+    state, m = td.train_step(state, tparams, {"A": x, "B": x.flip(0)}, LR)
+    assert all(bool(torch.isfinite(v)) for v in m.values())
+    assert (td._act_scales is None) == (mode == "int8")
+    with pytest.raises(ValueError, match="teacher_compute_dtype"):
         InceptionDistiller(to_port(_gen_cfg(8)), to_port(_gen_cfg(4)),
-                           hp=DistillHParams(**kw), device="cpu")
+                           hp=DistillHParams(teacher_compute_dtype="int4"), device="cpu")
 
 
 def test_entry_point_needs_cuda_unless_cpu_is_asked_for():

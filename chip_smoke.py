@@ -21,10 +21,17 @@ Phases, in order; any failure exits non-zero before the result line:
      blocks): at B = 256 on the teacher's and the student's tap, checked
      (one launch, G == Gᵀ exactly, two calls bit-identical, the plain
      version's result), the teacher's timed; at B = 300 (a ragged last
-     block) in place and on a padded copy (F % 8 != 0), checked only;
+     block) in place and on a padded copy (F % 8 != 0), checked only.  The
+     instance norm at the six ConvNormAct sites of both nets (batch 128, bf16
+     and f32): the forward on its planned path (one CTA or a cluster) and
+     forced onto the two-pass loop, and the backward kernel against its
+     plain twin (two calls bit-identical), timed beside their bounds, the
+     plain versions and ``F.instance_norm``'s forward and backward; a 255²
+     plane checks the two-pass path both ways;
   3. reference: one float32 KA-distillation step at a tiny size on the card
      (kernels) and on the CPU (plain versions), losses compared, at batch 2
-     and at batch 130 (4 launches of the float32 pair kernel);
+     and at batch 130 (4 launches of the float32 pair kernel; 42 forward and
+     21 backward launches of the norm kernel, its blocks unpacked);
   4. flagship: the horse2zebra KA-distillation step of ``bench.py`` (teacher
      ngf 64 / r6 / kernels 1,3,5; student shrunk to 2.6e9 MACs; 256 px;
      unaligned lsgan + KA over encode, block2, block5, block8; bf16 compute,
@@ -33,8 +40,10 @@ Phases, in order; any failure exits non-zero before the result line:
      batch 256, 1 warm-up + 1 timed step, the bf16 pair kernel launched 8
      times per step; 4c: 4b in float32 (TF32 off), the float32 pair kernel
      launched 8 times per step;
-  5. fused norms: the same step with ``fused_norms=True`` for 2 steps, the
-     norm kernel launched once per ConvNormAct (6 per step);
+  5. fused norms: the same step with ``fused_norms=True``, 1 warm-up + 3
+     timed steps, their median beside phase 4's, one profiled step; the norm
+     kernel launched once per ConvNormAct (6 per step) and its backward once
+     per student ConvNormAct (3 per step);
   6. distill verb: ``entry.distill_main`` with the flags of
      ``scripts/cycle_gan/horse2zebra/train_inception_student_2p6B.sh`` (batch
      80, 2.6e9-MAC student, KA, lsgan, pretrained-G transfer and D restore)
@@ -118,9 +127,11 @@ Phases, in order; any failure exits non-zero before the result line:
      against its plain version and timed on the run's own six taps at
      B = 16; (b) again with ``--packed_blocks 0`` and no evaluations, its
      median step beside the packed one's; (d) the recipe's first epoch (3
-     steps, no evaluations) with ``--remat 1``, without and with
-     ``--remat_policy dots_saveable``: median step, peak memory, 6 ``f32tma``
-     launches a step, each step's losses within 10a's bound of (b)'s; (c) the
+     steps, no evaluations, deterministic cuDNN) without ``--remat``, then
+     with ``--remat 1``, without and with ``--remat_policy dots_saveable``:
+     median step, peak memory, 6 ``f32tma`` launches a step, each remat
+     run's losses within 10a's bound of the run without's (10b's own gap
+     to that run, under cuDNN's default algorithms, printed); (c) the
      profile verb with ``evaluate_inception_student_5p6B.sh``'s flags on (b)'s
      best student, and ``--prune_only`` at 3e10 MACs;
  11. export: the export verb with the flags of
@@ -224,6 +235,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -232,7 +244,6 @@ import time
 BATCH = 128  # bench.py's batch
 SIZE = 256
 TIMED_STEPS = 3
-FUSED_STEPS = 2
 LR = 2e-4
 VERB_BATCH = 80  # the student recipe's batch
 VERB_IMAGES = 160  # per side: 2 steps per epoch
@@ -428,6 +439,176 @@ def gram_pairs_numbers(x, flush, card, time_it=True):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "err": err}
 
 
+def _norm_tol(dtype):
+    """f32: statistics summed in another order; bf16: one unit in the last
+    place (relative 2^-7)."""
+    import torch
+
+    return (1e-5, 1e-4) if dtype == torch.float32 else (2 ** -7, 1e-2)
+
+
+def _check_close(got, ref, what):
+    """Max |got - ref|; fails beyond the dtype's rtol plus atol."""
+    import torch
+
+    torch.cuda.synchronize()
+    rtol, atol = _norm_tol(ref.dtype)
+    diff = (got.float() - ref.float()).abs()
+    excess = float((diff - rtol * ref.float().abs()).max())
+    if not excess <= atol or not torch.isfinite(got).all():
+        fail(f"{what}: error beyond rtol {rtol:g} by {excess:g} > {atol:g}")
+    return float(diff.max())
+
+
+def _check_norm(x, scale, bias, act, path, plan=None):
+    """The forward kernel on ``plan`` (default: its own) against the plain
+    version; returns max |err|."""
+    from cat_tpu_torch.ops import instance_norm as inorm
+
+    got = inorm.forward_cuda(x, scale, bias, 1e-5, act, plan)[0]
+    ref = inorm.instance_norm_act_plain(x, scale, bias, 1e-5, act)
+    return _check_close(got, ref, f"instance_norm_act {act} {path} {x.dtype} {tuple(x.shape)}")
+
+
+def _check_norm_bwd(x, g, scale, bias, path, plan=None):
+    """The backward kernel (relu) against its plain twin, both on the
+    forward kernel's mean and rstd (relu's mask flips where z is within a
+    rounding of 0, so the twin takes the same statistics): dx within the
+    forward's tolerance; dscale and dbias, sums of N·H·W float32 terms in
+    another order, within 1e-5 of the sum of the terms' magnitudes; two
+    calls bit-identical.  Returns (max |err| of dx, the outputs)."""
+    import torch
+
+    from cat_tpu_torch.ops import instance_norm as inorm
+
+    _, mean, rstd = inorm.forward_cuda(x, scale, bias)
+    got = inorm.instance_norm_act_backward_cuda(x, g, mean, rstd, scale, bias, "relu", plan)
+    again = inorm.instance_norm_act_backward_cuda(x, g, mean, rstd, scale, bias, "relu", plan)
+    ref = inorm.instance_norm_act_backward_plain(x, g, scale, bias, 1e-5, "relu", (mean, rstd))
+    what = f"instance_norm_act backward {path} {x.dtype} {tuple(x.shape)}"
+    err = _check_close(got[0], ref[0], what + " dx")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{what}: two calls differ")
+    xh = (x.float() - mean.reshape(*x.shape[:2], 1, 1)) * rstd.reshape(*x.shape[:2], 1, 1)
+    gp = g.float() * inorm._act_grad(xh * scale[:, None, None] + bias[:, None, None], "relu")
+    for name, k, terms in (("dscale", 1, gp * xh), ("dbias", 2, gp)):
+        tol = 1e-5 * terms.abs().sum(dim=(0, 2, 3)) + 1e-6
+        gap = (got[k] - ref[k]).abs()
+        if not bool((gap <= tol).all()):
+            fail(f"{what} {name}: max |err| {float(gap.max()):g}, beyond 1e-5 of the terms' "
+                 f"magnitudes")
+    del xh, gp
+    return err, got
+
+
+def norm_numbers(planes, dtype, gen, flush, card):
+    """The forward kernel at each (C, H = W) of ``planes`` (batch BATCH),
+    relu and leaky relu, on its planned path against the plain version,
+    and relu on the two-pass loop too; times kernel, two-pass loop, plain
+    version, ``F.instance_norm`` (norm + affine, no ReLU: less work) and the
+    bound (one read and one write); returns the totals of one step (each
+    site once)."""
+    import torch
+
+    from cat_tpu_torch.ops import instance_norm as inorm
+
+    dev = torch.device("cuda")
+    dname = str(dtype).split(".")[-1]
+    tot = {"ms": 0.0, "two_pass_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "err": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "paths": {}}
+    for c, hw in planes:
+        x = (torch.randn(BATCH, c, hw, hw, generator=gen, device=dev) * 3 + 1).to(dtype)
+        scale = torch.rand(c, generator=gen, device=dev) + 0.5
+        bias = torch.randn(c, generator=gen, device=dev)
+        plan = inorm.norm_plan(hw * hw, x.element_size())
+        err = max(_check_norm(x, scale, bias, act, plan.path) for act in ("relu", "leaky_relu"))
+        err2 = _check_norm(x, scale, bias, "relu", "two_pass", inorm.TWO_PASS)
+        # in turns: kernel, two-pass, plain, library
+        ms = timed(lambda: inorm.forward_cuda(x, scale, bias), flush=flush)
+        two = timed(lambda: inorm.forward_cuda(x, scale, bias, plan=inorm.TWO_PASS), flush=flush)
+        plain = timed(lambda: inorm.instance_norm_act_plain(x, scale, bias), flush=flush)
+        lib = timed(lambda: torch.nn.functional.instance_norm(x, weight=scale, bias=bias,
+                                                              eps=1e-5), flush=flush)
+        # one read and one write; ~10 flops per element on CUDA cores
+        bytes_ms = 1e3 * 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S
+        ops_ms = 1e3 * 10 * x.numel() / PEAK_FLOPS["float32"]
+        bound = max(bytes_ms, ops_ms)
+        where = f"{plan.path} k={plan.k} ppc={plan.ppc}"
+        log(f"instance_norm_act {dname:8s} {tuple(x.shape)} ({where}): kernel {ms:.4f} ms "
+            f"({100 * bound / ms:.1f}% of bound), two-pass loop {two:.4f} ms, plain "
+            f"{plain:.4f} ms, F.instance_norm (norm + affine, no ReLU) {lib:.4f} ms, bound "
+            f"{bound:.4f} ms, max|err| {err:.3g} (two-pass {err2:.3g}; tol rtol "
+            f"{_norm_tol(dtype)[0]:g} + atol {_norm_tol(dtype)[1]:g}) [{card}]")
+        for k, v in (("ms", ms), ("two_pass_ms", two), ("plain_ms", plain), ("library_ms", lib),
+                     ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+            tot[k] += v
+        tot["err"] = max(tot["err"], err)
+        tot["paths"][f"{c}x{hw}x{hw}"] = {"path": where, "ms": ms, "two_pass_ms": two,
+                                          "library_ms": lib, "bound_ms": bound}
+        del x
+    log(f"instance_norm_act {dname}, six sites: kernel {tot['ms']:.4f} ms "
+        f"({100 * tot['bound_ms'] / tot['ms']:.1f}% of bound), two-pass loop "
+        f"{tot['two_pass_ms']:.4f} ms, F.instance_norm {tot['library_ms']:.4f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms [{card}]")
+    return tot
+
+
+def norm_bwd_numbers(planes, dtype, gen, flush, card):
+    """The backward kernel (relu) at each (C, H = W) of ``planes`` (batch
+    BATCH) on its planned path against its plain twin, bit-identical over
+    two calls; times kernel, twin, the backward of ``F.instance_norm(x,
+    weight=γ, bias=β)`` alone (its graph built outside the timed region:
+    norm + affine without the ReLU mask) and the bound (x and g read once,
+    dx written once); returns the totals of one step (each site once)."""
+    import torch
+
+    from cat_tpu_torch.ops import instance_norm as inorm
+
+    dev = torch.device("cuda")
+    dname = str(dtype).split(".")[-1]
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
+           "bytes_ms": 0.0, "ops_ms": 0.0, "paths": {}}
+    for c, hw in planes:
+        x = (torch.randn(BATCH, c, hw, hw, generator=gen, device=dev) * 3 + 1).to(dtype)
+        g = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+        scale = torch.rand(c, generator=gen, device=dev) + 0.5
+        bias = torch.randn(c, generator=gen, device=dev)
+        plan = inorm.norm_plan(hw * hw, x.element_size(), 2)
+        err, _ = _check_norm_bwd(x, g, scale, bias, plan.path)
+        _, mean, rstd = inorm.forward_cuda(x, scale, bias)
+        xl = x.detach().requires_grad_(True)
+        wl, bl = scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)
+        yl = torch.nn.functional.instance_norm(xl, weight=wl, bias=bl, eps=1e-5)
+        ms = timed(lambda: inorm.instance_norm_act_backward_cuda(x, g, mean, rstd, scale, bias),
+                   flush=flush)
+        plain = timed(lambda: inorm.instance_norm_act_backward_plain(x, g, scale, bias, 1e-5,
+                                                                     "relu", (mean, rstd)),
+                      flush=flush)
+        lib = timed(lambda: torch.autograd.grad(yl, (xl, wl, bl), g, retain_graph=True),
+                    flush=flush)
+        del yl, xl
+        # x and g read once, dx written once; ~20 flops per element
+        bytes_ms = 1e3 * 3 * x.numel() * x.element_size() / HBM_BYTES_PER_S
+        ops_ms = 1e3 * 20 * x.numel() / PEAK_FLOPS["float32"]
+        bound = max(bytes_ms, ops_ms)
+        where = f"{plan.path} k={plan.k} ppc={plan.ppc}"
+        log(f"instance_norm_act backward {dname:8s} {tuple(x.shape)} ({where}): kernel "
+            f"{ms:.4f} ms ({100 * bound / ms:.1f}% of bound), plain twin {plain:.4f} ms, "
+            f"F.instance_norm's backward (no ReLU mask) {lib:.4f} ms, bound {bound:.4f} ms, "
+            f"max|err| of dx {err:.3g}, two calls bit-identical [{card}]")
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bound),
+                     ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
+            tot[k] += v
+        tot["err"] = max(tot["err"], err)
+        tot["paths"][f"{c}x{hw}x{hw}"] = {"path": where, "ms": ms, "library_ms": lib,
+                                          "bound_ms": bound}
+        del x, g
+    log(f"instance_norm_act backward {dname}, six sites: kernel {tot['ms']:.4f} ms "
+        f"({100 * tot['bound_ms'] / tot['ms']:.1f}% of bound), F.instance_norm's backward "
+        f"{tot['library_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms [{card}]")
+    return tot
+
+
 def check_kernels(dev, t_channels, s_channels, card):
     """Each kernel against its plain version in bf16 and f32 at the step's
     shapes; returns the per-step numbers of each kernel at the main path's
@@ -478,48 +659,31 @@ def check_kernels(dev, t_channels, s_channels, card):
                 out[("gram_pairs", str(dtype).split(".")[-1])] = res
             del x
 
-    # --- instance norm + affine + relu at stem / down0 / down1, both nets
+    # --- instance norm + affine + relu at stem / down0 / down1, both nets:
+    # the forward on its planned path and forced onto the two-pass loop, the
+    # backward kernel against its plain twin, each timed beside its bound
     planes = [(c, SIZE >> j) for channels in (t_channels, s_channels)
               for j, c in enumerate(channels)]
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
-               "bytes_ms": 0.0, "ops_ms": 0.0}
-        for c, hw in planes:
-            x = (torch.randn(BATCH, c, hw, hw, generator=gen, device=dev) * 3 + 1).to(dtype)
-            scale = torch.rand(c, generator=gen, device=dev) + 0.5
-            bias = torch.randn(c, generator=gen, device=dev)
-            for act in ("relu", "leaky_relu"):
-                got = inorm.instance_norm_act_cuda(x, scale, bias, 1e-5, act)
-                ref = inorm.instance_norm_act_plain(x, scale, bias, 1e-5, act)
-                torch.cuda.synchronize()
-                # f32: statistics summed in another order; bf16: one unit in
-                # the last place (relative 2^-7)
-                rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (2 ** -7, 1e-2)
-                diff = (got.float() - ref.float()).abs()
-                excess = float((diff - rtol * ref.float().abs()).max())
-                if not excess <= atol or not torch.isfinite(got).all():
-                    fail(f"instance_norm_act {act} {dname} {tuple(x.shape)}: "
-                         f"error beyond rtol {rtol:g} by {excess:g} > {atol:g}")
-                if act == "relu":
-                    tot["err"] = max(tot["err"], float(diff.max()))
-            ms = timed(lambda: inorm.instance_norm_act_cuda(x, scale, bias), flush=flush)
-            plain = timed(lambda: inorm.instance_norm_act_plain(x, scale, bias), flush=flush)
-            # yardstick: norm + affine, without the ReLU: one call, less work
-            lib = timed(lambda: torch.nn.functional.instance_norm(x, weight=scale, bias=bias,
-                                                                  eps=1e-5), flush=flush)
-            # one read and one write; ~10 flops per element on CUDA cores
-            bytes_ms = 1e3 * 2 * x.numel() * x.element_size() / HBM_BYTES_PER_S
-            ops_ms = 1e3 * 10 * x.numel() / PEAK_FLOPS["float32"]
-            bound = max(bytes_ms, ops_ms)
-            log(f"instance_norm_act {dname:8s} {tuple(x.shape)}: kernel {ms:.4f} ms, plain "
-                f"{plain:.4f} ms, F.instance_norm (norm + affine, no ReLU) {lib:.4f} ms, "
-                f"bound {bound:.4f} ms, max|err| {float(diff.max()):.3g} "
-                f"(tol rtol {rtol:g} + atol {atol:g}) [{card}]")
-            for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
-                         ("bound_ms", bound), ("bytes_ms", bytes_ms), ("ops_ms", ops_ms)):
-                tot[k] += v
-        out[("instance_norm_act", dname)] = tot
+        out[("instance_norm_act", dname)] = norm_numbers(planes, dtype, gen, flush, card)
+        out[("instance_norm_act_bwd", dname)] = norm_bwd_numbers(planes, dtype, gen, flush, card)
+    # the path the flagship's planes never take natively: a plane whose bytes
+    # are not a multiple of 16 (255²), forward and backward
+    for dtype in (torch.bfloat16, torch.float32):
+        x = (torch.randn(16, 8, 255, 255, generator=gen, device=dev) * 3 + 1).to(dtype)
+        scale = torch.rand(8, generator=gen, device=dev) + 0.5
+        bias = torch.randn(8, generator=gen, device=dev)
+        g = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+        before = dict(inorm.path_launches), dict(inorm.bwd_path_launches)
+        _check_norm(x, scale, bias, "relu", "two-pass")
+        _check_norm_bwd(x, g, scale, bias, "two-pass")
+        # two forward launches (the check's and the backward's statistics), two backward
+        if (inorm.path_launches["two_pass"] != before[0]["two_pass"] + 2
+                or inorm.bwd_path_launches["two_pass"] != before[1]["two_pass"] + 2):
+            fail(f"instance norm {tuple(x.shape)} {dtype}: not the two-pass path")
+        log(f"instance_norm_act {tuple(x.shape)} {dtype}: two-pass path, forward and backward "
+            f"within tolerance")
     del l2
     return out
 
@@ -533,7 +697,8 @@ def reference_check(dev, batch=2):
     """One float32 step at a tiny size on the card and on the CPU, from the
     same weights and batch: the kernels in context against the plain
     versions.  Returns the card step's Gram launches by path (batch > 128:
-    the f32 pair kernel; the CPU takes ``gram_pairs_plain``)."""
+    the f32 pair kernel; the CPU takes ``gram_pairs_plain``) and its fused
+    norm's forward and backward launches (42 and 21)."""
     import torch
 
     from cat_tpu_torch.core.config import InceptionGeneratorConfig, NLayerDiscriminatorConfig
@@ -559,10 +724,16 @@ def reference_check(dev, batch=2):
             torch.cuda.synchronize()
             ka.launches = 0
             ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
+            norm_counts_reset()
         _, m = dist.train_step(state, tp, {k: v.to(d) for k, v in batch_.items()}, LR)
         if d == dev:
             torch.cuda.synchronize()
-            counts = {"gram": ka.launches, **{p: n for p, n in ka.path_launches.items() if n}}
+            counts = {"gram": ka.launches, **{p: n for p, n in ka.path_launches.items() if n},
+                      **norm_counts()}
+            # unpacked blocks: every ConvNormAct of both nets (21 a net) is fused
+            if counts["instance_norm_act"] != 42 or counts["instance_norm_act_bwd"] != 21:
+                fail(f"tiny f32 step at batch {batch}: norm launches {counts}, expected 42 "
+                     "forward (21 a net) and 21 backward (the student's)")
         losses.append({k: float(v) for k, v in m.items()})
     for k in losses[1]:
         # float32 throughout (TF32 off): sums in another order only
@@ -602,13 +773,30 @@ def flagship():
     return teacher_cfg, sd, res
 
 
+def norm_counts_reset():
+    from cat_tpu_torch.ops import instance_norm as inorm
+
+    inorm.launches = inorm.bwd_launches = 0
+    for d in (inorm.path_launches, inorm.bwd_path_launches):
+        d.update(dict.fromkeys(d, 0))
+
+
+def norm_counts():
+    """The norm kernel's forward and backward launches since the reset, and
+    each by path (the paths taken)."""
+    from cat_tpu_torch.ops import instance_norm as inorm
+
+    return {"instance_norm_act": inorm.launches, "instance_norm_act_bwd": inorm.bwd_launches,
+            "norm_paths": {p: n for p, n in inorm.path_launches.items() if n},
+            "norm_bwd_paths": {p: n for p, n in inorm.bwd_path_launches.items() if n}}
+
+
 def run_steps(dev, teacher_cfg, teacher_sd, student_cfg, fused, n_steps, card,
               profile_steps=0, batch_size=BATCH, compute_dtype="bfloat16"):
     import torch
 
     from cat_tpu_torch.distill import ka
     from cat_tpu_torch.distill.inception_distiller import DistillHParams, InceptionDistiller
-    from cat_tpu_torch.ops import instance_norm as inorm
 
     hp = DistillHParams(dataset_mode="unaligned", gan_mode="lsgan", distill_loss_type="ka",
                         lambda_recon=5.0, lambda_distill=1.0, compute_dtype=compute_dtype,
@@ -622,7 +810,7 @@ def run_steps(dev, teacher_cfg, teacher_sd, student_cfg, fused, n_steps, card,
     torch.cuda.reset_peak_memory_stats()
     ka.launches = 0
     ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
-    inorm.launches = 0
+    norm_counts_reset()
     times = []
     for _ in range(n_steps):
         t0 = time.perf_counter()
@@ -631,8 +819,7 @@ def run_steps(dev, teacher_cfg, teacher_sd, student_cfg, fused, n_steps, card,
         times.append(time.perf_counter() - t0)
     counts = {"gram": ka.launches, "gram_tma": ka.path_launches["tma"],
               "gram_tma_pairs": ka.path_launches["tma_pairs"],
-              "gram_f32tma_pairs": ka.path_launches["f32tma_pairs"],
-              "instance_norm_act": inorm.launches}
+              "gram_f32tma_pairs": ka.path_launches["f32tma_pairs"], **norm_counts()}
 
     vals = {k: float(v) for k, v in metrics.items()}
     if not all(math.isfinite(v) for v in vals.values()):
@@ -2067,44 +2254,80 @@ def gaugan_student(dev, card, root, judge, stats):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 10d: the recipe's first epoch under --remat 1, without and with a
-    # selective policy; each step's losses held to 10b's (its first steps)
+    # 10d: the recipe's first epoch without --remat, then under --remat 1
+    # without and with a selective policy, all with deterministic cuDNN; each
+    # remat run's losses held to the run without's.  Under cuDNN's default
+    # algorithms two runs of the same flags do not repeat bit for bit: their
+    # step-1 losses agree and the gap grows from step 2 on (6.4e-7 to 1.6e-4
+    # at step 3 over four calls), whatever remat does.  Deterministic cuDNN
+    # repeats them, with remat too.  10b's own gap (default algorithms) to
+    # the run without is printed beside.
     with open(os.path.join(log_dir, "scalars.jsonl")) as f:
-        want = [{k: v for k, v in r.items() if "loss" in k}
-                for r in map(json.loads, f) if any("loss" in k for k in r)][:REMAT_STEPS]
-    remat = {}
-    for policy in ("", "dots_saveable"):
-        ka.launches = 0
-        ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
-        d = os.path.join(root, f"log_10d_{policy or 'remat'}")
-        r, _ = _instrumented_run(
-            "setup_distill", entry.distill_main,
-            [*student_argv(d), *quiet, "--nepochs", "1", "--remat", "1",
-             *(["--remat_policy", policy] if policy else [])],
-            REMAT_STEPS, GAUGAN_BATCH,
-            f"10d GauGAN student, --remat 1{' --remat_policy ' + policy if policy else ''}", card)
+        first_10b = [{k: v for k, v in r.items() if "loss" in k}
+                     for r in map(json.loads, f) if any("loss" in k for k in r)][:REMAT_STEPS]
+
+    def losses_of(d):
         with open(os.path.join(d, "scalars.jsonl")) as f:
-            got = [{k: v for k, v in row.items() if "loss" in k}
-                   for row in map(json.loads, f) if any("loss" in k for k in row)]
-        worst = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-1) for g, w in zip(got, want) for k in w)
-        if (len(got) != REMAT_STEPS or any(g.keys() != w.keys() for g, w in zip(got, want))
-                or not all(math.isclose(g[k], w[k], rel_tol=1e-4, abs_tol=1e-5)
-                           for g, w in zip(got, want) for k in w)):
-            fail(f"spade 10d ({policy or 'no policy'}): losses {got} differ from 10b's {want} "
-                 "past 10a's bound (rtol 1e-4, atol 1e-5)")
-        if ka.path_launches["f32tma"] != 6 * REMAT_STEPS:
-            fail(f"spade 10d ({policy or 'no policy'}): {ka.path_launches['f32tma']} f32tma Gram "
-                 f"launches in {REMAT_STEPS} steps; expected 6 a step")
-        remat[policy or "none"] = {"step_ms_median": r["step_ms_median"],
-                                   "peak_memory_gib": r["peak_memory_gib"],
-                                   "f32tma_per_step": ka.path_launches["f32tma"] / REMAT_STEPS,
-                                   "loss_worst_rel": worst}
-        log(f"spade 10d: --remat 1 {policy or '(no policy)'}: median step {r['step_ms_median']:.1f}"
-            f" ms, peak memory {r['peak_memory_gib']:.2f} GiB, "
-            f"{ka.path_launches['f32tma'] / REMAT_STEPS:g} f32tma launches a step; losses of its "
-            f"{REMAT_STEPS} steps within rtol 1e-4 of 10b's (worst {worst:.2g}) [{card}]")
-        gc.collect()
-        torch.cuda.empty_cache()
+            return [{k: v for k, v in row.items() if "loss" in k}
+                    for row in map(json.loads, f) if any("loss" in k for k in row)]
+
+    def worst_gap(got, want):
+        return max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-1) for g, w in zip(got, want) for k in w)
+
+    remat = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want = None
+        for remat_flags in ([], ["--remat", "1"],
+                            ["--remat", "1", "--remat_policy", "dots_saveable"]):
+            policy = remat_flags[3] if len(remat_flags) > 2 else ""
+            name = "reference" if not remat_flags else policy or "none"
+            what = " ".join(remat_flags) or "no --remat"
+            gc.collect()
+            torch.cuda.empty_cache()
+            ka.launches = 0
+            ka.path_launches.update(dict.fromkeys(ka.path_launches, 0))
+            d = os.path.join(root, f"log_10d_{name}")
+            r, _ = _instrumented_run(
+                "setup_distill", entry.distill_main,
+                [*student_argv(d), *quiet, "--nepochs", "1", *remat_flags],
+                REMAT_STEPS, GAUGAN_BATCH, f"10d GauGAN student, {what}", card)
+            got = losses_of(d)
+            if ka.path_launches["f32tma"] != 6 * REMAT_STEPS:
+                fail(f"spade 10d ({what}): {ka.path_launches['f32tma']} f32tma Gram "
+                     f"launches in {REMAT_STEPS} steps; expected 6 a step")
+            if want is None:
+                want = got
+                gap_10b = worst_gap(first_10b, want)
+                remat["reference"] = {"step_ms_median": r["step_ms_median"],
+                                      "peak_memory_gib": r["peak_memory_gib"],
+                                      "loss_worst_rel_10b": gap_10b}
+                log(f"spade 10d: reference (no --remat, deterministic cuDNN): median step "
+                    f"{r['step_ms_median']:.1f} ms, peak memory {r['peak_memory_gib']:.2f} GiB; "
+                    f"10b's first {REMAT_STEPS} steps (cuDNN's default algorithms) differ from "
+                    f"it by {gap_10b:.2g} at worst [{card}]")
+                continue
+            worst = worst_gap(got, want)
+            if (len(got) != REMAT_STEPS or any(g.keys() != w.keys() for g, w in zip(got, want))
+                    or not all(math.isclose(g[k], w[k], rel_tol=1e-4, abs_tol=1e-5)
+                               for g, w in zip(got, want) for k in w)):
+                fail(f"spade 10d ({what}): losses {got} differ from the run without --remat's "
+                     f"{want} past 10a's bound (rtol 1e-4, atol 1e-5)")
+            remat[name] = {"step_ms_median": r["step_ms_median"],
+                           "peak_memory_gib": r["peak_memory_gib"],
+                           "f32tma_per_step": ka.path_launches["f32tma"] / REMAT_STEPS,
+                           "loss_worst_rel": worst,
+                           "bit_identical": got == want}
+            log(f"spade 10d: {what}: median step {r['step_ms_median']:.1f} ms, peak memory "
+                f"{r['peak_memory_gib']:.2f} GiB, {ka.path_launches['f32tma'] / REMAT_STEPS:g} "
+                f"f32tma launches a step; losses of its {REMAT_STEPS} steps within rtol 1e-4 of "
+                f"the run without --remat's (worst {worst:.2g}, bit-identical {got == want}) "
+                f"[{card}]")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    gc.collect()
+    torch.cuda.empty_cache()
     out["remat_10d"] = remat
 
     # the Gram on the run's own taps: teacher and student, three taps each
@@ -4023,7 +4246,8 @@ def int8_unet_deeplab(dev, card, root, judge, stats, teacher_cfg, teacher_sd, ve
 
 _KERNEL_GROUPS = (  # (group, substrings of the lower-cased kernel name), first match wins
     ("gram (csrc/gram.cu)", ("gram_partial", "gram_reduce")),
-    ("instance_norm_act (csrc/instance_norm.cu)", ("inorm_act",)),
+    ("instance_norm_act backward (csrc/instance_norm.cu)", ("inorm_act_bwd", "inorm_bwd")),
+    ("instance_norm_act forward (csrc/instance_norm.cu)", ("inorm_act",)),
     ("cuDNN NCHW<->NHWC transposes", ("nchwtonhwc", "nhwctonchw")),
     ("convolution / matmul", ("conv", "gemm", "xmma", "sm90_", "sm80_", "cutlass", "cudnn",
                               "dgrad", "wgrad")),
@@ -4114,7 +4338,7 @@ def main() -> None:
 
     # --- 3. small steps against the CPU: batch 2, and batch 130 through the
     # f32 pair kernel (4 launches: two taps, teacher and student)
-    reference_check(dev)
+    ref_small = reference_check(dev)
     ref_pairs = reference_check(dev, REF_PAIRS_BATCH)
     if ref_pairs.get("f32tma_pairs", 0) != 4 or ref_pairs["gram"] != 4:
         fail(f"tiny f32 step at batch {REF_PAIRS_BATCH}: Gram launches {ref_pairs}, expected 4, "
@@ -4165,14 +4389,23 @@ def main() -> None:
         f"{PAIRS_BATCH / step_q:.1f} images/s (warm-up step {times_q[0] * 1e3:.0f} ms), peak "
         f"memory {mem_q / 2**30:.2f} GiB, launches {counts_q}, losses {vals_q} [{card}]")
 
-    # --- 5. the fused-norm step
-    times_f, counts_f, vals_f, _, _ = run_steps(dev, teacher_cfg, teacher_sd, res.config,
-                                                True, FUSED_STEPS, card)
-    if (counts_f["instance_norm_act"] != 6 * FUSED_STEPS or counts_f["gram"] != 8 * FUSED_STEPS
-            or counts_f["gram_tma"] != counts_f["gram"]):
-        fail(f"fused step: launches {counts_f}, expected 6 norm and 8 Gram (TMA) per step")
-    log(f"fused-norm step: {sum(times_f) / FUSED_STEPS * 1e3:.1f} ms/step (first step "
-        f"included), launches {counts_f}, losses {vals_f} [{card}]")
+    # --- 5. the fused-norm step, timed as phase 4 is: 1 warm-up + 3 timed
+    # steps, their median beside phase 4's; one profiled step
+    times_f, counts_f, vals_f, _, busy_f = run_steps(dev, teacher_cfg, teacher_sd, res.config,
+                                                     True, 1 + TIMED_STEPS, card,
+                                                     profile_steps=1)
+    n_f = 1 + TIMED_STEPS
+    if (counts_f["instance_norm_act"] != 6 * n_f or counts_f["instance_norm_act_bwd"] != 3 * n_f
+            or counts_f["gram"] != 8 * n_f or counts_f["gram_tma"] != counts_f["gram"]):
+        fail(f"fused step: launches {counts_f}, expected 6 norm forward, 3 norm backward and "
+             "8 Gram (TMA) per step")
+    med_4, med_5 = statistics.median(times[1:]), statistics.median(times_f[1:])
+    log(f"fused-norm step: median {med_5 * 1e3:.1f} ms/step over steps 2-{n_f} (warm-up "
+        f"{times_f[0] * 1e3:.0f} ms excluded; steps {[round(t * 1e3, 1) for t in times_f]}); "
+        f"phase 4's plain-norm step in this call: median {med_4 * 1e3:.1f} ms "
+        f"({100 * (med_5 / med_4 - 1):+.2f}%); launches {counts_f}, losses {vals_f} [{card}]")
+    if busy_f is not None:
+        log(f"fused-norm step: device idle {100 * max(0.0, 1 - busy_f / (med_5 * 1e3)):.1f}%")
 
     # --- 6. the distill verb and 7. evaluation, over one seeded dataset
     root = tempfile.mkdtemp(prefix="chip_smoke_verb_")
@@ -4263,10 +4496,23 @@ def main() -> None:
          "mma_sync_ms": kern[("gram", "bfloat16")]["mma_sync_ms"],
          "bound_full_square_ms": kern[("gram", "bfloat16")]["bound_full_square_ms"],
          "pairs_b256": pairs["bfloat16"]},
-        row("instance_norm_act", "cat_tpu_torch/csrc/instance_norm.cu",
-            "cat_tpu/ops/pallas_norm.py:35", counts_f["instance_norm_act"],
-            kern[("instance_norm_act", "bfloat16")], per),
     ]
+    # the norm kernel, forward and backward, in both dtypes: six sites at
+    # batch 128; launches: phase 5's bf16 steps, phase 3's float32 tiny step
+    norm_src = "cat_tpu_torch/csrc/instance_norm.cu"
+    f32_per = (f"one call at each of the six sites at batch {BATCH}, float32; launches: phase "
+               f"3's float32 step at batch 2 (unpacked blocks: every ConvNormAct fused)")
+    for name, key, launches, replaces in (
+            ("instance_norm_act", "instance_norm_act", "instance_norm_act",
+             "cat_tpu/ops/pallas_norm.py:35"),
+            ("instance_norm_act backward", "instance_norm_act_bwd", "instance_norm_act_bwd",
+             "cat_tpu/ops/pallas_norm.py:169 (_fused_bwd, XLA's)")):
+        for dname, n, text in (("bfloat16", counts_f[launches], per + f" (phase 5, {n_f} steps)"),
+                               ("float32", ref_small[launches], f32_per)):
+            k = kern[(key, dname)]
+            rows.append({**row(f"{name} ({dname})", norm_src, replaces, n, k, text),
+                         **({"two_pass_ms": k["two_pass_ms"]} if "two_pass_ms" in k else {}),
+                         "sites": k["paths"]})
     for v, dname in zip(verb, ("float32", "bfloat16")):
         k = verb_kern[v["label"]]
         rows.append({**row(f"gram (distill verb, {dname})", *gram_src, v["gram_launches"], k,

@@ -214,6 +214,122 @@ def test_instance_norm_kernel_matches_plain(cuda, rng, dtype, act, shape):
     assert float(err.max()) <= atol
 
 
+def _norm_inputs(cuda, rng, shape, dtype):
+    x = torch.from_numpy((rng.randn(*shape) * 3 + 1).astype(np.float32)).to(cuda, dtype)
+    g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(cuda, dtype)
+    c = shape[1]
+    scale = torch.from_numpy((rng.rand(c) + 0.5).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(rng.randn(c).astype(np.float32)).to(cuda)
+    return x, g, scale, bias
+
+
+def _assert_norm_close(got, ref, dtype):
+    # f32: statistics summed in another order; bf16: one unit in the last
+    # place of the output (relative spacing 2^-7)
+    rtol, atol = (1e-5, 1e-4) if dtype == torch.float32 else (2 ** -7, 1e-2)
+    err = (got.float() - ref.float()).abs() - rtol * ref.float().abs()
+    assert torch.isfinite(got).all() and float(err.max()) <= atol
+
+
+def _assert_channel_sums_close(x, g, scale, bias, act, ds, db, ref_ds, ref_db):
+    """dscale and dbias sum N·H·W float32 terms per channel in another
+    order: within 1e-5 of the sum of the terms' magnitudes."""
+    xf, gf = x.double(), g.double()
+    mean = xf.mean(dim=(2, 3), keepdim=True)
+    xh = (xf - mean) * torch.rsqrt(xf.square().mean(dim=(2, 3), keepdim=True) - mean.square()
+                                   + 1e-5)
+    z = xh * scale.double()[:, None, None] + bias.double()[:, None, None]
+    gp = gf * tin._act_grad(z, act).double()
+    for got, ref, terms in ((ds, ref_ds, gp * xh), (db, ref_db, gp)):
+        tol = 1e-5 * terms.abs().sum(dim=(0, 2, 3)).float() + 1e-6
+        assert bool(((got - ref).abs() <= tol).all())
+
+
+# (shape, dtype) -> path: one CTA with 2-4 packed planes, one CTA a plane,
+# clusters of 2-8, and the two-pass loop (unaligned, or past 8 slices)
+NORM_SHAPES = [(2, 8, 64, 64), (2, 4, 128, 128), (1, 2, 256, 256), (1, 3, 512, 256),
+               (3, 5, 7, 9), (1, 2, 512, 512)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "none"])
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+def test_instance_norm_paths_match_plain(cuda, rng, dtype, act, shape):
+    """The forward on the path its plan picks (and the two-pass loop on any
+    plane) against the plain version, with each plane's mean and rstd."""
+    x, _, scale, bias = _norm_inputs(cuda, rng, shape, dtype)
+    path = tin.norm_plan(shape[2] * shape[3], x.element_size()).path
+    ref = tin.instance_norm_act_plain(x, scale, bias, act=act)
+    xf = x.float()
+    mean = xf.mean(dim=(2, 3)).reshape(-1)
+    rstd = torch.rsqrt(xf.square().mean(dim=(2, 3)).reshape(-1) - mean.square() + 1e-5)
+    for plan, counted in ((None, path), (tin.TWO_PASS, "two_pass")):
+        before = tin.path_launches[counted]
+        y, m, r = tin.forward_cuda(x, scale, bias, 1e-5, act, plan)
+        torch.cuda.synchronize()
+        assert tin.path_launches[counted] == before + 1
+        _assert_norm_close(y, ref, dtype)
+        torch.testing.assert_close(m, mean, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(r, rstd, rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", ["relu", "leaky_relu", "none"])
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+def test_instance_norm_backward_kernel_matches_twin(cuda, rng, dtype, act, shape):
+    """The backward kernel on its plan's path (and the two-pass loop on any
+    plane) against ``instance_norm_act_backward_plain`` on the forward
+    kernel's statistics (relu's mask flips where z is within a rounding of
+    0, so both take the same mean and rstd)."""
+    x, g, scale, bias = _norm_inputs(cuda, rng, shape, dtype)
+    _, mean, rstd = tin.forward_cuda(x, scale, bias, 1e-5, act)
+    path = tin.norm_plan(shape[2] * shape[3], x.element_size(), 2).path
+    rdx, rds, rdb = tin.instance_norm_act_backward_plain(x, g, scale, bias, 1e-5, act,
+                                                         (mean, rstd))
+    for plan, counted in ((None, path), (tin.TWO_PASS, "two_pass")):
+        before = tin.bwd_path_launches[counted]
+        dx, ds, db = tin.instance_norm_act_backward_cuda(x, g, mean, rstd, scale, bias, act,
+                                                         plan)
+        torch.cuda.synchronize()
+        assert tin.bwd_path_launches[counted] == before + 1
+        _assert_norm_close(dx, rdx, dtype)
+        _assert_channel_sums_close(x, g, scale, bias, act, ds, db, rds, rdb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 8, 64, 64), (2, 4, 256, 256), (2, 3, 7, 9)])
+def test_instance_norm_kernels_are_bit_reproducible(cuda, rng, dtype, shape):
+    x, g, scale, bias = _norm_inputs(cuda, rng, shape, dtype)
+    first = tin.forward_cuda(x, scale, bias)
+    second = tin.forward_cuda(x, scale, bias)
+    b1 = tin.instance_norm_act_backward_cuda(x, g, *first[1:], scale, bias)
+    b2 = tin.instance_norm_act_backward_cuda(x, g, *first[1:], scale, bias)
+    torch.cuda.synchronize()
+    for a, b in zip((*first, *b1), (*second, *b2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_instance_norm_act_runs_both_kernels(cuda, rng, dtype):
+    """Autograd through the fused op: one forward and one backward launch,
+    the twin's gradients."""
+    x, g, scale, bias = _norm_inputs(cuda, rng, (4, 6, 128, 128), dtype)
+    xs, ss, bs = (t.clone().requires_grad_(True) for t in (x, scale, bias))
+    before = tin.launches, tin.bwd_launches
+    y = tin.fused_instance_norm_act(xs, ss, bs)
+    dx, ds, db = torch.autograd.grad(y, (xs, ss, bs), g)
+    torch.cuda.synchronize()
+    assert (tin.launches, tin.bwd_launches) == (before[0] + 1, before[1] + 1)
+    stats = tin.forward_cuda(x, scale, bias)[1:]  # bit-identical to the fused op's
+    rdx, rds, rdb = tin.instance_norm_act_backward_plain(x, g, scale, bias, stats=stats)
+    _assert_norm_close(dx, rdx, dtype)
+    _assert_channel_sums_close(x, g, scale, bias, "relu", ds, db, rds, rdb)
+
+
 # ---------------------------------------------------------------------------
 # The distill verb's data path on the card
 # ---------------------------------------------------------------------------

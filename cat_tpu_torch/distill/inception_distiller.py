@@ -35,6 +35,10 @@ masters; parameters and inputs cast to the compute dtype inside the forward
 float32; network outputs cast to float32 for the losses (``up``).  KA takes
 the taps in the compute dtype; the mse path takes them in float32.
 
+The step's phases run inside ``utils/trace.py::span``s (``step.teacher_fwd``,
+``step.student_fwd``, ``step.d_loss_bwd``, ``step.adam``, ``step.g_loss_bwd``,
+``step.adam``), which do nothing unless a profiler is recording.
+
 Over several ranks (``parallel/``) the step is the single-device step of
 the global batch: each rank holds its data index's rows and, with
 ``--n_spatial``, its spatial index's height rows of every image; the
@@ -67,6 +71,7 @@ from cat_tpu_torch.parallel import spatial
 from cat_tpu_torch.train.common import (GANTrainState, NetState, average_grads, cast_floats,
                                         checkpointed, global_metrics)
 from cat_tpu_torch.train.optim import Adam
+from cat_tpu_torch.utils.trace import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -243,16 +248,18 @@ class InceptionDistiller:
         # KA takes the taps in the compute dtype; the adaptors in float32
         up_acts = (lambda t: t) if hp.distill_loss_type == "ka" else up
 
-        real_A = down(batch["A"])
         real_B = batch.get("B", batch["A"])
         taps = hp.mapping_layers
         aligned = hp.dataset_mode == "aligned"
+        dev = self.device
 
         # --- teacher forward: frozen, eval mode ---
-        (t_fake, t_acts), self._act_scales = teacher_forward(
-            self._teacher_fn, down(teacher_params), real_A, hp.teacher_compute_dtype,
-            self._act_scales)
-        t_fake, t_acts = up(t_fake), up_acts(t_acts)
+        with span("step.teacher_fwd", dev):
+            real_A = down(batch["A"])
+            (t_fake, t_acts), self._act_scales = teacher_forward(
+                self._teacher_fn, down(teacher_params), real_A, hp.teacher_compute_dtype,
+                self._act_scales)
+            t_fake, t_acts = up(t_fake), up_acts(t_acts)
 
         # --- student forward once, graph kept; it alone moves the student's
         # running statistics ---
@@ -265,65 +272,69 @@ class InceptionDistiller:
             )
             return up(fake), up_acts(acts)
 
-        if hp.remat:
-            s_fake, s_acts = checkpointed(s_forward, self.netG_student, state.rng)
-        else:
-            s_fake, s_acts = s_forward()
+        with span("step.student_fwd", dev):
+            if hp.remat:
+                s_fake, s_acts = checkpointed(s_forward, self.netG_student, state.rng)
+            else:
+                s_fake, s_acts = s_forward()
 
         # --- discriminator update on the detached fake ---
-        fake_d = down(s_fake.detach())
-        if aligned:
-            fake_in = torch.cat([real_A, fake_d], 1)
-            real_in = torch.cat([real_A, down(real_B)], 1)
-        else:
-            fake_in, real_in = fake_d, down(real_B)
         d_params = state.d.params
-        d_down = down(d_params)
 
         def d_apply(params, x):
             return up(functional_call(self.netD, params, (x,), {"train": True}))
 
-        # the fake, then the real forward move D's running statistics
-        l_d_fake = gan_loss(d_apply(d_down, fake_in), False, hp.gan_mode, True)
-        l_d_real = gan_loss(d_apply(d_down, real_in), True, hp.gan_mode, True)
-        d_loss = 0.5 * (l_d_fake + l_d_real)
-        if hp.gan_mode == "wgangp":
-            # the Lipschitz penalty, as the JAX package applies it (the
-            # reference defines it and never calls it)
-            with frozen_stats(self.netD):
-                l_d_gp, _ = gradient_penalty(lambda x: d_apply(d_down, x), real_in, fake_in,
-                                             generator=state.rng)
-            d_loss = d_loss + l_d_gp
-        d_grads = torch.autograd.grad(d_loss, list(d_params.values()))
-        state.d.opt.step(average_grads(d_grads), lr)
+        with span("step.d_loss_bwd", dev):
+            fake_d = down(s_fake.detach())
+            if aligned:
+                fake_in = torch.cat([real_A, fake_d], 1)
+                real_in = torch.cat([real_A, down(real_B)], 1)
+            else:
+                fake_in, real_in = fake_d, down(real_B)
+            d_down = down(d_params)
+            # the fake, then the real forward move D's running statistics
+            l_d_fake = gan_loss(d_apply(d_down, fake_in), False, hp.gan_mode, True)
+            l_d_real = gan_loss(d_apply(d_down, real_in), True, hp.gan_mode, True)
+            d_loss = 0.5 * (l_d_fake + l_d_real)
+            if hp.gan_mode == "wgangp":
+                # the Lipschitz penalty, as the JAX package applies it (the
+                # reference defines it and never calls it)
+                with frozen_stats(self.netD):
+                    l_d_gp, _ = gradient_penalty(lambda x: d_apply(d_down, x), real_in,
+                                                 fake_in, generator=state.rng)
+                d_loss = d_loss + l_d_gp
+            d_grads = torch.autograd.grad(d_loss, list(d_params.values()))
+        with span("step.adam", dev):
+            state.d.opt.step(average_grads(d_grads), lr)
 
         # --- generator + adaptor update through the updated D (no gradient into D) ---
-        recon_target = real_B if aligned else t_fake
-        d_in = torch.cat([real_A, down(s_fake)], 1) if aligned else down(s_fake)
-        d_frozen = down({k: v.detach() for k, v in d_params.items()})
-        with frozen_stats(self.netD):
-            pred = functional_call(self.netD, d_frozen, (d_in,), {"train": True})
-        l_g_gan = gan_loss(up(pred), True, hp.gan_mode, False) * hp.lambda_gan
-        l_g_rec = recon_loss(s_fake, recon_target, hp.recon_loss_type) * hp.lambda_recon
-        if hp.lambda_distill > 0:
-            l_g_dis, dis_parts = self._distill_loss(state.adaptors, s_acts, t_acts)
-            l_g_dis = l_g_dis * hp.lambda_distill
-        else:
-            l_g_dis, dis_parts = torch.zeros((), device=self.device), {}
-        g_group = [*s_params.values(), *state.adaptors.values()]
-        # an adaptor is unused when lambda_distill is 0
-        rng_now = state.rng.get_state()
-        g_grads = torch.autograd.grad(l_g_gan + l_g_rec + l_g_dis, g_group,
-                                      allow_unused=True, materialize_grads=True)
-        state.rng.set_state(rng_now)  # a remat recompute rewound it
-        state.g.opt.step(average_grads(g_grads), lr)
-
-        if hp.ema_decay > 0:
-            ema = list(state.extra["ema_G"].values())
-            with torch.no_grad():
-                torch._foreach_mul_(ema, hp.ema_decay)
-                torch._foreach_add_(ema, torch._foreach_mul(list(s_params.values()),
-                                                            1.0 - hp.ema_decay))
+        with span("step.g_loss_bwd", dev):
+            recon_target = real_B if aligned else t_fake
+            d_in = torch.cat([real_A, down(s_fake)], 1) if aligned else down(s_fake)
+            d_frozen = down({k: v.detach() for k, v in d_params.items()})
+            with frozen_stats(self.netD):
+                pred = functional_call(self.netD, d_frozen, (d_in,), {"train": True})
+            l_g_gan = gan_loss(up(pred), True, hp.gan_mode, False) * hp.lambda_gan
+            l_g_rec = recon_loss(s_fake, recon_target, hp.recon_loss_type) * hp.lambda_recon
+            if hp.lambda_distill > 0:
+                l_g_dis, dis_parts = self._distill_loss(state.adaptors, s_acts, t_acts)
+                l_g_dis = l_g_dis * hp.lambda_distill
+            else:
+                l_g_dis, dis_parts = torch.zeros((), device=self.device), {}
+            g_group = [*s_params.values(), *state.adaptors.values()]
+            # an adaptor is unused when lambda_distill is 0
+            rng_now = state.rng.get_state()
+            g_grads = torch.autograd.grad(l_g_gan + l_g_rec + l_g_dis, g_group,
+                                          allow_unused=True, materialize_grads=True)
+            state.rng.set_state(rng_now)  # a remat recompute rewound it
+        with span("step.adam", dev):
+            state.g.opt.step(average_grads(g_grads), lr)
+            if hp.ema_decay > 0:
+                ema = list(state.extra["ema_G"].values())
+                with torch.no_grad():
+                    torch._foreach_mul_(ema, hp.ema_decay)
+                    torch._foreach_add_(ema, torch._foreach_mul(list(s_params.values()),
+                                                                1.0 - hp.ema_decay))
 
         state.step += 1
         metrics = {

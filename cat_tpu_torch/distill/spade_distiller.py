@@ -39,6 +39,10 @@ means and the GAN, feature and VGG terms are over the global tensors,
 and remat's recompute replays the halo exchanges, which every rank runs
 in the same order.
 
+The step's phases run inside ``utils/trace.py::span``s (``step.teacher_fwd``,
+``step.student_fwd``, ``step.g_loss_bwd``, ``step.adam``, ``step.d_loss_bwd``,
+``step.adam``), which do nothing unless a profiler is recording.
+
 Mixed precision follows the JAX placement, as ``train/spade_model.py``
 does: float32 masters, parameters and inputs cast to ``compute_dtype``
 inside the forwards, norm statistics, losses and both taps in float32.
@@ -69,6 +73,7 @@ from cat_tpu_torch.train.common import (GANTrainState, NetState, average_grads, 
 from cat_tpu_torch.train.optim import Adam
 from cat_tpu_torch.train.spade_model import (d_input, discriminate, feature_matching_loss,
                                               preprocess_input)
+from cat_tpu_torch.utils.trace import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DEFAULT_SPADE_MAPPING_LAYERS = ("head_0", "G_middle_1", "up_1")
@@ -285,15 +290,18 @@ class SPADEDistiller:
                 return [up(x) for x in t]
             return cast_floats(t, torch.float32) if mixed else t
 
-        sem, real_B = down(self.semantics(batch)), batch["image"]
+        real_B = batch["image"]
         lr_g, lr_d = lr * self.lr_mults[0], lr * self.lr_mults[1]
         taps = hp.mapping_layers
+        dev = self.device
 
         # --- the teacher: frozen, eval mode ---
-        (_, t_acts), self._act_scales = teacher_forward(
-            self._teacher_fn, down(teacher_params), sem, hp.teacher_compute_dtype,
-            self._act_scales)
-        t_acts = up(t_acts)
+        with span("step.teacher_fwd", dev):
+            sem = down(self.semantics(batch))
+            (_, t_acts), self._act_scales = teacher_forward(
+                self._teacher_fn, down(teacher_params), sem, hp.teacher_compute_dtype,
+                self._act_scales)
+            t_acts = up(t_acts)
 
         # --- G update against the old D ---
         g_params = state.g.params
@@ -303,61 +311,67 @@ class SPADEDistiller:
                                          {"train": True, "taps": taps})
             return up(fake), up(acts)
 
-        if hp.remat and self.policy != "all":
-            fake, s_acts = checkpointed(s_forward, self.netG_student, state.rng, self.policy)
-        else:
-            fake, s_acts = s_forward()
-        d_frozen = {k: v.detach() for k, v in state.d.params.items()}
-        with frozen_stats(self.netD):
-            pred_fake, pred_real = discriminate(self.netD, d_frozen, up(sem), up(down(fake)),
-                                                      up(down(real_B)))
-        l_gan = gan_loss(pred_fake, True, hp.gan_mode, False) * hp.lambda_gan
-        l_feat = feature_matching_loss(pred_fake, pred_real) * hp.lambda_feat
-        if self.vgg is not None and hp.lambda_vgg > 0:
-            l_vgg = vgg_loss(self.vgg, fake, real_B, hp.vgg_compute_dtype) * hp.lambda_vgg
-        else:
-            l_vgg = torch.zeros((), device=self.device)
-        if hp.lambda_distill > 0:
-            l_dis, parts = self._distill_loss(state.adaptors, s_acts, t_acts)
-            l_dis = l_dis * hp.lambda_distill
-        else:
-            l_dis, parts = torch.zeros((), device=self.device), {}
-        rng_now = state.rng.get_state()
-        # the adaptors take no gradient under KA: zeros, as in the JAX package
-        g_grads = torch.autograd.grad(l_gan + l_feat + l_vgg + l_dis,
-                                      [*g_params.values(), *state.adaptors.values()],
-                                      allow_unused=True, materialize_grads=True)
-        state.rng.set_state(rng_now)  # a remat recompute rewound it
-        state.g.opt.step(average_grads(g_grads), lr_g)
+        with span("step.student_fwd", dev):
+            if hp.remat and self.policy != "all":
+                fake, s_acts = checkpointed(s_forward, self.netG_student, state.rng,
+                                            self.policy)
+            else:
+                fake, s_acts = s_forward()
+        with span("step.g_loss_bwd", dev):
+            d_frozen = {k: v.detach() for k, v in state.d.params.items()}
+            with frozen_stats(self.netD):
+                pred_fake, pred_real = discriminate(self.netD, d_frozen, up(sem),
+                                                    up(down(fake)), up(down(real_B)))
+            l_gan = gan_loss(pred_fake, True, hp.gan_mode, False) * hp.lambda_gan
+            l_feat = feature_matching_loss(pred_fake, pred_real) * hp.lambda_feat
+            if self.vgg is not None and hp.lambda_vgg > 0:
+                l_vgg = vgg_loss(self.vgg, fake, real_B, hp.vgg_compute_dtype) * hp.lambda_vgg
+            else:
+                l_vgg = torch.zeros((), device=self.device)
+            if hp.lambda_distill > 0:
+                l_dis, parts = self._distill_loss(state.adaptors, s_acts, t_acts)
+                l_dis = l_dis * hp.lambda_distill
+            else:
+                l_dis, parts = torch.zeros((), device=self.device), {}
+            rng_now = state.rng.get_state()
+            # the adaptors take no gradient under KA: zeros, as in the JAX package
+            g_grads = torch.autograd.grad(l_gan + l_feat + l_vgg + l_dis,
+                                          [*g_params.values(), *state.adaptors.values()],
+                                          allow_unused=True, materialize_grads=True)
+            state.rng.set_state(rng_now)  # a remat recompute rewound it
+        with span("step.adam", dev):
+            state.g.opt.step(average_grads(g_grads), lr_g)
 
         # --- D update: the fake regenerated by the updated student in train
         # mode, its statistics writes discarded ---
-        with torch.no_grad(), frozen_stats(self.netG_student):
-            fake = functional_call(self.netG_student, down(g_params), (sem,), {"train": True})
-        d_down = down(state.d.params)
-        d_loss = torch.zeros((), device=self.device)
-        if hp.gan_mode == "wgangp":
-            # the penalty's forwards read D's u of before the step: taken
-            # before the one forward that writes it
-            def d_apply(x):
-                return up(functional_call(self.netD, d_down, (x,), {"train": True}))
+        with span("step.d_loss_bwd", dev):
+            with torch.no_grad(), frozen_stats(self.netG_student):
+                fake = functional_call(self.netG_student, down(g_params), (sem,),
+                                       {"train": True})
+            d_down = down(state.d.params)
+            d_loss = torch.zeros((), device=self.device)
+            if hp.gan_mode == "wgangp":
+                # the penalty's forwards read D's u of before the step: taken
+                # before the one forward that writes it
+                def d_apply(x):
+                    return up(functional_call(self.netD, d_down, (x,), {"train": True}))
 
-            with frozen_stats(self.netD):
-                d_loss, _ = gradient_penalty(d_apply, d_input(sem, down(real_B)),
-                                             d_input(sem, fake), generator=state.rng)
-        pred_fake, pred_real = discriminate(self.netD, d_down, sem, fake, down(real_B))
-        l_d_fake = gan_loss(up(pred_fake), False, hp.gan_mode, True)
-        l_d_real = gan_loss(up(pred_real), True, hp.gan_mode, True)
-        d_grads = torch.autograd.grad(l_d_fake + l_d_real + d_loss,
-                                      list(state.d.params.values()))
-        state.d.opt.step(average_grads(d_grads), lr_d)
-
-        if hp.ema_decay > 0:
-            ema = list(state.extra["ema_G"].values())
-            with torch.no_grad():
-                torch._foreach_mul_(ema, hp.ema_decay)
-                torch._foreach_add_(ema, torch._foreach_mul(list(g_params.values()),
-                                                            1.0 - hp.ema_decay))
+                with frozen_stats(self.netD):
+                    d_loss, _ = gradient_penalty(d_apply, d_input(sem, down(real_B)),
+                                                 d_input(sem, fake), generator=state.rng)
+            pred_fake, pred_real = discriminate(self.netD, d_down, sem, fake, down(real_B))
+            l_d_fake = gan_loss(up(pred_fake), False, hp.gan_mode, True)
+            l_d_real = gan_loss(up(pred_real), True, hp.gan_mode, True)
+            d_grads = torch.autograd.grad(l_d_fake + l_d_real + d_loss,
+                                          list(state.d.params.values()))
+        with span("step.adam", dev):
+            state.d.opt.step(average_grads(d_grads), lr_d)
+            if hp.ema_decay > 0:
+                ema = list(state.extra["ema_G"].values())
+                with torch.no_grad():
+                    torch._foreach_mul_(ema, hp.ema_decay)
+                    torch._foreach_add_(ema, torch._foreach_mul(list(g_params.values()),
+                                                                1.0 - hp.ema_decay))
 
         state.step += 1
         metrics = {"G_loss/gan": l_gan, "G_loss/feat": l_feat, "G_loss/vgg": l_vgg,

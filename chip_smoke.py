@@ -41,7 +41,7 @@ Phases, in order; any failure exits non-zero before the result line:
      times per step; 4c: 4b in float32 (TF32 off), the float32 pair kernel
      launched 8 times per step;
   5. fused norms: the same step with ``fused_norms=True``, 1 warm-up + 3
-     timed steps, their median beside phase 4's, one profiled step; the norm
+     timed steps, their median beside phase 4's; the norm
      kernel launched once per ConvNormAct (6 per step) and its backward once
      per student ConvNormAct (3 per step);
   6. distill verb: ``entry.distill_main`` with the flags of
@@ -791,8 +791,8 @@ def norm_counts():
             "norm_bwd_paths": {p: n for p, n in inorm.bwd_path_launches.items() if n}}
 
 
-def run_steps(dev, teacher_cfg, teacher_sd, student_cfg, fused, n_steps, card,
-              profile_steps=0, batch_size=BATCH, compute_dtype="bfloat16"):
+def run_steps(dev, teacher_cfg, teacher_sd, student_cfg, fused, n_steps, batch_size=BATCH,
+              compute_dtype="bfloat16"):
     import torch
 
     from cat_tpu_torch.distill import ka
@@ -827,11 +827,7 @@ def run_steps(dev, teacher_cfg, teacher_sd, student_cfg, fused, n_steps, card,
     out = dist.generate_student(state, batch["A"][:2])
     if out.shape != (2, 3, SIZE, SIZE) or not torch.isfinite(out).all():
         fail(f"student output {tuple(out.shape)} not finite / wrong shape")
-    busy_ms = None
-    if profile_steps:
-        busy_ms = profile(lambda: dist.train_step(state, tparams, batch, LR), profile_steps,
-                          card)
-    return times, counts, vals, torch.cuda.max_memory_allocated(), busy_ms
+    return times, counts, vals, torch.cuda.max_memory_allocated()
 
 
 # ---------------------------------------------------------------------------
@@ -4244,60 +4240,6 @@ def int8_unet_deeplab(dev, card, root, judge, stats, teacher_cfg, teacher_sd, ve
             "teacher_convs": n_convs, "seconds": time.perf_counter() - t_phase}
 
 
-_KERNEL_GROUPS = (  # (group, substrings of the lower-cased kernel name), first match wins
-    ("gram (csrc/gram.cu)", ("gram_partial", "gram_reduce")),
-    ("instance_norm_act backward (csrc/instance_norm.cu)", ("inorm_act_bwd", "inorm_bwd")),
-    ("instance_norm_act forward (csrc/instance_norm.cu)", ("inorm_act",)),
-    ("cuDNN NCHW<->NHWC transposes", ("nchwtonhwc", "nhwctonchw")),
-    ("convolution / matmul", ("conv", "gemm", "xmma", "sm90_", "sm80_", "cutlass", "cudnn",
-                              "dgrad", "wgrad")),
-    ("reflection pad", ("reflection_pad",)),
-    ("multi-tensor (Adam)", ("multi_tensor", "foreach")),
-    ("reduction (plain norm statistics, losses)", ("reduce",)),
-    ("elementwise / copy / cast", ("elementwise", "copy", "cat", "fill")),
-)
-
-
-def profile(step, n, card):
-    """Device time of ``n`` steps by kernel group, from torch.profiler;
-    returns the device-busy milliseconds per step (None if the profiler saw
-    no device time).  The profiler slows the host, so its wall time is no
-    measure of the idle share."""
-    import torch
-
-    from cat_tpu_torch import import_stdlib_profile
-
-    import_stdlib_profile()  # the repository root's profile.py would shadow it
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as torch_profile
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-    wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if not busy_us:
-        log("profile: torch.profiler saw no device time on this machine")
-        return None
-    groups = {}
-    for e in kernels:
-        name = e.key.lower()
-        g = next((g for g, keys in _KERNEL_GROUPS if any(k in name for k in keys)), "other")
-        groups[g] = groups.get(g, 0.0) + e.self_device_time_total
-    log(f"profile over {n} flagship steps [{card}]: device busy {busy_us / 1e3 / n:.1f} "
-        f"ms/step ({wall_us / 1e3 / n:.1f} ms/step wall with the profiler on)")
-    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"  {g:45s} {us / 1e3 / n:9.2f} ms/step  {100 * us / busy_us:5.1f}%")
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    for e in top:
-        log(f"  {e.self_device_time_total / 1e3 / n:9.3f} ms/step  x{e.count // n:<4d} {e.key[:90]}")
-    return busy_us / 1e3 / n
-
-
 def main() -> None:
     try:
         import torch
@@ -4346,9 +4288,8 @@ def main() -> None:
 
     # --- 4. the flagship step
     log(f"flagship step at batch {BATCH} (as bench.py), {SIZE} px, bf16, packed blocks")
-    times, counts, vals, mem, busy_ms = run_steps(dev, teacher_cfg, teacher_sd, res.config,
-                                                  False, 1 + TIMED_STEPS, card,
-                                                  profile_steps=2)
+    times, counts, vals, mem = run_steps(dev, teacher_cfg, teacher_sd, res.config, False,
+                                         1 + TIMED_STEPS)
     if counts["gram"] != 8 * (1 + TIMED_STEPS) or counts["gram_tma"] != counts["gram"]:
         fail(f"Gram kernels launched {counts['gram']} times in {1 + TIMED_STEPS} steps, "
              f"{counts['gram_tma']} of them the TMA kernel; expected 8 per step, all TMA")
@@ -4356,15 +4297,12 @@ def main() -> None:
     log(f"flagship: {step_s * 1e3:.1f} ms/step, {BATCH / step_s:.1f} images/s "
         f"(warm-up step {times[0] * 1e3:.0f} ms), student {res.searched_macs} MACs, "
         f"peak memory {mem / 2**30:.2f} GiB, launches {counts}, losses {vals} [{card}]")
-    if busy_ms is not None:
-        log(f"flagship: device idle {100 * max(0.0, 1 - busy_ms / (step_s * 1e3)):.1f}% "
-            "(profiled device-busy time per step against the unprofiled step time)")
     gram_launches = counts["gram"]
 
     # --- 4b. the flagship step at batch 256: its Grams take the bf16 pair kernel
-    times_p, counts_p, vals_p, mem_p, _ = run_steps(dev, teacher_cfg, teacher_sd, res.config,
-                                                    False, PAIRS_STEPS, card,
-                                                    batch_size=PAIRS_BATCH)
+    times_p, counts_p, vals_p, mem_p = run_steps(dev, teacher_cfg, teacher_sd, res.config,
+                                                 False, PAIRS_STEPS,
+                                                 batch_size=PAIRS_BATCH)
     if counts_p["gram"] != 8 * PAIRS_STEPS or counts_p["gram_tma_pairs"] != counts_p["gram"]:
         fail(f"batch-{PAIRS_BATCH} step: Gram kernels launched {counts_p['gram']} times in "
              f"{PAIRS_STEPS} steps, {counts_p['gram_tma_pairs']} of them the pair kernel; "
@@ -4376,10 +4314,10 @@ def main() -> None:
 
     # --- 4c. the same in float32: its Grams take the float32 pair kernel
     torch.cuda.empty_cache()
-    times_q, counts_q, vals_q, mem_q, _ = run_steps(dev, teacher_cfg, teacher_sd, res.config,
-                                                    False, PAIRS_STEPS, card,
-                                                    batch_size=PAIRS_BATCH,
-                                                    compute_dtype="float32")
+    times_q, counts_q, vals_q, mem_q = run_steps(dev, teacher_cfg, teacher_sd, res.config,
+                                                 False, PAIRS_STEPS,
+                                                 batch_size=PAIRS_BATCH,
+                                                 compute_dtype="float32")
     if counts_q["gram"] != 8 * PAIRS_STEPS or counts_q["gram_f32tma_pairs"] != counts_q["gram"]:
         fail(f"float32 batch-{PAIRS_BATCH} step: Gram kernels launched {counts_q['gram']} times "
              f"in {PAIRS_STEPS} steps, {counts_q['gram_f32tma_pairs']} of them the pair kernel; "
@@ -4390,10 +4328,9 @@ def main() -> None:
         f"memory {mem_q / 2**30:.2f} GiB, launches {counts_q}, losses {vals_q} [{card}]")
 
     # --- 5. the fused-norm step, timed as phase 4 is: 1 warm-up + 3 timed
-    # steps, their median beside phase 4's; one profiled step
-    times_f, counts_f, vals_f, _, busy_f = run_steps(dev, teacher_cfg, teacher_sd, res.config,
-                                                     True, 1 + TIMED_STEPS, card,
-                                                     profile_steps=1)
+    # steps, their median beside phase 4's
+    times_f, counts_f, vals_f, _ = run_steps(dev, teacher_cfg, teacher_sd, res.config, True,
+                                             1 + TIMED_STEPS)
     n_f = 1 + TIMED_STEPS
     if (counts_f["instance_norm_act"] != 6 * n_f or counts_f["instance_norm_act_bwd"] != 3 * n_f
             or counts_f["gram"] != 8 * n_f or counts_f["gram_tma"] != counts_f["gram"]):
@@ -4404,8 +4341,6 @@ def main() -> None:
         f"{times_f[0] * 1e3:.0f} ms excluded; steps {[round(t * 1e3, 1) for t in times_f]}); "
         f"phase 4's plain-norm step in this call: median {med_4 * 1e3:.1f} ms "
         f"({100 * (med_5 / med_4 - 1):+.2f}%); launches {counts_f}, losses {vals_f} [{card}]")
-    if busy_f is not None:
-        log(f"fused-norm step: device idle {100 * max(0.0, 1 - busy_f / (med_5 * 1e3)):.1f}%")
 
     # --- 6. the distill verb and 7. evaluation, over one seeded dataset
     root = tempfile.mkdtemp(prefix="chip_smoke_verb_")

@@ -218,7 +218,8 @@ def distill_arguments(parser: argparse.ArgumentParser):
     p = train_arguments(parser)
     spade_arguments(p)
     p.add_argument("--fused_norms", action="store_true",
-                   help="route affine instance-norm+relu through the fused CUDA kernel")
+                   help="route every affine instance norm of the inception generators "
+                        "(trunk, blocks, pw_bn, upsampling) through the fused CUDA kernel")
     p.add_argument("--distiller", type=str, default="inception",
                    choices=["inception", "spade"])
     p.add_argument("--teacher_netG", type=str, default="inception_9blocks")

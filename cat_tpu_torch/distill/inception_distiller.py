@@ -91,7 +91,7 @@ class DistillHParams:
     mapping_layers: Tuple[str, ...] = DEFAULT_MAPPING_LAYERS
     compute_dtype: str = "float32"  # float32 | bfloat16
     teacher_compute_dtype: str = ""  # '' follows compute_dtype; int8 | int8_static (ops/quant.py)
-    fused_norms: bool = False  # affine instance norm + relu through the fused kernel
+    fused_norms: bool = False  # the generators' affine instance norms through the fused kernel
     packed_blocks: bool = True  # branch-packed inception blocks (same math)
     remat: bool = False  # recompute the student forward in the backward
     ema_decay: float = 0.0  # student-weight EMA (--moving_average_decay); 0 = off

@@ -42,18 +42,61 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
+# the activations the fused kernel applies, by the kernel's name
+_KERNEL_ACTS = {"relu": "relu", "nn.ReLU": "relu", "none": "none", "identity": "none"}
+
+
+def kernel_act(norm: NormConfig, act: str, fused: bool) -> Optional[str]:
+    """The fused kernel's name for ``act`` where ``fused`` sends an affine
+    instance norm followed by ``act`` through the kernel; None where the
+    plain path takes it (another norm, no affine, another activation)."""
+    if fused and norm.kind == "instance" and norm.affine:
+        return _KERNEL_ACTS.get(act)
+    return None
+
+
+def block_norm_sites(cfg: InceptionBlockConfig, packed: bool, act: str) -> list:
+    """(channels, activation) of each norm call in one forward of a block of
+    config ``cfg`` whose activation is ``act``, in order, from the config
+    alone: unpacked, one a residual branch and two a depthwise branch;
+    packed, one a kernel-size group of the first convs (the 1x1 group also
+    takes every depthwise branch's 1x1) and one for the depthwise stage;
+    then ``pw_bn``'s, with no activation.  An empty block has none."""
+    if cfg.is_empty:
+        return []
+    if packed:
+        groups: dict = {}
+        for _, mid, k in cfg.active_res:
+            groups[k] = groups.get(k, 0) + mid
+        for _, mid, _ in cfg.active_dw:
+            groups[1] = groups.get(1, 0) + mid
+        sites = [(groups[k], act) for k in sorted(groups)]
+        if cfg.active_dw:
+            sites.append((sum(mid for _, mid, _ in cfg.active_dw), act))
+    else:
+        sites = [(mid, act) for _, mid, _ in cfg.active_res]
+        sites += [(mid, act) for _, mid, _ in cfg.active_dw for _ in range(2)]
+    return sites + [(cfg.dim, "none")]
+
+
+def norm_act(x: torch.Tensor, norm: Norm2d, act: str, fused: bool,
+             train: bool = False) -> torch.Tensor:
+    """norm -> activation: the fused kernel (``ops/instance_norm.py``) where
+    ``kernel_act`` allows it, else the plain path, as in the JAX package.
+    ``train`` reaches the norm (batch statistics)."""
+    kact = kernel_act(norm.cfg, act, fused)
+    if kact is not None:
+        return fused_instance_norm_act(x.contiguous(), norm.weight.float(), norm.bias.float(),
+                                       norm.cfg.eps, kact)
+    return activation(act)(norm(x, train))
+
+
 def conv_norm_act(x: torch.Tensor, conv: nn.Conv2d, norm: Norm2d, act: str,
                   fused: bool, pad: int = 0, pad_mode: str = "reflect",
                   train: bool = False, height: Optional[int] = None) -> torch.Tensor:
-    """pad -> conv -> norm -> activation.  ``fused`` routes affine instance
-    norm + relu through the fused kernel (``ops/instance_norm.py``); other
-    norms and activations take the plain path, as in the JAX package.
-    ``train`` reaches the norm (batch statistics)."""
-    x = conv2d(conv, spatial_pad(x, pad, pad_mode, height), height)
-    if fused and norm.cfg.kind == "instance" and norm.cfg.affine and act in ("relu", "nn.ReLU"):
-        return fused_instance_norm_act(x, norm.weight.float(), norm.bias.float(),
-                                       norm.cfg.eps, "relu")
-    return activation(act)(norm(x, train))
+    """pad -> conv -> ``norm_act``."""
+    return norm_act(conv2d(conv, spatial_pad(x, pad, pad_mode, height), height), norm, act,
+                    fused, train)
 
 
 class ConvNormAct(nn.Sequential):
@@ -101,9 +144,11 @@ class InceptionBlock(nn.Module):
 
     ``packed=True`` (instance/none norm only) evaluates the same parameters
     with branch convolutions packed into kernel-size-homogeneous groups, as
-    ``_packed_call`` does in the JAX package; its norms run in plain tensor
-    code, never through the fused kernel.  An empty block is the identity
-    and owns no parameters.
+    ``_packed_call`` does in the JAX package.  ``fused_norms`` sends every
+    affine instance norm of the block through the fused kernel (``kernel_act``
+    decides): each branch's, or packed, each kernel-size group's and the
+    depthwise stage's on the concatenated scales, and ``pw_bn``'s with no
+    activation.  An empty block is the identity and owns no parameters.
     """
 
     def __init__(self, cfg: InceptionBlockConfig, norm: NormConfig = NormConfig(),
@@ -114,6 +159,7 @@ class InceptionBlock(nn.Module):
         self.cfg, self.norm = cfg, norm
         self.padding_type, self.active_fn = padding_type, active_fn
         self.dropout_rate, self.use_bias = dropout_rate, use_bias
+        self.fused_norms = fused_norms
         self.packed = packed and norm.kind in ("instance", "none")
         dim = cfg.dim
 
@@ -156,13 +202,17 @@ class InceptionBlock(nn.Module):
             h = ops[2](ops[0](x, train), train, height)
             h = ops[4](dropout(h, self.dropout_rate, train, generator, height))
             total = h if total is None else total + h
-        return x + self.pw_bn(total, train)
+        return x + norm_act(total, self.pw_bn, "none", self.fused_norms, train)
 
     # ------------------------------------------------------------- packed
 
     def _inorm_act(self, y, scale, bias):
         """Norm2d's instance-norm numerics on a packed tensor, with the
-        activation applied in float32 before the cast back."""
+        activation applied in float32 before the cast back: the fused
+        kernel's where ``kernel_act`` allows it."""
+        kact = kernel_act(self.norm, self.active_fn, self.fused_norms)
+        if kact is not None:
+            return fused_instance_norm_act(y, scale.float(), bias.float(), self.norm.eps, kact)
         yf = y.float()
         if self.norm.kind == "instance":
             yf = instance_norm_f32(yf, scale, bias, self.norm.eps)
@@ -246,4 +296,4 @@ class InceptionBlock(nn.Module):
         if self.use_bias:
             bsum = sum(c.bias for group in og.values() for _, c in group)
             total = total + bsum[:, None, None]
-        return x + self.pw_bn(total)
+        return x + norm_act(total, self.pw_bn, "none", self.fused_norms, train)

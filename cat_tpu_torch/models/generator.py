@@ -25,12 +25,31 @@ import torch
 from torch import nn
 
 from cat_tpu_torch.core.config import InceptionGeneratorConfig
-from cat_tpu_torch.models.blocks import InceptionBlock, conv_norm_act
-from cat_tpu_torch.ops.nn import ConvTranspose2d, Norm2d, activation, init_weights, spatial_pad
+from cat_tpu_torch.models.blocks import (InceptionBlock, block_norm_sites, conv_norm_act,
+                                         kernel_act, norm_act)
+from cat_tpu_torch.ops.nn import ConvTranspose2d, Norm2d, init_weights, spatial_pad
 from cat_tpu_torch.parallel import spatial
 
 # after the encoder and after features 2/5/8
 DEFAULT_MAPPING_LAYERS = ("encode", "block2", "block5", "block8")
+
+
+def fused_norm_sites(cfg: InceptionGeneratorConfig, packed: bool, size: int) -> list:
+    """(layer, channels, height = width, the kernel's activation) of each
+    norm call that ``fused_norms`` sends through the fused kernel in one
+    forward of a ``size`` x ``size`` image, in order, from the config alone
+    (``kernel_act`` decides): the trunk's, each block's
+    (``block_norm_sites``), the upsampling's."""
+    packed = packed and cfg.norm.kind in ("instance", "none")
+    n_ds, n_us = len(cfg.ds_channels), len(cfg.us_channels)
+    sites = [("trunk", c, size >> j, cfg.active_fn) for j, c in enumerate(cfg.ds_channels)]
+    for b in cfg.blocks:
+        sites += [("blocks", c, size >> (n_ds - 1), act)
+                  for c, act in block_norm_sites(b, packed, cfg.active_fn)]
+    sites += [("upsampling", c, size >> (n_us - 1 - j), cfg.active_fn)
+              for j, c in enumerate(cfg.us_channels)]
+    return [(layer, c, hw, kernel_act(cfg.norm, act, True)) for layer, c, hw, act in sites
+            if kernel_act(cfg.norm, act, True) is not None]
 
 
 class InceptionGenerator(nn.Module):
@@ -96,9 +115,9 @@ class InceptionGenerator(nn.Module):
                 acts[f"block{i}"] = h
 
         us = self.up_sampling
-        act = activation(cfg.active_fn)
         for j in range(len(cfg.us_channels)):
-            h = act(us[3 * j + 1](us[3 * j](h, hh), train))
+            h = norm_act(us[3 * j](h, hh), us[3 * j + 1], cfg.active_fn, self.fused_norms,
+                         train)
             hh = spatial.conv_transpose_height(hh, us[3 * j])
         y = torch.tanh(us[-1](spatial_pad(h, 3, cfg.padding_type, hh)))
         if taps:

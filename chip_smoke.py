@@ -22,16 +22,23 @@ Phases, in order; any failure exits non-zero before the result line:
      (one launch, G == Gᵀ exactly, two calls bit-identical, the plain
      version's result), the teacher's timed; at B = 300 (a ragged last
      block) in place and on a padded copy (F % 8 != 0), checked only.  The
-     instance norm at the six ConvNormAct sites of both nets (batch 128, bf16
-     and f32): the forward on its planned path (one CTA or a cluster) and
-     forced onto the two-pass loop, and the backward kernel against its
-     plain twin (two calls bit-identical), timed beside their bounds, the
-     plain versions and ``F.instance_norm``'s forward and backward; a 255²
-     plane checks the two-pass path both ways;
+     instance norm at the six trunk sites of both nets (batch 128, bf16
+     and f32): the forward on its planned path (one CTA or a cluster; relu,
+     leaky relu and none) and forced onto the two-pass loop, and the
+     backward kernel against its plain twin (relu and none; two calls
+     bit-identical), timed beside their bounds, the plain versions and
+     ``F.instance_norm``'s forward and backward; then at every site the
+     flagship step fuses (``models/generator.py::fused_norm_sites``: trunk,
+     packed blocks' kernel-size groups and depthwise stage, ``pw_bn`` with
+     no activation, upsampling; batch 128, bf16), each distinct shape's
+     forward and backward kernel against the plain versions with the site's
+     activation, timed beside the plain versions and the bound, with one
+     step's totals by layer; a 255² plane checks the two-pass path both ways;
   3. reference: one float32 KA-distillation step at a tiny size on the card
      (kernels) and on the CPU (plain versions), losses compared, at batch 2
-     and at batch 130 (4 launches of the float32 pair kernel; 42 forward and
-     21 backward launches of the norm kernel, its blocks unpacked);
+     and at batch 130 (4 launches of the float32 pair kernel; the norm
+     kernel's forward once per instance norm of both nets and its backward
+     once per student norm, ``fused_norm_sites``, its blocks unpacked);
   4. flagship: the horse2zebra KA-distillation step of ``bench.py`` (teacher
      ngf 64 / r6 / kernels 1,3,5; student shrunk to 2.6e9 MACs; 256 px;
      unaligned lsgan + KA over encode, block2, block5, block8; bf16 compute,
@@ -41,9 +48,9 @@ Phases, in order; any failure exits non-zero before the result line:
      times per step; 4c: 4b in float32 (TF32 off), the float32 pair kernel
      launched 8 times per step;
   5. fused norms: the same step with ``fused_norms=True``, 1 warm-up + 3
-     timed steps, their median beside phase 4's; the norm
-     kernel launched once per ConvNormAct (6 per step) and its backward once
-     per student ConvNormAct (3 per step);
+     timed steps, their median beside phase 4's; the norm kernel launched
+     once per instance norm of both nets and its backward once per student
+     norm (``fused_norm_sites``: trunk, packed blocks, ``pw_bn``, upsampling);
   6. distill verb: ``entry.distill_main`` with the flags of
      ``scripts/cycle_gan/horse2zebra/train_inception_student_2p6B.sh`` (batch
      80, 2.6e9-MAC student, KA, lsgan, pretrained-G transfer and D restore)
@@ -167,7 +174,8 @@ Phases, in order; any failure exits non-zero before the result line:
      state after step 1: losses within DP_LOSS_TOL of max(|loss|, 0.1), 4
      Gram launches a step on each rank; at 1 x 2 also the distiller under
      ``--fused_norms``: each split-plane entry point of the norm kernel
-     launched 6 times a step, the whole-plane kernel never; (b)
+     launched once a step for each instance norm of both nets
+     (``fused_norm_sites``), the whole-plane kernel never; (b)
      ``entry.distill_main`` with phase 6's recipe and ``--n_spatial 2`` over
      two ranks on cuda:0 for 4 steps: step 1's losses within DP_LOSS_TOL of
      phase 12 (a)'s one process (later steps' gaps printed), 8 f32tma Gram
@@ -470,10 +478,10 @@ def _check_norm(x, scale, bias, act, path, plan=None):
     return _check_close(got, ref, f"instance_norm_act {act} {path} {x.dtype} {tuple(x.shape)}")
 
 
-def _check_norm_bwd(x, g, scale, bias, path, plan=None):
-    """The backward kernel (relu) against its plain twin, both on the
-    forward kernel's mean and rstd (relu's mask flips where z is within a
-    rounding of 0, so the twin takes the same statistics): dx within the
+def _check_norm_bwd(x, g, scale, bias, path, plan=None, act="relu"):
+    """The backward kernel (activation ``act``) against its plain twin, both
+    on the forward kernel's mean and rstd (relu's mask flips where z is
+    within a rounding of 0, so the twin takes the same statistics): dx within the
     forward's tolerance; dscale and dbias, sums of N·H·W float32 terms in
     another order, within 1e-5 of the sum of the terms' magnitudes; two
     calls bit-identical.  Returns (max |err| of dx, the outputs)."""
@@ -482,15 +490,15 @@ def _check_norm_bwd(x, g, scale, bias, path, plan=None):
     from cat_tpu_torch.ops import instance_norm as inorm
 
     _, mean, rstd = inorm.forward_cuda(x, scale, bias)
-    got = inorm.instance_norm_act_backward_cuda(x, g, mean, rstd, scale, bias, "relu", plan)
-    again = inorm.instance_norm_act_backward_cuda(x, g, mean, rstd, scale, bias, "relu", plan)
-    ref = inorm.instance_norm_act_backward_plain(x, g, scale, bias, 1e-5, "relu", (mean, rstd))
-    what = f"instance_norm_act backward {path} {x.dtype} {tuple(x.shape)}"
+    got = inorm.instance_norm_act_backward_cuda(x, g, mean, rstd, scale, bias, act, plan)
+    again = inorm.instance_norm_act_backward_cuda(x, g, mean, rstd, scale, bias, act, plan)
+    ref = inorm.instance_norm_act_backward_plain(x, g, scale, bias, 1e-5, act, (mean, rstd))
+    what = f"instance_norm_act backward {act} {path} {x.dtype} {tuple(x.shape)}"
     err = _check_close(got[0], ref[0], what + " dx")
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         fail(f"{what}: two calls differ")
     xh = (x.float() - mean.reshape(*x.shape[:2], 1, 1)) * rstd.reshape(*x.shape[:2], 1, 1)
-    gp = g.float() * inorm._act_grad(xh * scale[:, None, None] + bias[:, None, None], "relu")
+    gp = g.float() * inorm._act_grad(xh * scale[:, None, None] + bias[:, None, None], act)
     for name, k, terms in (("dscale", 1, gp * xh), ("dbias", 2, gp)):
         tol = 1e-5 * terms.abs().sum(dim=(0, 2, 3)) + 1e-6
         gap = (got[k] - ref[k]).abs()
@@ -503,7 +511,7 @@ def _check_norm_bwd(x, g, scale, bias, path, plan=None):
 
 def norm_numbers(planes, dtype, gen, flush, card):
     """The forward kernel at each (C, H = W) of ``planes`` (batch BATCH),
-    relu and leaky relu, on its planned path against the plain version,
+    relu, leaky relu and none, on its planned path against the plain version,
     and relu on the two-pass loop too; times kernel, two-pass loop, plain
     version, ``F.instance_norm`` (norm + affine, no ReLU: less work) and the
     bound (one read and one write); returns the totals of one step (each
@@ -521,7 +529,8 @@ def norm_numbers(planes, dtype, gen, flush, card):
         scale = torch.rand(c, generator=gen, device=dev) + 0.5
         bias = torch.randn(c, generator=gen, device=dev)
         plan = inorm.norm_plan(hw * hw, x.element_size())
-        err = max(_check_norm(x, scale, bias, act, plan.path) for act in ("relu", "leaky_relu"))
+        err = max(_check_norm(x, scale, bias, act, plan.path)
+                  for act in ("relu", "leaky_relu", "none"))
         err2 = _check_norm(x, scale, bias, "relu", "two_pass", inorm.TWO_PASS)
         # in turns: kernel, two-pass, plain, library
         ms = timed(lambda: inorm.forward_cuda(x, scale, bias), flush=flush)
@@ -554,9 +563,9 @@ def norm_numbers(planes, dtype, gen, flush, card):
 
 
 def norm_bwd_numbers(planes, dtype, gen, flush, card):
-    """The backward kernel (relu) at each (C, H = W) of ``planes`` (batch
-    BATCH) on its planned path against its plain twin, bit-identical over
-    two calls; times kernel, twin, the backward of ``F.instance_norm(x,
+    """The backward kernel at each (C, H = W) of ``planes`` (batch BATCH)
+    on its planned path against its plain twin, relu and none, bit-identical
+    over two calls; times (relu) kernel, twin, the backward of ``F.instance_norm(x,
     weight=γ, bias=β)`` alone (its graph built outside the timed region:
     norm + affine without the ReLU mask) and the bound (x and g read once,
     dx written once); returns the totals of one step (each site once)."""
@@ -574,7 +583,8 @@ def norm_bwd_numbers(planes, dtype, gen, flush, card):
         scale = torch.rand(c, generator=gen, device=dev) + 0.5
         bias = torch.randn(c, generator=gen, device=dev)
         plan = inorm.norm_plan(hw * hw, x.element_size(), 2)
-        err, _ = _check_norm_bwd(x, g, scale, bias, plan.path)
+        err = max(_check_norm_bwd(x, g, scale, bias, plan.path, act=act)[0]
+                  for act in ("relu", "none"))
         _, mean, rstd = inorm.forward_cuda(x, scale, bias)
         xl = x.detach().requires_grad_(True)
         wl, bl = scale.clone().requires_grad_(True), bias.clone().requires_grad_(True)
@@ -609,13 +619,102 @@ def norm_bwd_numbers(planes, dtype, gen, flush, card):
     return tot
 
 
-def check_kernels(dev, t_channels, s_channels, card):
+def norm_site_numbers(nets, dtype, gen, flush, card):
+    """The norm kernel at every site the flagship step fuses: ``nets`` is
+    ((generator config, backward), ...), each net's ``fused_norm_sites``
+    (packed blocks, SIZE px) run forward once a step and, where
+    ``backward``, backward once.  At each distinct (C, H = W, activation),
+    batch BATCH, the forward kernel against the plain version and the
+    backward kernel against its plain twin (``_check_norm``,
+    ``_check_norm_bwd``: relu sites and ``pw_bn``'s none), then each timed
+    alone beside its plain version and its bound (forward: x read, y
+    written; backward: x and g read, dx written).  Logs one line a shape and
+    one step's totals by layer (trunk, blocks, upsampling); returns those
+    totals, forward and backward apart."""
+    import collections
+
+    import torch
+
+    from cat_tpu_torch.models.generator import fused_norm_sites
+    from cat_tpu_torch.ops import instance_norm as inorm
+
+    dev = torch.device("cuda")
+    dname = str(dtype).split(".")[-1]
+    calls = collections.Counter()  # (direction, layer, C, H, act) -> calls a step
+    for cfg, backward in nets:
+        for layer, c, hw, act in fused_norm_sites(cfg, True, SIZE):
+            calls[("forward", layer, c, hw, act)] += 1
+            calls[("backward", layer, c, hw, act)] += backward
+    per = {}  # (direction, C, H, act) -> (ms, plain ms, bytes ms, ops ms, max |err|)
+    n_shape = collections.Counter()  # (direction, C, H, act) -> calls a step
+    for (d, _, c, hw, act), n in calls.items():
+        n_shape[(d, c, hw, act)] += n
+    for c, hw, act in sorted({key[2:] for key in calls}):
+        x = (torch.randn(BATCH, c, hw, hw, generator=gen, device=dev) * 3 + 1).to(dtype)
+        g = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+        scale = torch.rand(c, generator=gen, device=dev) + 0.5
+        bias = torch.randn(c, generator=gen, device=dev)
+        fplan = inorm.norm_plan(hw * hw, x.element_size())
+        bplan = inorm.norm_plan(hw * hw, x.element_size(), 2)
+        ferr = _check_norm(x, scale, bias, act, fplan.path)
+        berr, _ = _check_norm_bwd(x, g, scale, bias, bplan.path, act=act)
+        _, mean, rstd = inorm.forward_cuda(x, scale, bias, 1e-5, act)
+        fms = timed(lambda: inorm.forward_cuda(x, scale, bias, 1e-5, act), flush=flush)
+        fplain = timed(lambda: inorm.instance_norm_act_plain(x, scale, bias, 1e-5, act),
+                       flush=flush)
+        bms = timed(lambda: inorm.instance_norm_act_backward_cuda(x, g, mean, rstd, scale, bias,
+                                                                  act), flush=flush)
+        bplain = timed(lambda: inorm.instance_norm_act_backward_plain(x, g, scale, bias, 1e-5, act,
+                                                                      (mean, rstd)), flush=flush)
+        nbytes = x.numel() * x.element_size()
+        # ~10 flops per element forward and ~20 backward, on CUDA cores
+        per[("forward", c, hw, act)] = (fms, fplain, 1e3 * 2 * nbytes / HBM_BYTES_PER_S,
+                                        1e3 * 10 * x.numel() / PEAK_FLOPS["float32"], ferr)
+        per[("backward", c, hw, act)] = (bms, bplain, 1e3 * 3 * nbytes / HBM_BYTES_PER_S,
+                                         1e3 * 20 * x.numel() / PEAK_FLOPS["float32"], berr)
+        pct = {d: 100 * max(per[(d, c, hw, act)][2:4]) / per[(d, c, hw, act)][0]
+               for d in ("forward", "backward")}
+        log(f"instance_norm_act site {dname:8s} {tuple(x.shape)} {act}: forward {fms:.4f} ms "
+            f"({pct['forward']:.1f}% of bound; {fplan.path} k={fplan.k} ppc={fplan.ppc}), plain "
+            f"{fplain:.4f} ms, max|err| {ferr:.3g}; backward {bms:.4f} ms ({pct['backward']:.1f}% "
+            f"of bound; {bplan.path} k={bplan.k} ppc={bplan.ppc}), plain twin {bplain:.4f} ms, "
+            f"max|err| of dx {berr:.3g}; calls a step {n_shape[('forward', c, hw, act)]} "
+            f"forward, {n_shape[('backward', c, hw, act)]} backward [{card}]")
+        del x, g, mean, rstd
+    out = {}
+    for direction in ("forward", "backward"):
+        layers = {}
+        for (d, layer, c, hw, act), n in calls.items():
+            if d != direction or not n:
+                continue
+            ms, plain, bytes_ms, ops_ms, err = per[(d, c, hw, act)]
+            for key in (layer, "all"):
+                t = layers.setdefault(key, {"calls": 0, "ms": 0.0, "plain_ms": 0.0,
+                                            "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                                            "err": 0.0, "library_ms": None})
+                t["calls"] += n
+                for k, v in (("ms", ms), ("plain_ms", plain), ("bytes_ms", bytes_ms),
+                             ("ops_ms", ops_ms), ("bound_ms", max(bytes_ms, ops_ms))):
+                    t[k] += n * v
+                t["err"] = max(t["err"], err)
+        for key in sorted(layers, key=("trunk", "blocks", "upsampling", "all").index):
+            t = layers[key]
+            log(f"instance_norm_act {direction} {dname}, {key} sites: {t['calls']} calls a step, "
+                f"kernel {t['ms']:.4f} ms ({100 * t['bound_ms'] / t['ms']:.1f}% of bound), "
+                f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms [{card}]")
+        out[direction] = {**layers["all"], "layers": layers}
+    return out
+
+
+def check_kernels(dev, teacher_cfg, student_cfg, card):
     """Each kernel against its plain version in bf16 and f32 at the step's
-    shapes; returns the per-step numbers of each kernel at the main path's
-    dtype (bf16)."""
+    shapes (the norm kernel's at the generators' own sites, ``fused_norm_sites``);
+    returns the per-step numbers of each kernel at the main path's dtype
+    (bf16)."""
     import torch
 
     from cat_tpu_torch.distill import ka
+    from cat_tpu_torch.models.generator import fused_norm_sites
     from cat_tpu_torch.ops import instance_norm as inorm
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -630,7 +729,7 @@ def check_kernels(dev, t_channels, s_channels, card):
     # bit-reproducibility and timed beside the mma.sync kernel on the same
     # operand.  f32: the TMA + FMA kernel, checked the same way and for exact
     # symmetry, and timed beside the old FMA kernel.
-    bc = t_channels[-1], s_channels[-1]
+    bc = teacher_cfg.ds_channels[-1], student_cfg.ds_channels[-1]
     for dtype in (torch.bfloat16, torch.float32):
         xs = [torch.relu(torch.randn(BATCH, 64 * 64 * c, generator=gen, device=dev)).to(dtype)
               for c in bc]
@@ -662,12 +761,16 @@ def check_kernels(dev, t_channels, s_channels, card):
     # --- instance norm + affine + relu at stem / down0 / down1, both nets:
     # the forward on its planned path and forced onto the two-pass loop, the
     # backward kernel against its plain twin, each timed beside its bound
-    planes = [(c, SIZE >> j) for channels in (t_channels, s_channels)
-              for j, c in enumerate(channels)]
+    planes = [(c, hw) for cfg in (teacher_cfg, student_cfg)
+              for layer, c, hw, _ in fused_norm_sites(cfg, True, SIZE) if layer == "trunk"]
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         out[("instance_norm_act", dname)] = norm_numbers(planes, dtype, gen, flush, card)
         out[("instance_norm_act_bwd", dname)] = norm_bwd_numbers(planes, dtype, gen, flush, card)
+    # every site the flagship step fuses, at its dtype: the teacher's
+    # forward, the student's forward and backward
+    out["norm_sites"] = norm_site_numbers(((teacher_cfg, False), (student_cfg, True)),
+                                          torch.bfloat16, gen, flush, card)
     # the path the flagship's planes never take natively: a plane whose bytes
     # are not a multiple of 16 (255²), forward and backward
     for dtype in (torch.bfloat16, torch.float32):
@@ -698,13 +801,14 @@ def reference_check(dev, batch=2):
     same weights and batch: the kernels in context against the plain
     versions.  Returns the card step's Gram launches by path (batch > 128:
     the f32 pair kernel; the CPU takes ``gram_pairs_plain``) and its fused
-    norm's forward and backward launches (42 and 21)."""
+    norm's forward and backward launches (``fused_norm_sites``: every norm
+    of both nets forward, the student's backward)."""
     import torch
 
     from cat_tpu_torch.core.config import InceptionGeneratorConfig, NLayerDiscriminatorConfig
     from cat_tpu_torch.distill import ka
     from cat_tpu_torch.distill.inception_distiller import DistillHParams, InceptionDistiller
-    from cat_tpu_torch.models.generator import InceptionGenerator
+    from cat_tpu_torch.models.generator import InceptionGenerator, fused_norm_sites
 
     def cfg(ngf):
         return InceptionGeneratorConfig.make(ngf=ngf, channels_reduction_factor=2,
@@ -730,10 +834,13 @@ def reference_check(dev, batch=2):
             torch.cuda.synchronize()
             counts = {"gram": ka.launches, **{p: n for p, n in ka.path_launches.items() if n},
                       **norm_counts()}
-            # unpacked blocks: every ConvNormAct of both nets (21 a net) is fused
-            if counts["instance_norm_act"] != 42 or counts["instance_norm_act_bwd"] != 21:
-                fail(f"tiny f32 step at batch {batch}: norm launches {counts}, expected 42 "
-                     "forward (21 a net) and 21 backward (the student's)")
+            # unpacked blocks: every instance norm of both nets is fused
+            t_sites, s_sites = (len(fused_norm_sites(c, False, 32)) for c in (cfg(8), cfg(4)))
+            if (counts["instance_norm_act"] != t_sites + s_sites
+                    or counts["instance_norm_act_bwd"] != s_sites):
+                fail(f"tiny f32 step at batch {batch}: norm launches {counts}, expected "
+                     f"{t_sites + s_sites} forward ({t_sites} teacher, {s_sites} student) and "
+                     f"{s_sites} backward (the student's)")
         losses.append({k: float(v) for k, v in m.items()})
     for k in losses[1]:
         # float32 throughout (TF32 off): sums in another order only
@@ -2906,29 +3013,32 @@ def sp_shard(x, rank, n_spatial, world):
     return x[d * b:(d + 1) * b, :, start:stop]
 
 
+def sp_cfgs(kind, ngf, d_in):
+    """13 (a)'s tiny (generator, discriminator) configs: ``kind`` norms."""
+    from cat_tpu_torch.core.config import (InceptionGeneratorConfig, NLayerDiscriminatorConfig,
+                                           NormConfig)
+
+    norm = NormConfig(kind=kind, affine=True, track_running_stats=kind == "batch")
+    return (InceptionGeneratorConfig.make(ngf=ngf, channels_reduction_factor=2,
+                                          kernel_sizes=(1, 3, 5), n_blocks=3, norm=norm),
+            NLayerDiscriminatorConfig(input_nc=d_in, ndf=8, norm=norm))
+
+
 def sp_tiny(name, dev, fused=False, keep=None):
     """13 (a)'s tiny float32 task ``name`` on ``dev`` from seeds: (step
     function of a batch -> metrics, train state).  The distiller: instance
-    norm, lsgan, KA on two taps (``fused``: its ConvNormAct sites through the
+    norm, lsgan, KA on two taps (``fused``: its instance norms through the
     norm kernel); pix2pix: tracked batch norm, wgangp; CycleGAN: instance
     norm, lsgan, a pool of 3.  ``keep``: a dict that receives the task."""
     import torch
 
-    from cat_tpu_torch.core.config import (InceptionGeneratorConfig, NLayerDiscriminatorConfig,
-                                           NormConfig)
     from cat_tpu_torch.distill.inception_distiller import DistillHParams, InceptionDistiller
     from cat_tpu_torch.models.generator import InceptionGenerator
     from cat_tpu_torch.train.cyclegan import CycleGANHParams, CycleGANTask
     from cat_tpu_torch.train.pix2pix import Pix2PixHParams, Pix2PixTask
 
-    def cfgs(kind, ngf, d_in):
-        norm = NormConfig(kind=kind, affine=True, track_running_stats=kind == "batch")
-        return (InceptionGeneratorConfig.make(ngf=ngf, channels_reduction_factor=2,
-                                              kernel_sizes=(1, 3, 5), n_blocks=3, norm=norm),
-                NLayerDiscriminatorConfig(input_nc=d_in, ndf=8, norm=norm))
-
     if name == "distill":
-        (tc, dc), (sc, _) = cfgs("instance", 8, 3), cfgs("instance", 4, 3)
+        (tc, dc), (sc, _) = sp_cfgs("instance", 8, 3), sp_cfgs("instance", 4, 3)
         teacher = InceptionGenerator(tc, generator=torch.Generator().manual_seed(1))
         hp = DistillHParams(dataset_mode="unaligned", gan_mode="lsgan", lambda_recon=5.0,
                             mapping_layers=("encode", "block1"), fused_norms=fused)
@@ -2938,10 +3048,10 @@ def sp_tiny(name, dev, fused=False, keep=None):
             keep["task"] = task
         return (lambda b: task.train_step(state, tparams, b, LR)[1]), state
     if name == "pix2pix":
-        task = Pix2PixTask(*cfgs("batch", 8, 6), Pix2PixHParams(gan_mode="wgangp"), dev)
+        task = Pix2PixTask(*sp_cfgs("batch", 8, 6), Pix2PixHParams(gan_mode="wgangp"), dev)
         state = task.init_state(3)
     else:
-        task = CycleGANTask(*cfgs("instance", 8, 3), CycleGANHParams(pool_size=3), dev)
+        task = CycleGANTask(*sp_cfgs("instance", 8, 3), CycleGANHParams(pool_size=3), dev)
         state = task.init_state(32, 32, 3)
     return (lambda b: task.train_step(state, b, LR)[1]), state
 
@@ -3610,6 +3720,7 @@ def spatial_parallel(card, root, dp, teacher_cfg, student_cfg, judge, stats):
     import numpy as np
     import torch
 
+    from cat_tpu_torch.models.generator import fused_norm_sites
     from cat_tpu_torch.parallel import mesh
 
     t_phase = time.perf_counter()
@@ -3623,6 +3734,9 @@ def spatial_parallel(card, root, dp, teacher_cfg, student_cfg, judge, stats):
     one_e = sp_spade_runs(dev, root)  # (e) in one process
     torch.cuda.empty_cache()
     a, e = {}, {}
+    # the fused tiny distiller's norm sites in 2 steps (packed blocks, both nets)
+    fused_sites = 2 * sum(len(fused_norm_sites(sp_cfgs("instance", ngf, 3)[0], True, 32))
+                          for ngf in (8, 4))
     for world, n_spatial in SP_WORLDS:
         t0 = time.perf_counter()
         mesh.spawn(sp_rank_a, world, args=(root, n_spatial), device="cuda:0", backend="gloo",
@@ -3653,12 +3767,14 @@ def spatial_parallel(card, root, dp, teacher_cfg, student_cfg, judge, stats):
                      "2 steps (two taps, teacher and student)")
             if "distill_fused" in rk:
                 cf = rk["distill_fused"]["counts"]
-                if cf["split_stats"] != 12 or cf["split_apply"] != 12 or cf["instance_norm_act"]:
-                    fail(f"13 (a)/(c) fused distill over {world} ranks: {cf}; expected 6 "
-                         "launches a step of each split entry point and none of the whole-"
-                         "plane kernel")
-        if one["distill_fused"]["counts"]["instance_norm_act"] != 12:
-            fail(f"13 (a) fused distill in one process: {one['distill_fused']['counts']}")
+                if (cf["split_stats"] != fused_sites or cf["split_apply"] != fused_sites
+                        or cf["instance_norm_act"]):
+                    fail(f"13 (a)/(c) fused distill over {world} ranks: {cf}; expected "
+                         f"{fused_sites // 2} launches a step of each split entry point and none "
+                         "of the whole-plane kernel")
+        if one["distill_fused"]["counts"]["instance_norm_act"] != fused_sites:
+            fail(f"13 (a) fused distill in one process: {one['distill_fused']['counts']}, "
+                 f"expected {fused_sites} whole-plane launches")
         a[f"{world // n_spatial}x{n_spatial}"] = {"loss_gaps": gaps, "worst": worst, "seconds":
                                                   time.perf_counter() - t0,
                                                   "counts": {k: v["counts"]
@@ -4276,7 +4392,7 @@ def main() -> None:
                     log(f"  {name}: {line.strip()}")
 
     teacher_cfg, teacher_sd, res = flagship()
-    kern = check_kernels(dev, teacher_cfg.ds_channels, res.config.ds_channels, card)
+    kern = check_kernels(dev, teacher_cfg, res.config, card)
 
     # --- 3. small steps against the CPU: batch 2, and batch 130 through the
     # f32 pair kernel (4 launches: two taps, teacher and student)
@@ -4332,10 +4448,15 @@ def main() -> None:
     times_f, counts_f, vals_f, _ = run_steps(dev, teacher_cfg, teacher_sd, res.config, True,
                                              1 + TIMED_STEPS)
     n_f = 1 + TIMED_STEPS
-    if (counts_f["instance_norm_act"] != 6 * n_f or counts_f["instance_norm_act_bwd"] != 3 * n_f
+    from cat_tpu_torch.models.generator import fused_norm_sites
+
+    t_sites, s_sites = (len(fused_norm_sites(c, True, SIZE)) for c in (teacher_cfg, res.config))
+    if (counts_f["instance_norm_act"] != (t_sites + s_sites) * n_f
+            or counts_f["instance_norm_act_bwd"] != s_sites * n_f
             or counts_f["gram"] != 8 * n_f or counts_f["gram_tma"] != counts_f["gram"]):
-        fail(f"fused step: launches {counts_f}, expected 6 norm forward, 3 norm backward and "
-             "8 Gram (TMA) per step")
+        fail(f"fused step: launches {counts_f}, expected {t_sites + s_sites} norm forward "
+             f"({t_sites} teacher, {s_sites} student), {s_sites} norm backward and 8 Gram (TMA) "
+             "per step")
     med_4, med_5 = statistics.median(times[1:]), statistics.median(times_f[1:])
     log(f"fused-norm step: median {med_5 * 1e3:.1f} ms/step over steps 2-{n_f} (warm-up "
         f"{times_f[0] * 1e3:.0f} ms excluded; steps {[round(t * 1e3, 1) for t in times_f]}); "
@@ -4436,7 +4557,7 @@ def main() -> None:
     # batch 128; launches: phase 5's bf16 steps, phase 3's float32 tiny step
     norm_src = "cat_tpu_torch/csrc/instance_norm.cu"
     f32_per = (f"one call at each of the six sites at batch {BATCH}, float32; launches: phase "
-               f"3's float32 step at batch 2 (unpacked blocks: every ConvNormAct fused)")
+               f"3's float32 step at batch 2 (unpacked blocks: every instance norm fused)")
     for name, key, launches, replaces in (
             ("instance_norm_act", "instance_norm_act", "instance_norm_act",
              "cat_tpu/ops/pallas_norm.py:35"),
@@ -4448,6 +4569,18 @@ def main() -> None:
             rows.append({**row(f"{name} ({dname})", norm_src, replaces, n, k, text),
                          **({"two_pass_ms": k["two_pass_ms"]} if "two_pass_ms" in k else {}),
                          "sites": k["paths"]})
+    # the same kernels at every site phase 5 fuses (trunk, blocks, upsampling)
+    for direction, name, launches, replaces in (
+            ("forward", "instance_norm_act", "instance_norm_act", "cat_tpu/ops/pallas_norm.py:35"),
+            ("backward", "instance_norm_act backward", "instance_norm_act_bwd",
+             "cat_tpu/ops/pallas_norm.py:169 (_fused_bwd, XLA's)")):
+        k = kern["norm_sites"][direction]
+        rows.append({**row(f"{name} (bfloat16, every fused site)", norm_src, replaces,
+                           counts_f[launches], k,
+                           f"one step's {k['calls']} calls at the flagship's fused sites at batch "
+                           f"{BATCH}, bf16, each shape timed alone (phase 2); launches: phase 5's "
+                           f"{n_f} steps"),
+                     "layers": k["layers"]})
     for v, dname in zip(verb, ("float32", "bfloat16")):
         k = verb_kern[v["label"]]
         rows.append({**row(f"gram (distill verb, {dname})", *gram_src, v["gram_launches"], k,

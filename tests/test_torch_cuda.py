@@ -330,6 +330,60 @@ def test_fused_instance_norm_act_runs_both_kernels(cuda, rng, dtype):
     _assert_channel_sums_close(x, g, scale, bias, "relu", ds, db, rds, rdb)
 
 
+def _rel_gap(got, ref, scale):
+    got, ref, scale = (t.detach().float() for t in (got, ref, scale))
+    return float((got - ref).norm() / scale.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+def test_packed_block_norms_go_through_the_kernels(cuda):
+    """A packed bf16 inception block under fused_norms against its plain
+    path on the card, output and every parameter's gradient: its norms take
+    the kernel forward and backward once per kernel-size group of the first
+    convs, once for the depthwise stage and once for ``pw_bn``."""
+    from cat_tpu_torch.core.config import InceptionBlockConfig
+    from cat_tpu_torch.models.blocks import InceptionBlock, block_norm_sites
+    from cat_tpu_torch.ops.nn import Norm2d
+
+    cfg = InceptionBlockConfig(dim=64, res_channels=(16, 24, 8), dw_channels=(8, 16, 24),
+                               res_kernels=(1, 3, 5), dw_kernels=(1, 3, 5))
+    torch.manual_seed(3)
+    plain = InceptionBlock(cfg, packed=True)
+    with torch.no_grad():  # scales and shifts away from 1 and 0
+        for m in plain.modules():
+            if isinstance(m, Norm2d):
+                m.weight.copy_(torch.rand_like(m.weight) + 0.5)
+                m.bias.copy_(torch.randn_like(m.bias) * 0.5)
+    fused = InceptionBlock(cfg, packed=True, fused_norms=True)
+    fused.load_state_dict(plain.state_dict())
+    x = torch.randn(4, 64, 64, 64, device=cuda).to(torch.bfloat16)
+    g = torch.randn(4, 64, 64, 64, device=cuda).to(torch.bfloat16)
+    sites = len(block_norm_sites(cfg, packed=True, act="relu"))
+    assert sites == 5  # kernel sizes 1, 3, 5; the depthwise stage; pw_bn
+    outs = []
+    for net in (plain, fused):
+        net.to(cuda, torch.bfloat16)
+        before = tin.launches, tin.bwd_launches
+        y = net(x)
+        names, params = zip(*net.named_parameters())
+        grads = dict(zip(names, torch.autograd.grad(y, params, g)))
+        torch.cuda.synchronize()
+        outs.append((y, grads, (tin.launches - before[0], tin.bwd_launches - before[1])))
+    (y0, g0, n0), (y1, g1, n1) = outs
+    assert n0 == (0, 0) and n1 == (sites, sites), (n0, n1)
+    # bf16: the kernel rounds each norm's output once, the plain chain too,
+    # from float32 values summed in another order; a unit in the last place
+    # here and there, carried through the block's convs
+    gap = _rel_gap(y1, y0, y0)
+    assert gap <= 1e-2, gap
+    for k in g0:
+        # a conv bias that feeds an instance norm has a gradient of zero up
+        # to rounding: its weight's gradient sets the size of that rounding
+        sibling = g0.get(k[:-len("bias")] + "weight", g0[k]) if k.endswith("bias") else g0[k]
+        gap = _rel_gap(g1[k], g0[k], max(g0[k], sibling, key=lambda t: float(t.norm())))
+        assert torch.isfinite(g1[k]).all() and gap <= 3e-2, (k, gap)
+
+
 # ---------------------------------------------------------------------------
 # The distill verb's data path on the card
 # ---------------------------------------------------------------------------

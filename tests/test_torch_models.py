@@ -152,6 +152,99 @@ def test_generator_with_taps_matches_jax(jax_generator, packed, fused):
         np.testing.assert_allclose(nhwc(acts[k]), acts_ref[k], rtol=1e-4, atol=1e-4)
 
 
+# (kind, affine) of the generator's norm, and how many of its sites the
+# fused kernel takes under fused_norms: all of them, or none
+FUSED_NORM_CASES = [("instance", True, "all"), ("instance", False, "none"),
+                    ("none", False, "none")]
+
+
+def fused_norm_cfg(kind, affine):
+    """dead_branch_cfg's generator with a full block between its two, and
+    the given norm: trunk, blocks with and without depthwise branches, an
+    empty block, upsampling."""
+    cfg = to_port(dead_branch_cfg())
+    full = to_port(tiny_cfg()).blocks[0]
+    return dataclasses.replace(cfg, blocks=(cfg.blocks[0], full, cfg.blocks[1]),
+                               norm=tcfg.NormConfig(kind=kind, affine=affine))
+
+
+def _fused_and_plain(kind, affine, packed):
+    cfg = fused_norm_cfg(kind, affine)
+    plain = TGen(cfg, packed_blocks=packed, generator=torch.Generator().manual_seed(4))
+    fused = TGen(cfg, packed_blocks=packed, fused_norms=True)
+    if affine:  # scales and shifts away from 1 and 0, so their gradients mean something
+        gen = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            for m in plain.modules():
+                if isinstance(m, tnn.Norm2d):
+                    m.weight.copy_(torch.rand(m.weight.shape, generator=gen) + 0.5)
+                    m.bias.copy_(torch.randn(m.bias.shape, generator=gen) * 0.5)
+    fused.load_state_dict(plain.state_dict())
+    return cfg, plain, fused
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("kind,affine,fused_sites", FUSED_NORM_CASES)
+def test_fused_norms_match_the_plain_path(packed, kind, affine, fused_sites):
+    """fused_norms=True against the same weights with fused_norms=False:
+    output, taps and every parameter's gradient; only an affine instance
+    norm is fused, and the others keep the plain path."""
+    cfg, plain, fused = _fused_and_plain(kind, affine, packed)
+    taps = ("encode", "block0", "block1", "block2")
+    x = torch.from_numpy(np.random.RandomState(6).randn(2, 3, 32, 32).astype(np.float32))
+    gen = torch.Generator().manual_seed(7)
+    outs = []
+    for net in (plain, fused):
+        y, acts = net(x, taps=taps)
+        if not outs:  # a random weight on every output and tap value
+            weights = {k: torch.randn(v.shape, generator=gen)
+                       for k, v in (("y", y), *acts.items())}
+        loss = (y * weights["y"]).sum() + sum((acts[k] * weights[k]).sum() for k in taps)
+        names, params = zip(*net.named_parameters())
+        outs.append((y, acts, dict(zip(names, torch.autograd.grad(loss, params)))))
+    (y0, a0, g0), (y1, a1, g1) = outs
+    np.testing.assert_allclose(y1.detach().numpy(), y0.detach().numpy(), rtol=1e-4, atol=1e-4)
+    for k in taps:
+        np.testing.assert_allclose(a1[k].detach().numpy(), a0[k].detach().numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+    assert g0.keys() == g1.keys()
+    for k in g0:
+        # the fused op's closed-form backward against autograd's through the
+        # plain norm: float32 sums in another order, which a leaf's largest
+        # entries (up to ~1e3 in the first conv) carry over to its small
+        # ones; a conv bias that feeds an instance norm has a gradient of zero
+        # up to that noise, so its weight's gradient sets the noise's size
+        sibling = g0.get(k[:-len("bias")] + "weight", g0[k]) if k.endswith("bias") else g0[k]
+        atol = 1e-5 * max(float(g0[k].abs().max()), float(sibling.abs().max()))
+        np.testing.assert_allclose(g1[k].numpy(), g0[k].numpy(), rtol=1e-4, atol=atol,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("kind,affine,fused_sites", FUSED_NORM_CASES)
+def test_fused_norms_take_every_site(monkeypatch, packed, kind, affine, fused_sites):
+    """Under fused_norms the fused op is called once a norm site (trunk,
+    each block's, pw_bn, upsampling) with the shape and activation that
+    ``fused_norm_sites`` reads from the config; never for a norm the kernel
+    cannot take."""
+    from cat_tpu_torch.models import blocks
+    from cat_tpu_torch.models.generator import fused_norm_sites
+
+    cfg, _, fused = _fused_and_plain(kind, affine, packed)
+    calls = []
+
+    def counted(x, scale, bias, eps, act):
+        calls.append((tuple(x.shape), act))
+        return real(x, scale, bias, eps, act)
+
+    real = blocks.fused_instance_norm_act
+    monkeypatch.setattr(blocks, "fused_instance_norm_act", counted)
+    fused(torch.zeros(1, 3, 32, 32))
+    sites = fused_norm_sites(cfg, packed, 32)
+    assert bool(sites) == (fused_sites == "all")
+    assert calls == [((1, c, hw, hw), act) for _, c, hw, act in sites], (calls, sites)
+
+
 def test_generator_weights_go_back_to_jax_unchanged(jax_generator):
     """The port's state_dict keys are the reference CAT's: the JAX
     package's own importer turns them back into the original tree."""

@@ -3,8 +3,9 @@
 Both sides report, for the first steps of one training state: each step's
 losses, each parameter leaf's first gradient (the program's as its
 optimiser got it, read from Adam's first moment after one step) and each
-leaf's change after the steps.  Leaves are named ``G:<name>`` and
-``D:<name>``.  The numbers compared:
+leaf's change after the steps.  Leaves are named ``<net>:<name>``, by the
+networks the step trains (``G`` and ``D`` in a GAN's step, ``G`` alone where
+the program trains one network).  The numbers compared:
 
 * ``loss_gap``: the widest gap of the first step's loss terms, each against
   the reference's term or 1, whichever is larger (a hinge GAN term is a mean
@@ -15,12 +16,13 @@ leaf's change after the steps.  Leaves are named ``G:<name>`` and
   moves either way with rounding, and a loss read through it swings from
   seed to seed (``loss_gap_all``, every term of every step, is reported
   beside it with no limit);
-* ``grad_gap.G``, ``grad_gap.D``: each leaf's gap between the two sides'
-  norms of the first gradient, against the reference's norm of that leaf or
-  of the median leaf of its network, whichever is larger; the median leaf's
-  gap, taken in each network apart (G with its adaptors; D, whose few
-  leaves a median over both networks would never reach);
-* ``change_gap.G``, ``change_gap.D``: the same for the parameters' change
+* ``grad_gap.<net>`` (``grad_gap.G``, ``grad_gap.D``): each leaf's gap
+  between the two sides' norms of the first gradient, against the
+  reference's norm of that leaf or of the median leaf of its network,
+  whichever is larger; the median leaf's gap, taken in each network apart
+  (G with its adaptors; D, whose few leaves a median over both networks
+  would never reach);
+* ``change_gap.<net>``: the same for the parameters' change
   after the steps, leaving out the leaves whose reference gradient is under
   a thousandth of their network's median leaf (a conv bias under an
   instance norm: its gradient is round-off, and Adam moves it by round-off

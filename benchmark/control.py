@@ -11,9 +11,13 @@ reference over the same steps, and the numbers ``compare.py`` compares.
 * ``control``: the reference put in the program's place, computed in the
   precision that the cell's limits file names under ``"control"`` (the
   control's readings);
-* ``unchanged``, ``unchanged_d``, ``half_batch``, ``altered``: the
+* a fault of the family's ``FAULTS`` (``unchanged``, ``half_batch``,
+  ``altered``, and ``unchanged_d`` where the program trains a D): the
   program with that fault planted by the family's ``fault`` (the faults'
   readings).
+
+The numbers compared are the family's: ``loss_gap``, and ``grad_gap.<net>``
+and ``change_gap.<net>`` for each network of its ``NETS``.
 
 Prints one line a seed and, with ``--out``, writes them all as JSON.  The
 rows a cell's limits were set from are kept as
@@ -30,31 +34,34 @@ import json
 import math
 import sys
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 from benchmark import compare
 from benchmark.run import load_cell, log
 from benchmark.trace import import_stdlib_profile
 
 
-COMPARED = ("loss_gap", "grad_gap.G", "grad_gap.D", "change_gap.G", "change_gap.D")
-FAULTS = ("unchanged", "unchanged_d", "half_batch", "altered")
+def compared(family) -> Tuple[str, ...]:
+    """The numbers compared in a cell of ``family`` (its module)."""
+    return (("loss_gap",) + tuple(f"grad_gap.{n}" for n in family.NETS)
+            + tuple(f"change_gap.{n}" for n in family.NETS))
 
 
-def readings(rows: Dict[str, List[Dict]]) -> Dict[str, Dict]:
-    """The readings of each compared number from the rows of each mode: the
-    program's largest (``lower``), the control's and each fault's smallest,
-    and ``upper``, the least of the control's (where at least three times
-    the lower) and the faults' (where at least ten times the lower; a state
-    left unchanged, three times)."""
-    out = {"lower": {k: max(r[k] for r in rows["program"]) for k in COMPARED}}
+def readings(rows: Dict[str, List[Dict]], family) -> Dict[str, Dict]:
+    """The readings of each number ``family`` compares from the rows of
+    each mode: the program's largest (``lower``), the control's and each
+    fault's smallest, and ``upper``, the least of the control's (where at
+    least three times the lower) and the faults' (where at least ten times
+    the lower; a state left unchanged, three times)."""
+    keys = compared(family)
+    out = {"lower": {k: max(r[k] for r in rows["program"]) for k in keys}}
     upper = {}
-    for mode in ("control",) + FAULTS:
+    for mode in ("control",) + tuple(family.FAULTS):
         if mode not in rows:
             continue
-        out[mode] = {k: min(r[k] for r in rows[mode]) for k in COMPARED}
-        factor = 3.0 if mode in ("control", "unchanged", "unchanged_d") else 10.0
-        for k in COMPARED:
+        out[mode] = {k: min(r[k] for r in rows[mode]) for k in keys}
+        factor = 3.0 if mode == "control" or mode.startswith("unchanged") else 10.0
+        for k in keys:
             if out[mode][k] >= factor * out["lower"][k]:
                 upper[k] = min(upper.get(k, math.inf), out[mode][k])
     out["upper"] = upper
@@ -82,6 +89,8 @@ def main(argv=None) -> int:
     with open(f"{args.root}/benchmark/limits/{args.workload}.json") as f:
         control = json.load(f).get("control", {})
     family = importlib.import_module(f"benchmark.families.{spec['config']['family']}")
+    if args.mode not in ("program", "control") + tuple(family.FAULTS):
+        p.error(f"mode {args.mode!r}: not program, control or a fault of {family.__name__}")
     device = torch.device(args.device)
     if args.exact:
         torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
@@ -114,7 +123,7 @@ def main(argv=None) -> int:
         del cell, reference
         if device.type == "cuda":
             torch.cuda.empty_cache()
-    for k in COMPARED + ("loss_gap_all", "grad_worst", "change_worst"):
+    for k in compared(family) + ("loss_gap_all", "grad_worst", "change_worst"):
         vals = [r.get(k, math.inf) for r in rows]
         log(f"{args.mode} {k}: min {min(vals):.4g} max {max(vals):.4g} over {len(vals)} seeds")
     if args.out:

@@ -1,12 +1,19 @@
 """What the families share: seeded weights made on the device, the check
 steps of one training state, the window's step, and the faults planted in
-a program's step for the checks of the check."""
+a program's step for the checks of the check.
+
+A family module (``benchmark/families/<family>.py``) declares the networks
+its program trains, ``NETS`` (a leaf is named ``<net>:<parameter>``), and
+the faults its step can have, ``FAULTS`` (``unchanged_d`` only where there
+is a D); its cell's ``trained()`` gives each of those networks' (name,
+optimiser, parameters), in the order of ``NETS``.  It also gives ``tiny``,
+its configuration and traffic at toy widths for the CPU tests."""
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -70,14 +77,17 @@ def seeded_weights(shapes: Dict, gen: torch.Generator, device, spread: bool,
 
 class TrainingCell:
     """One cell's program state: a family sets ``config`` (with ``beta1``),
-    ``bank``, ``lr``, ``dist``, ``state`` and ``tparams``; ``record`` holds
-    what its first steps gave."""
+    ``bank``, ``lr``, ``dist``, ``state`` and ``tparams``, and gives
+    ``trained()``; ``record`` holds what its first steps gave."""
 
     dist = state = tparams = record = None
 
+    def trained(self) -> Tuple[Tuple[str, object, Dict[str, torch.Tensor]], ...]:
+        """(net, optimiser, parameters) of each network the step trains."""
+        raise NotImplementedError
+
     def _leaves(self) -> Dict[str, torch.Tensor]:
-        return {**{f"G:{k}": v for k, v in self.state.g.params.items()},
-                **{f"D:{k}": v for k, v in self.state.d.params.items()}}
+        return {f"{net}:{k}": v for net, _, params in self.trained() for k, v in params.items()}
 
     def check_steps(self) -> Dict:
         """The first steps, on bank batches 0, 1, 2, through the window's
@@ -91,8 +101,7 @@ class TrainingCell:
             self.state, m = self.dist.train_step(self.state, self.tparams, self.bank[i], self.lr)
             losses.append({k: float(v) for k, v in m.items()})
             if i == 0:
-                for net, opt, params in (("G", self.state.g.opt, self.state.g.params),
-                                         ("D", self.state.d.opt, self.state.d.params)):
+                for net, opt, params in self.trained():
                     for name, mu in zip(params, opt.mu):
                         first[f"{net}:{name}"] = float(mu.double().norm()) / (1.0 - b1)
         change = {k: float((v.detach() - start[k]).double().norm())
@@ -110,6 +119,23 @@ class TrainingCell:
         self.dist = self.state = self.tparams = None
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
+
+
+class GANCell(TrainingCell):
+    """A cell whose program trains a generator (with its adaptors) and a
+    discriminator, in ``state.g`` and ``state.d``."""
+
+    def trained(self):
+        return (("G", self.state.g.opt, self.state.g.params),
+                ("D", self.state.d.opt, self.state.d.params))
+
+
+def _first_half(batch):
+    """The first half of each field's rows: a batch is a dict of fields or
+    a tuple of inputs."""
+    if isinstance(batch, dict):
+        return {k: v[:v.shape[0] // 2] for k, v in batch.items()}
+    return tuple(v[:v.shape[0] // 2] for v in batch)
 
 
 @contextlib.contextmanager
@@ -145,8 +171,7 @@ def fault(name: str, distiller, generator):
         step = distiller.train_step
 
         def half(self, state, tparams, batch, lr):
-            return step(self, state, tparams, {k: v[:v.shape[0] // 2] for k, v in batch.items()},
-                        lr)
+            return step(self, state, tparams, _first_half(batch), lr)
         return _patched(distiller, "train_step", half)
     if name == "altered":
         forward = generator.forward

@@ -18,7 +18,7 @@ and replays those steps with ``reference/inception_ka.py``.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -27,6 +27,9 @@ from benchmark.families import common
 from benchmark.families.common import CHECK_STEPS, seeded_weights
 from benchmark.reference import inception_ka as ref
 from benchmark.yardstick import flops as work
+# the networks the step trains: the student with its adaptors, and D
+NETS = ("G", "D")
+FAULTS = ("unchanged", "unchanged_d", "half_batch", "altered")
 # the first step's loss terms read through an updated network: the G
 # loss's GAN term goes through D after D's update
 AFTER_UPDATE = ("G_loss/gan",)
@@ -41,7 +44,7 @@ def _arch_of(cfg) -> Dict:
             "us": list(cfg.us_channels), "blocks": blocks}
 
 
-class Cell(common.TrainingCell):
+class Cell(common.GANCell):
     """One cell's seeded weights, bank, program state and check records."""
 
     def __init__(self, config: Dict, traffic: Dict, seed: int, device, program: bool = True):
@@ -102,10 +105,12 @@ class Cell(common.TrainingCell):
         dtype = self.traffic["compute_dtype"]
         sites_fwd, sites_bwd = [], []
         if self.traffic["fused_norms"] and self.config["norm_affine"]:
-            t_planes = work.trunk_norm_planes(self.teacher_arch, hw, hw)
-            s_planes = work.trunk_norm_planes(student, hw, hw)
-            sites_fwd = [b * v for v in t_planes + s_planes]
-            sites_bwd = [b * v for v in s_planes]
+            # every site once forward in each net, and backward in the student
+            packed = self.traffic["packed_blocks"]
+            t_sites = work.fused_norm_sites(self.teacher_arch, hw, hw, packed)
+            s_sites = work.fused_norm_sites(student, hw, hw, packed)
+            sites_fwd = [b * c * h * w for _, c, h, w, _ in t_sites + s_sites]
+            sites_bwd = [b * c * h * w for _, c, h, w, _ in s_sites]
         t_taps = work.generator_taps(self.teacher_arch, hw, hw, self.taps)
         s_taps = work.generator_taps(student, hw, hw, self.taps)
         grams = [(b, t_taps[k]) for k in self.taps] + [(b, s_taps[k]) for k in self.taps]
@@ -137,6 +142,18 @@ class Cell(common.TrainingCell):
         if self.record is not None:
             out["student_arch"] = 0.0 if arch == self.program_student else 1.0
         return out
+
+
+def tiny(config: Dict) -> Tuple[Dict, Dict]:
+    """The configuration at toy widths (an ngf-8 teacher of 3 blocks at 32
+    px, shrunk to half its MACs) and a float32 traffic of batch 4 that
+    fuses the norms, for the CPU tests."""
+    teacher = ref.teacher_arch(3, 3, 8, 6, [1, 3, 5], 3)
+    cfg = {**config, "teacher_ngf": 8, "ndf": 8, "n_blocks": 3, "prune_cin_lb": 2,
+           "crop_size": 32, "target_flops": work.profile_macs(teacher, 32, 32) // 2}
+    return cfg, {"batch": 4, "compute_dtype": "float32", "fused_norms": True,
+                 "packed_blocks": True, "bank": 4, "warmup_steps": 1, "print_freq": 2,
+                 "trace_steps": 2}
 
 
 def setup(config: Dict, traffic: Dict, seed: int, device, program: bool = True) -> Cell:

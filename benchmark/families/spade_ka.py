@@ -21,7 +21,7 @@ those steps with ``reference/spade_ka.py``.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -31,6 +31,9 @@ from benchmark.families.common import CHECK_STEPS, seeded_weights
 from benchmark.reference import spade_ka as ref
 from benchmark.yardstick import flops as work
 
+# the networks the step trains: the student with its adaptors, and D
+NETS = ("G", "D")
+FAULTS = ("unchanged", "unchanged_d", "half_batch", "altered")
 # the first step's loss terms read through an updated network: the D
 # update's losses are taken on a fake the updated student regenerates
 AFTER_UPDATE = ("D_loss/fake", "D_loss/real")
@@ -50,7 +53,7 @@ def _arch_of(cfg) -> Dict:
             "crop": cfg.crop_size, "aspect": cfg.aspect_ratio, "blocks": blocks}
 
 
-class Cell(common.TrainingCell):
+class Cell(common.GANCell):
     """One cell's seeded weights, bank, program state and check records."""
 
     def __init__(self, config: Dict, traffic: Dict, seed: int, device, program: bool = True):
@@ -162,6 +165,18 @@ class Cell(common.TrainingCell):
         if self.program_student is not None:
             out["student_arch"] = 0.0 if self.program_student == self.student_arch else 1.0
         return out
+
+
+def tiny(config: Dict) -> Tuple[Dict, Dict]:
+    """The configuration at toy widths (an ngf-8 teacher at 128 x 64,
+    shrunk to half its MACs) and a float32 traffic of batch 2, for the CPU
+    tests."""
+    teacher = ref.teacher_arch(37, 8, 6, [1, 3, 5], 128, 2.0)
+    cfg = {**config, "teacher_ngf": 8, "ndf": 8, "crop_size": 128, "prune_cin_lb": 1,
+           "target_flops": ref.profile_macs(teacher) // 2}
+    return cfg, {"batch": 2, "compute_dtype": "float32", "vgg_compute_dtype": "float32",
+                 "packed_blocks": True, "regions": 6, "bank": 4, "warmup_steps": 1,
+                 "print_freq": 2, "trace_steps": 2}
 
 
 def setup(config: Dict, traffic: Dict, seed: int, device, program: bool = True) -> Cell:

@@ -1,7 +1,8 @@
 """The fused instance-norm kernels' least time over their traced device
 time: per step, the forward's x read and y written at each fused site and
 the backward's x and g read and dx written at each site it runs
-(``yardstick/roofline.py``), at HBM's rate.  Nothing to read where the cell
+(``yardstick/roofline.py``), at HBM's rate; every site the program fuses
+(``yardstick/flops.py::fused_norm_sites``).  Nothing to read where the cell
 fuses no norm."""
 
 from benchmark.metrics._groups import ms_per_step

@@ -71,8 +71,8 @@ def test_config_holds_the_published_widths(name):
 
 
 def test_traffic_holds_its_source():
-    """The flagship traffic is bench.py's step; the GauGAN traffic is the
-    recipe's batch."""
+    """The flagship traffic is bench.py's step; the GauGAN traffic and the
+    horse2zebra float32 traffic are their recipes' batch and flags."""
     bench_py = open(os.path.join(REPO, "bench.py")).read()
     flagship = json.load(open(os.path.join(REPO, "benchmark", "traffic", "bf16_b128_fused.json")))
     assert re.search(r'BENCH_BATCH", "(\d+)"', bench_py).group(1) == str(flagship["batch"])
@@ -82,6 +82,14 @@ def test_traffic_holds_its_source():
     flags = _flags(RECIPES["gaugan_5p6B"][0])
     assert int(flags["batch_size"]) == gaugan["batch"] and "compute_dtype" not in flags
     assert gaugan["compute_dtype"] == "float32"
+    h2z = json.load(open(os.path.join(REPO, "benchmark", "traffic", "f32_b80.json")))
+    script = RECIPES["h2z_2p6B"][0]
+    flags = _flags(script)
+    assert h2z["source"].startswith(script)
+    assert int(flags["batch_size"]) == h2z["batch"] == 80
+    assert "fused_norms" not in flags and h2z["fused_norms"] is False
+    assert "compute_dtype" not in flags and h2z["compute_dtype"] == "float32"
+    assert "packed_blocks" not in flags and h2z["packed_blocks"] is True
 
 
 def test_contract_shapes():
@@ -110,10 +118,13 @@ def test_contract_shapes():
 def test_each_cell_is_found_by_name(cell):
     from benchmark.run import load_cell, metrics_of
 
+    from benchmark import control
+
     spec = load_cell(BENCH, cell, REPO)
-    assert importlib.import_module(f"benchmark.families.{spec['config']['family']}").setup
-    assert set(spec["limits"]) >= {"loss_gap", "grad_gap.G", "grad_gap.D", "change_gap.G",
-                                   "change_gap.D"}
+    family = importlib.import_module(f"benchmark.families.{spec['config']['family']}")
+    assert family.setup and family.NETS and "unchanged" in family.FAULTS
+    assert ("unchanged_d" in family.FAULTS) == ("D" in family.NETS)
+    assert set(spec["limits"]) >= set(control.compared(family))
     from benchmark.run import reader
 
     for m in metrics_of(BENCH, "end_to_end", cell) + metrics_of(BENCH, "per_layer", cell):
@@ -155,6 +166,45 @@ def test_every_seed_shrinks_to_one_student():
     assert sref.profile_macs(gstudents[0]) <= gc["target_flops"]
 
 
+def test_fused_sites_are_the_programs():
+    """The norm sites the yardstick counts for ``norm_kernel_roofline`` are,
+    site for site, those the program sends through the fused kernel on
+    the flagship's teacher and student at 256 px (``fused_norm_sites``),
+    packed and unpacked."""
+    import torch
+
+    from cat_tpu_torch.compress.shrink import PruneBounds, shrink_generator
+    from cat_tpu_torch.core.config import InceptionGeneratorConfig, NormConfig
+    from cat_tpu_torch.models.generator import fused_norm_sites
+
+    from benchmark.families.common import seeded_weights
+    from benchmark.families.inception_ka import _arch_of
+    from benchmark.reference import inception_ka as iref
+    from benchmark.yardstick import flops
+
+    cfg = json.load(open(os.path.join(REPO, "benchmark", "configs", "h2z_2p6B.json")))
+    teacher = InceptionGeneratorConfig.make(
+        input_nc=3, output_nc=3, ngf=cfg["teacher_ngf"],
+        channels_reduction_factor=cfg["channels_reduction_factor"],
+        kernel_sizes=tuple(cfg["kernel_sizes"]), n_blocks=cfg["n_blocks"],
+        norm=NormConfig(kind="instance", affine=True, track_running_stats=False))
+    arch = iref.teacher_arch(3, 3, cfg["teacher_ngf"], cfg["channels_reduction_factor"],
+                             cfg["kernel_sizes"], cfg["n_blocks"])
+    assert _arch_of(teacher) == arch
+    p = seeded_weights(iref.generator_shapes(arch), torch.Generator().manual_seed(3), "cpu", True)
+    student = shrink_generator(teacher, p, cfg["target_flops"], 256, 256,
+                               PruneBounds(cin_lb=cfg["prune_cin_lb"])).config
+    counts = []
+    for net in (teacher, student):
+        for packed in (True, False):
+            mine = flops.fused_norm_sites(_arch_of(net), 256, 256, packed)
+            assert [(layer, c, h, act) for layer, c, h, w, act in mine] == fused_norm_sites(
+                net, packed, 256)
+            assert all(h == w for _, _, h, w, _ in mine)
+            counts.append(len(mine))
+    assert counts[0] == counts[2] == 50  # packed: 50 a flagship net
+
+
 def test_reference_layouts_are_the_programs():
     """The parameter names and shapes the benchmark seeds for the reference
     are the program's state_dicts', so both sides read the same weights."""
@@ -185,19 +235,23 @@ def test_limits_lie_between_their_readings(cell):
     below its upper reading, the recorded readings are those of the kept
     rows, every program row passes and every control and fault row fails."""
     from benchmark import compare, control
+    from benchmark.run import load_cell
 
+    family = importlib.import_module(
+        f"benchmark.families.{load_cell(BENCH, cell, REPO)['config']['family']}")
     with open(os.path.join(REPO, "benchmark", "limits", f"{cell}.json")) as f:
         spec = json.load(f)
     rows = {}
-    for mode in ("program", "control") + control.FAULTS:
+    for mode in ("program", "control") + tuple(family.FAULTS):
         path = os.path.join(REPO, "benchmark", "limits", "readings", f"{cell}.{mode}.json")
         if os.path.isfile(path):
             with open(path) as f:
                 rows[mode] = json.load(f)
     assert len({r["seed"] for r in rows["program"]}) >= 12
-    assert {"control", "unchanged", "unchanged_d", "half_batch", "altered"} <= set(rows)
-    got = control.readings(rows)
-    limits = {k: v for k, v in spec["limits"].items() if k in control.COMPARED}
+    assert {"control", *family.FAULTS} <= set(rows)
+    got = control.readings(rows, family)
+    limits = {k: v for k, v in spec["limits"].items() if k in control.compared(family)}
+    assert set(limits) == set(control.compared(family))
     for k, lim in limits.items():
         assert spec["readings"]["lower"][k] == pytest.approx(got["lower"][k], rel=1e-3)
         assert got["lower"][k] < lim

@@ -16,7 +16,11 @@ import pytest
 import torch
 
 from benchmark import compare, run
-from benchmark.tests.tiny import FAMILIES, LIMITS, REPO, make_root
+from benchmark.tests.tiny import FAMILIES, REPO, limits, make_root
+
+# each family with each fault it declares
+FAULTS = [(f, fault) for f in sorted(FAMILIES)
+          for fault in importlib.import_module(f"benchmark.families.{f}").FAULTS]
 
 
 @pytest.fixture(scope="module", params=sorted(FAMILIES))
@@ -66,7 +70,7 @@ def test_same_seed_same_record(tree):
     assert a.program_student == b.program_student
 
 
-@pytest.mark.parametrize("fault", ["unchanged", "unchanged_d", "half_batch", "altered"])
+@pytest.mark.parametrize("tree,fault", FAULTS, indirect=["tree"])
 def test_each_fault_is_not_correct(tree, fault):
     with tree[2].fault(fault):
         r = _run(tree)
@@ -82,7 +86,8 @@ def test_control_is_not_correct(tree):
     control = _load(tree, "benchmark", "limits", f"{cell}.json")["control"]
     c = family.setup(spec, traffic, 11, torch.device("cpu"), program=False)
     numbers = compare.training_gaps(c.reference(control), c.reference(), family.AFTER_UPDATE)
-    assert not compare.judge(numbers, {k: v for k, v in LIMITS.items() if k != "student_arch"})
+    assert not compare.judge(numbers, {k: v for k, v in limits(family.NETS).items()
+                                       if k != "student_arch"})
 
 
 def test_no_card_no_result(tree):

@@ -49,6 +49,19 @@ def test_profile_macs_is_the_programs_count():
     assert round(flops.profile_macs(arch, 256, 256) / 1e9, 2) == 43.53
 
 
+@pytest.mark.parametrize("packed,block", [
+    (True, [3, 2, 3]),  # kernel-size groups (1x1: the depthwise branch's 1x1; 3x3), the stage
+    (False, [2, 3, 3]),  # the residual branch, the depthwise branch's two
+])
+def test_fused_norm_sites_by_hand(packed, block):
+    # 16 x 16: the trunk at 16², 8², 4²; the block at 4², its pw_bn; the
+    # empty block none; the upsampling at 8², 16²
+    assert flops.fused_norm_sites(TINY, 16, 16, packed) == [
+        ("trunk", 4, 16, 16, "relu"), ("trunk", 8, 8, 8, "relu"), ("trunk", 16, 4, 4, "relu"),
+        *[("blocks", c, 4, 4, "relu") for c in block], ("blocks", 16, 4, 4, "none"),
+        ("upsampling", 8, 8, 8, "relu"), ("upsampling", 4, 16, 16, "relu")]
+
+
 def test_nlayer_convs_by_hand():
     # 256²: 128², 64², 32², then stride 1 to 31² and 30²
     assert flops.nlayer_convs(3, 64, 3, 256, 256) == [

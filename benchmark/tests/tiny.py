@@ -1,50 +1,59 @@
 """Tiny benchmark trees for the CPU tests: each family's configuration at
-toy widths, under a float32 traffic of batch 2-4, in a directory laid out
-as a checkout is (``BENCHMARK.json``, ``benchmark/configs``,
-``benchmark/traffic``, ``benchmark/limits``)."""
+toy widths, under a float32 traffic of batch 2-4 (the family's ``tiny``),
+in a directory laid out as a checkout is (``BENCHMARK.json``,
+``benchmark/configs``, ``benchmark/traffic``, ``benchmark/limits``).
+
+The families are the modules under ``benchmark/families/``, each with the
+first configuration of ``BENCHMARK.json`` whose file names it."""
 
 from __future__ import annotations
 
+import glob
+import importlib
 import json
 import os
-
-from benchmark.reference import inception_ka, spade_ka
-from benchmark.yardstick import flops
+from typing import Dict, Sequence
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-# float32 on the CPU: the program and the reference agree to ~1e-5
-LIMITS = {"loss_gap": 1e-4, "grad_gap.G": 1e-4, "grad_gap.D": 1e-4, "change_gap.G": 2e-3,
-          "change_gap.D": 2e-3, "student_arch": 0}
-FAMILIES = {"inception_ka": "h2z_2p6B", "spade_ka": "gaugan_5p6B"}
 
 
-def _tiny(family: str, cfg: dict) -> tuple:
-    """The toy configuration and traffic of a family."""
-    if family == "inception_ka":
-        teacher = inception_ka.teacher_arch(3, 3, 8, 6, [1, 3, 5], 3)
-        cfg.update(teacher_ngf=8, ndf=8, n_blocks=3, prune_cin_lb=2, crop_size=32,
-                   target_flops=flops.profile_macs(teacher, 32, 32) // 2)
-        return cfg, {"batch": 4, "compute_dtype": "float32", "fused_norms": True,
-                     "packed_blocks": True, "bank": 4, "warmup_steps": 1, "print_freq": 2,
-                     "trace_steps": 2}
-    teacher = spade_ka.teacher_arch(37, 8, 6, [1, 3, 5], 128, 2.0)
-    cfg.update(teacher_ngf=8, ndf=8, crop_size=128, prune_cin_lb=1,
-               target_flops=spade_ka.profile_macs(teacher) // 2)
-    return cfg, {"batch": 2, "compute_dtype": "float32", "vgg_compute_dtype": "float32",
-                 "packed_blocks": True, "regions": 6, "bank": 4, "warmup_steps": 1,
-                 "print_freq": 2, "trace_steps": 2}
+def limits(nets: Sequence[str]) -> Dict[str, float]:
+    """The tiny cells' limits for a family that trains ``nets``: float32 on
+    the CPU, the program and the reference agree to ~1e-5."""
+    return {"loss_gap": 1e-4, **{f"grad_gap.{n}": 1e-4 for n in nets},
+            **{f"change_gap.{n}": 2e-3 for n in nets}, "student_arch": 0}
+
+
+def _families() -> Dict[str, str]:
+    """Each family module with the first configuration that names it."""
+    with open(os.path.join(REPO, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    modules = {os.path.basename(p)[:-3]
+               for p in glob.glob(os.path.join(REPO, "benchmark", "families", "*.py"))}
+    out = {}
+    for entry in bench["configs"]:
+        with open(os.path.join(REPO, entry["file"])) as f:
+            family = json.load(f)["family"]
+        if family in modules:
+            out.setdefault(family, entry["name"])
+    return out
+
+
+FAMILIES = _families()
 
 
 def make_root(root: str, family: str = "inception_ka") -> str:
     """Write a tree with one tiny cell of ``family`` under ``root``; returns
-    the cell's name."""
+    the cell's name.  The cell takes the metrics and the control of the
+    first cell of the family's configuration."""
     with open(os.path.join(REPO, "BENCHMARK.json")) as f:
         bench = json.load(f)
     source = FAMILIES[family]
+    module = importlib.import_module(f"benchmark.families.{family}")
     entry = {c["name"]: c for c in bench["configs"]}[source]
     with open(os.path.join(REPO, entry["file"])) as f:
-        cfg, traffic = _tiny(family, json.load(f))
-    cell = {w["config"]: w["name"] for w in bench["workloads"]}[source]
+        cfg, traffic = module.tiny(json.load(f))
+    cell = next(w["name"] for w in bench["workloads"] if w["config"] == source)
     with open(os.path.join(REPO, "benchmark", "limits", f"{cell}.json")) as f:
         control = json.load(f)["control"]
     for d in ("configs", "traffic", "limits"):
@@ -53,7 +62,7 @@ def make_root(root: str, family: str = "inception_ka") -> str:
     files = {
         "benchmark/configs/tiny.json": cfg,
         f"benchmark/traffic/{family}.json": traffic,
-        f"benchmark/limits/{name}.json": {"limits": LIMITS, "control": control},
+        f"benchmark/limits/{name}.json": {"limits": limits(module.NETS), "control": control},
     }
     bench["configs"] = [{**entry, "name": "tiny", "file": "benchmark/configs/tiny.json"}]
     bench["workloads"] = [{"name": name, "config": "tiny", "traffic": family, "chips": 1,

@@ -22,7 +22,7 @@ the branches that exist, in config order, with their kernels beside them.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 
 def conv_out(size: int, k: int, stride: int = 1, pad: int = 0) -> int:
@@ -95,14 +95,39 @@ def generator_taps(arch: Dict, h: int, w: int, taps: Sequence[str]) -> Dict[str,
     return {t: arch["ds"][-1] * h * w for t in taps}
 
 
-def trunk_norm_planes(arch: Dict, h: int, w: int) -> List[int]:
-    """Values a plane holds at each downsampling ConvNormAct (stem first):
-    the sites of the fused norm kernel."""
-    planes = [arch["ds"][0] * h * w]
+def fused_norm_sites(arch: Dict, h: int, w: int, packed: bool) -> List[Tuple]:
+    """(layer, channels, height, width, activation) of each affine instance
+    norm of one forward at h x w, in order: the sites of the fused norm
+    kernel.  The trunk's ConvNormActs (stem first, ReLU); each non-empty
+    block's, at the bottleneck: unpacked, one a residual branch and two a
+    depthwise branch (its 1x1 and its depthwise conv), packed, one a kernel
+    size of the first convs (the 1x1 group also holds every depthwise
+    branch's 1x1), in increasing size, and one for the depthwise stage,
+    all ReLU; then its ``pw_bn`` over the bottleneck, with no activation;
+    last the upsampling's (ReLU)."""
+    sites = [("trunk", arch["ds"][0], h, w, "relu")]
     for ch in arch["ds"][1:]:
         h, w = conv_out(h, 3, 2, 1), conv_out(w, 3, 2, 1)
-        planes.append(ch * h * w)
-    return planes
+        sites.append(("trunk", ch, h, w, "relu"))
+    dim = arch["ds"][-1]
+    for b in arch["blocks"]:
+        if not b["res"] and not b["dw"]:
+            continue
+        if packed:
+            groups: Dict[int, int] = {}
+            for mid, k in zip(b["res"], b["res_k"]):
+                groups[k] = groups.get(k, 0) + mid
+            if b["dw"]:
+                groups[1] = groups.get(1, 0) + sum(b["dw"])
+            mids = [groups[k] for k in sorted(groups)] + ([sum(b["dw"])] if b["dw"] else [])
+        else:
+            mids = list(b["res"]) + [m for m in b["dw"] for _ in range(2)]
+        sites += [("blocks", m, h, w, "relu") for m in mids]
+        sites.append(("blocks", dim, h, w, "none"))
+    for ch in arch["us"]:
+        h, w = h * 2, w * 2
+        sites.append(("upsampling", ch, h, w, "relu"))
+    return sites
 
 
 # ---------------------------------------------------------------------------

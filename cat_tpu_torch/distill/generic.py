@@ -13,10 +13,17 @@ Distills any teacher/student pair whose forward takes ``taps=`` and returns
     the hyperparameters' betas;
   * no discriminator.
 
+Each phase of the step runs inside a ``utils/trace.py::span``:
+``step.teacher_fwd`` (the input and teacher casts, the teacher),
+``step.student_fwd``, ``step.g_loss_bwd`` (recon, the distill terms,
+``autograd.grad``) and ``step.adam``.
+
 Mixed precision follows the JAX package: float32 masters; parameters and
-inputs cast to the compute dtype for the forwards (``down``); outputs cast
-to float32 for the losses (``up``); KA takes the taps in the compute dtype,
-the mse path in float32.  The device is explicit (CUDA unless
+inputs cast to the compute dtype for the forwards (``down``; the
+parameters in one flat cast, ``train/common.py::cast_flat``, but those a
+net names in its ``float32_params()``, which stay float32 masters, as
+ADM's norms); outputs cast to float32 for the losses (``up``); KA takes
+the taps in the compute dtype, the mse path in float32.  The device is explicit (CUDA unless
 ``device="cpu"``), and so is the adaptors' generator (``seed``).
 """
 
@@ -34,8 +41,9 @@ from cat_tpu_torch import resolve_device
 from cat_tpu_torch.distill.inception_distiller import Adaptor
 from cat_tpu_torch.distill.ka import ka
 from cat_tpu_torch.models.losses import recon_loss
-from cat_tpu_torch.train.common import cast_floats
+from cat_tpu_torch.train.common import cast_flat, cast_floats
 from cat_tpu_torch.train.optim import Adam
+from cat_tpu_torch.utils.trace import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -80,6 +88,8 @@ class GenericDistiller:
         self.hp = hp
         self.cdt = _DTYPES[hp.compute_dtype]
         self.netA: Optional[nn.ModuleDict] = None
+        self.keep = {net: frozenset(getattr(net, "float32_params", tuple)())
+                     for net in (self.teacher, self.student)}
 
     def init_state(self, seed: int = 0) -> Tuple[GenericState, Dict[str, torch.Tensor]]:
         """The train state over the student's current weights, with fresh
@@ -122,26 +132,36 @@ class GenericDistiller:
         def down(t):
             return cast_floats(t, self.cdt) if mixed else t
 
+        def down_params(params, net):
+            return cast_flat(params, self.cdt, self.keep[net]) if mixed else params
+
         def up(t):
             return cast_floats(t, torch.float32) if mixed else t
 
         up_acts = (lambda t: t) if hp.distill_loss_type == "ka" else up
-        inputs = tuple(down(x) for x in inputs)
-        with torch.no_grad():
-            t_out, t_acts = functional_call(self.teacher, down(teacher_params), inputs,
-                                            {"taps": taps})
-        t_out, t_acts = up(t_out), up_acts(t_acts)
+        dev = self.device
+        with span("step.teacher_fwd", dev):
+            inputs = tuple(down(x) for x in inputs)
+            with torch.no_grad():
+                t_out, t_acts = functional_call(self.teacher,
+                                                down_params(teacher_params, self.teacher),
+                                                inputs, {"taps": taps})
+            t_out, t_acts = up(t_out), up_acts(t_acts)
 
-        s_out, s_acts = functional_call(self.student, down(state.params), inputs,
-                                        {"taps": taps})
-        s_out, s_acts = up(s_out), up_acts(s_acts)
-        l_rec = recon_loss(s_out, t_out, hp.recon_loss_type) * hp.lambda_recon
-        l_dis, parts = self._distill_loss(state.adaptors, s_acts, t_acts)
-        l_dis = l_dis * hp.lambda_distill
-        grads = torch.autograd.grad(l_rec + l_dis,
-                                    [*state.params.values(), *state.adaptors.values()],
-                                    allow_unused=True, materialize_grads=True)
-        state.opt.step(grads, lr)
+        with span("step.student_fwd", dev):
+            s_out, s_acts = functional_call(self.student,
+                                            down_params(state.params, self.student), inputs,
+                                            {"taps": taps})
+            s_out, s_acts = up(s_out), up_acts(s_acts)
+        with span("step.g_loss_bwd", dev):
+            l_rec = recon_loss(s_out, t_out, hp.recon_loss_type) * hp.lambda_recon
+            l_dis, parts = self._distill_loss(state.adaptors, s_acts, t_acts)
+            l_dis = l_dis * hp.lambda_distill
+            grads = torch.autograd.grad(l_rec + l_dis,
+                                        [*state.params.values(), *state.adaptors.values()],
+                                        allow_unused=True, materialize_grads=True)
+        with span("step.adam", dev):
+            state.opt.step(grads, lr)
         state.step += 1
         return state, {"G_loss/recon": l_rec.detach(), "G_loss/distill": l_dis.detach(),
                        **{k: v.detach() for k, v in parts.items()}}

@@ -32,6 +32,37 @@ def cast_floats(tree: Any, dtype: torch.dtype) -> Any:
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
+class _FlatCast(torch.autograd.Function):
+    """Tensors of one dtype cast to another as one flat tensor: concatenated,
+    cast and split, so a few launches cast them all; the backward brings
+    their gradients back to the inputs' dtype the same way."""
+
+    @staticmethod
+    def forward(ctx, dtype, *ts):
+        ctx.src, ctx.shapes = ts[0].dtype, [t.shape for t in ts]
+        ctx.sizes = [t.numel() for t in ts]
+        flat = torch.cat([t.reshape(-1) for t in ts]).to(dtype)
+        return tuple(o.view(s) for o, s in zip(flat.split(ctx.sizes), ctx.shapes))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        flat = torch.cat([g.reshape(-1) for g in gs]).to(ctx.src)
+        return (None, *(o.view(s) for o, s in zip(flat.split(ctx.sizes), ctx.shapes)))
+
+
+def cast_flat(params: Dict[str, torch.Tensor], dtype: torch.dtype,
+              keep: Sequence[str] = ()) -> Dict[str, torch.Tensor]:
+    """``cast_floats`` of a flat dict of parameters, the same values, with
+    the float32 ones cast together (``_FlatCast``: a few launches rather
+    than one a tensor); the tensors named in ``keep`` stay as they are."""
+    out = {k: v if k in keep else cast_floats(v, dtype) for k, v in params.items()
+           if v.dtype != torch.float32 or k in keep}
+    names = [k for k in params if k not in out]
+    if names:
+        out.update(zip(names, _FlatCast.apply(dtype, *(params[k] for k in names))))
+    return {k: out[k] for k in params}
+
+
 @dataclass
 class NetState:
     """Parameters (name -> float32 tensor), their optimiser, and the

@@ -10,6 +10,11 @@ at its entry and at its exit.  The stream runs the phase's kernels between
 its two markers however far the device runs behind the host, so the
 markers bound the phase on the device's own clock; autograd's device
 thread runs a backward on the forward's stream, so they bracket it too.
+
+``region(name)`` marks a part of a phase (a model's attention or norm
+blocks) on the host alone: a bare ``record_function`` under a recording
+profiler, so the trace's idle gaps can name it, and no marker kernel,
+whose count the phase metrics pair with the ``step.*`` spans.
 """
 
 from __future__ import annotations
@@ -46,3 +51,11 @@ def span(name: str, device=None):
     if not torch.autograd.profiler._is_profiler_enabled:
         return _OFF
     return _Span(name, device)
+
+
+def region(name: str):
+    """A host-only span named ``name``: a no-op unless a profiler is
+    recording, and never a marker kernel."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
+    return torch.autograd.profiler.record_function(name)

@@ -1,10 +1,12 @@
 """The phase spans of the port's distillers (``cat_tpu_torch/utils/trace.py``)
-on the CPU, for the inception and the SPADE distiller at toy widths:
+on the CPU, for the inception and the SPADE distiller and ``GenericDistiller``
+(on ADM's UNet) at toy widths:
 
   * with no profiler recording, ``span`` enters no ``record_function`` and
     launches no marker;
-  * under ``torch.profiler``, one ``train_step`` emits the six ``step.*``
-    spans in the order of its phases, none overlapping another, and they
+  * under ``torch.profiler``, one ``train_step`` emits its ``step.*``
+    spans (six in a GAN's step, four in ``GenericDistiller``'s) in the order
+    of its phases, none overlapping another, and they
     cover at least 95% of the step's aten op time;
   * a traced step and an untraced one from the same seed give bit-identical
     losses and parameters.
@@ -22,7 +24,12 @@ ORDER = {
                   "step.g_loss_bwd", "step.adam"],
     "spade": ["step.teacher_fwd", "step.student_fwd", "step.g_loss_bwd", "step.adam",
               "step.d_loss_bwd", "step.adam"],
+    "generic": ["step.teacher_fwd", "step.student_fwd", "step.g_loss_bwd", "step.adam"],
 }
+# a loss each kind's step reports
+LOSSES = {"inception": {"D_loss/fake", "D_loss/real", "G_loss/gan"},
+          "spade": {"D_loss/fake", "D_loss/real", "G_loss/gan"},
+          "generic": {"G_loss/recon", "G_loss/distill"}}
 
 
 def _inception():
@@ -66,13 +73,35 @@ def _spade():
     return dist, teacher, batch
 
 
-MAKE = {"inception": _inception, "spade": _spade}
+def _generic():
+    """ADM's UNet KA-distilled at half width by ``GenericDistiller``."""
+    from cat_tpu_torch.distill.generic import GenericDistiller, GenericDistillHParams
+    from cat_tpu_torch.models.adm import ADMConfig, ADMUNet
+
+    torch.manual_seed(1)
+
+    def net(width):
+        return ADMUNet(ADMConfig(image_size=16, model_channels=width, channel_mult=(1, 2),
+                                 attention_resolutions=(8,), num_head_channels=16))
+
+    hp = GenericDistillHParams(mapping_layers=("input_blocks.2", "output_blocks.4"),
+                               recon_loss_type="l2")
+    dist = GenericDistiller(net(64), net(32), {}, {}, hp, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batch = (torch.randn(2, 6, 16, 16, generator=gen), torch.randint(0, 1000, (2,), generator=gen))
+    return dist, None, batch
+
+
+MAKE = {"inception": _inception, "spade": _spade, "generic": _generic}
 
 
 def _step(kind):
     """A fresh distiller's state from seed 0, and a function running one step."""
     dist, teacher, batch = MAKE[kind]()
-    state, tparams = dist.init_state(teacher, seed=0)
+    if teacher is None:  # GenericDistiller holds its teacher's weights
+        state, tparams = dist.init_state(seed=0)
+    else:
+        state, tparams = dist.init_state(teacher, seed=0)
 
     def step():
         _, metrics = dist.train_step(state, tparams, batch, LR)
@@ -127,7 +156,7 @@ def test_span_off_makes_no_record_and_no_marker(monkeypatch):
     assert trace.span("step.adam", "cuda") is trace.span("step.adam")
 
 
-@pytest.mark.parametrize("kind", ["inception", "spade"])
+@pytest.mark.parametrize("kind", ["inception", "spade", "generic"])
 def test_train_step_off_makes_no_record_and_no_marker(kind, monkeypatch):
     """A whole step with the profiler off enters no ``record_function``."""
     _, step = _step(kind)
@@ -137,7 +166,7 @@ def test_train_step_off_makes_no_record_and_no_marker(kind, monkeypatch):
 
     monkeypatch.setattr(torch.autograd.profiler, "record_function", boom)
     monkeypatch.setattr(torch.cuda, "_sleep", boom)
-    assert set(step()) >= {"D_loss/fake", "D_loss/real", "G_loss/gan"}
+    assert set(step()) >= LOSSES[kind]
 
 
 def test_span_on_records_and_marks_cuda(monkeypatch):
@@ -159,9 +188,9 @@ def test_span_on_records_and_marks_cuda(monkeypatch):
     assert names == ["step.cpu", "step.cuda"]
 
 
-@pytest.mark.parametrize("kind", ["inception", "spade"])
+@pytest.mark.parametrize("kind", ["inception", "spade", "generic"])
 def test_train_step_spans_cover_the_step_in_order(kind):
-    """One traced step: the six spans in the order of the step's phases,
+    """One traced step: its spans in the order of the step's phases,
     disjoint, covering at least 95% of the step's aten op time."""
     _, step = _step(kind)
     _, events = _profile(step)
@@ -178,7 +207,7 @@ def test_train_step_spans_cover_the_step_in_order(kind):
     assert covered >= 0.95 * op_ns, (covered, op_ns)
 
 
-@pytest.mark.parametrize("kind", ["inception", "spade"])
+@pytest.mark.parametrize("kind", ["inception", "spade", "generic"])
 def test_traced_step_is_bit_identical(kind):
     """The spans change no arithmetic: a traced step and an untraced one
     from the same seed give the same losses and parameters, bit for bit."""
@@ -189,8 +218,10 @@ def test_traced_step_is_bit_identical(kind):
     assert plain.keys() == traced.keys()
     for k in plain:
         assert torch.equal(plain[k], traced[k]), k
-    for net in ("g", "d"):
-        a, b = getattr(state_a, net).params, getattr(state_b, net).params
+    nets = ("params",) if kind == "generic" else ("g", "d")
+    for net in nets:
+        a, b = (getattr(s, net) if kind == "generic" else getattr(s, net).params
+                for s in (state_a, state_b))
         assert a.keys() == b.keys()
         for k in a:
             assert torch.equal(a[k], b[k]), (net, k)

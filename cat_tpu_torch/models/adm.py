@@ -18,7 +18,10 @@ The layers are ADM's, with ``resblock_updown`` and ``use_scale_shift_norm``:
   Linear(SiLU(emb))``; ``h = conv3(SiLU(GN(h)·(1 + scale) + shift))``; the
   skip a 1x1 conv where the widths differ.  SiLU(emb) is the same in every
   block (each block's ``emb_layers.0``), so the net computes it once;
-* GroupNorm32: 32 groups, eps 1e-5, computed in float32 and cast back;
+* GroupNorm32: 32 groups, eps 1e-5, statistics and affine in float32, the
+  scale-shift and SiLU after it in float32 too, one rounding to the
+  activation's dtype at the end (one kernel forward and one backward on the
+  card: ``ops/group_norm.py``);
 * attention: ``x + proj(attn(qkv(GN(x))))``, 1x1 qkv and proj, heads of
   ``num_head_channels``, q, k and v split per head in the legacy QKV layout
   (qkv read as (B·heads, 3·d, T)), scale 1/√d;
@@ -26,9 +29,10 @@ The layers are ADM's, with ``resblock_updown`` and ``use_scale_shift_norm``:
   float32 from the integer t, then Linear(mc, 4mc), SiLU, Linear(4mc, 4mc).
 
 Every conv, linear and attention computes in the parameters' dtype (bf16
-under a bf16 ``GenericDistiller``); only GroupNorm's statistics and affine,
-the softmax inside ``F.scaled_dot_product_attention`` and the sinusoid are
-float32.  The GroupNorms' γ and β are named by ``float32_params()``, which
+under a bf16 ``GenericDistiller``); only the GroupNorm chain (statistics,
+affine, scale-shift, SiLU), the softmax inside
+``F.scaled_dot_product_attention`` and the sinusoid are float32.  The
+GroupNorms' γ and β are named by ``float32_params()``, which
 ``GenericDistiller`` leaves float32 masters (as ADM's fp16 training keeps
 its norms in float32), so their updates reach the forward unrounded.
 Module names are guided-diffusion's (``input_blocks.1.0.
@@ -47,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from cat_tpu_torch.ops.group_norm import group_norm_act
 from cat_tpu_torch.utils.trace import region
 
 GROUPS = 32
@@ -149,14 +154,17 @@ def timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -
 
 
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm(32) in float32, cast back to the input's dtype."""
+    """GroupNorm(32) with float32 statistics and affine, then optionally the
+    timestep's scale-shift (``emb``: the (B, 2C) output of the block's
+    ``emb_layers``, scale then shift) and SiLU, rounded once to the input's
+    dtype (``ops/group_norm.py``: the hand-written kernels on a CUDA tensor)."""
 
     def __init__(self, channels: int):
         super().__init__(GROUPS, channels, eps=GN_EPS)
 
-    def forward(self, x):
-        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
-                            self.bias.float(), self.eps).to(x.dtype)
+    def forward(self, x, emb: Optional[torch.Tensor] = None, silu: bool = False):
+        return group_norm_act(x, self.num_groups, self.weight.float(), self.bias.float(),
+                              self.eps, emb, silu)
 
 
 def _resample(x: torch.Tensor, how: str) -> torch.Tensor:
@@ -184,12 +192,11 @@ class ResBlock(nn.Module):
         self.skip_connection = nn.Identity() if cin == cout else nn.Conv2d(cin, cout, 1)
 
     def forward(self, x, silu_emb):
-        h = F.silu(self.in_layers[0](x))
+        h = self.in_layers[0](x, silu=True)
         h = self.in_layers[2](_resample(h, self.resample))
         x = _resample(x, self.resample)
-        scale, shift = self.emb_layers[1](silu_emb).to(h.dtype)[..., None, None].chunk(2, 1)
-        h = torch.addcmul(shift, self.out_layers[0](h), 1 + scale)
-        h = self.out_layers[3](F.silu(h))
+        emb = self.emb_layers[1](silu_emb).to(h.dtype)
+        h = self.out_layers[3](self.out_layers[0](h, emb, silu=True))
         return self.skip_connection(x) + h
 
 
@@ -280,7 +287,7 @@ class ADMUNet(nn.Module):
         h = keep("middle_block", self.middle_block(hs[-1], silu_emb))
         for i, block in enumerate(self.output_blocks):
             h = keep(f"output_blocks.{i}", block(torch.cat([h, hs.pop()], 1), silu_emb))
-        eps = self.out[2](F.silu(self.out[0](h)))
+        eps = self.out[2](self.out[0](h, silu=True))
         if not taps:
             return eps
         return eps, {k: acts[k] for k in taps}

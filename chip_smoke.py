@@ -33,7 +33,16 @@ Phases, in order; any failure exits non-zero before the result line:
      no activation, upsampling; batch 128, bf16), each distinct shape's
      forward and backward kernel against the plain versions with the site's
      activation, timed beside the plain versions and the bound, with one
-     step's totals by layer; a 255² plane checks the two-pass path both ways;
+     step's totals by layer; a 255² plane checks the two-pass path both ways.
+     ADM's GroupNorm chain (``csrc/group_norm.cu``) at every site shape of
+     its cell's step (``group_norm_site_numbers``: teacher forward, student
+     forward and backward, batch 16, 256 px, bf16): each shape checked
+     against the plain twin (y, dx, dγ, dβ and the scale-shift's gradient
+     within tolerance), then timed beside the bytes bound, the twin and
+     ATen's ``F.group_norm`` + ``addcmul`` + ``F.silu`` on bf16; one step's
+     totals; then two steps of the ADM cell's program (batch 16, bf16)
+     launch the forward once a site of both nets and the backward once a
+     student site, by the counters;
   3. reference: one float32 KA-distillation step at a tiny size on the card
      (kernels) and on the CPU (plain versions), losses compared, at batch 2
      and at batch 130 (4 launches of the float32 pair kernel; the norm
@@ -706,6 +715,242 @@ def norm_site_numbers(nets, dtype, gen, flush, card):
     return out
 
 
+ADM_BATCH = 16  # the ADM cell's batch (benchmark/traffic/ddpm_bf16_b16.json)
+
+
+def _adm_gn_calls():
+    """One step of the ADM cell's GroupNorm sites at 256 px: (direction, C,
+    side, scale-shift, SiLU) -> calls, the teacher's (model_channels 256)
+    forward and the student's (128) forward and backward."""
+    import collections
+
+    from cat_tpu_torch.models.adm import ADMConfig, group_norm_sites
+
+    calls = collections.Counter()
+    for mc, backward in ((256, False), (128, True)):
+        for name, c, side in group_norm_sites(ADMConfig(model_channels=mc)):
+            key = (c, side, name.endswith("out_layers.0"), not name.endswith(".norm"))
+            calls[("forward", *key)] += 1
+            calls[("backward", *key)] += backward
+    return calls
+
+
+def _check_gn(got, ref, what):
+    """Max |got - ref| of a GroupNorm output or dx; fails unless within one
+    bf16 rounding (2^-7 relative) plus 1e-3 of the largest value (both round
+    the same float32 value once, which straddles a rounding boundary near
+    0), or 1e-5 of both in float32 (sums in another order, ``__expf``)."""
+    import torch
+
+    torch.cuda.synchronize()
+    ref = ref.float()
+    rtol, atol = (1e-5, 1e-5) if got.dtype == torch.float32 else (2 ** -7, 1e-3)
+    diff = (got.float() - ref).abs()
+    excess = float((diff - rtol * ref.abs()).max())
+    tol = atol * float(ref.abs().max()) + 1e-6
+    if not excess <= tol or not torch.isfinite(got).all():
+        fail(f"{what}: error beyond rtol {rtol:g} by {excess:g} > {tol:g}")
+    return float(diff.max())
+
+
+def _check_gn_sums(got, ref, mag, what):
+    """dγ, dβ (sums of N·H·W float32 terms) or the scale-shift's gradient
+    (of H·W terms) against the twin's, summed in another order: within 1e-5
+    of the terms' magnitudes, plus one bf16 rounding of the gradient."""
+    import torch
+
+    tol = 1e-5 * mag + 1e-6
+    if got.dtype == torch.bfloat16:
+        tol = tol + 2 ** -7 * ref.float().abs()
+    gap = (got.float() - ref.float()).abs()
+    if not bool((gap <= tol).all()) or not torch.isfinite(got).all():
+        fail(f"{what}: max |err| {float(gap.max()):g}, beyond 1e-5 of the terms' magnitudes")
+
+
+def _check_gn_site(x, g, w, b, e, silu, what):
+    """The forward and backward kernels against the plain twin at one
+    site (32 groups): y and dx by ``_check_gn``, dγ, dβ and the (N, 2C)
+    scale-shift gradient by ``_check_gn_sums``.  Returns (max |err| of y,
+    of dx, the forward's mean and rstd)."""
+    import torch
+
+    from cat_tpu_torch.ops import group_norm as gn
+
+    y, mean, rstd = gn.forward_cuda(x, 32, w, b, 1e-5, e, silu)
+    ferr = _check_gn(y, gn.group_norm_act_plain(x, 32, w, b, 1e-5, e, silu), what + " forward")
+    got = gn.backward_cuda(x, g, 32, mean, rstd, w, b, e, silu)
+    ref = gn.group_norm_act_backward_plain(x, g, 32, w, b, 1e-5, e, silu)
+    berr = _check_gn(got[0], ref[0], what + " dx")
+    n, c = x.shape[:2]
+    xf = x.float().reshape(n, 32, -1)
+    xh = ((xf - mean[..., None]) * rstd[..., None]).reshape(n, c, -1)
+    du = g.float().reshape(n, c, -1).abs()
+    scale = 1 + e.float()[:, :c] if e is not None else torch.ones((n, c), device=x.device)
+    if silu:
+        u = (xh * w[:, None] + b[:, None]) * scale[..., None]
+        if e is not None:
+            u = u + e.float()[:, c:, None]
+        sg = torch.sigmoid(u)
+        du = du * (sg * (1 + u * (1 - sg))).abs()
+    mp, mq = du.sum(-1), (du * xh.abs()).sum(-1)  # Σ|du|, Σ|du·x̂| a channel
+    del xf, xh, du
+    _check_gn_sums(got[1], ref[1], (scale.abs() * mq).sum(0), what + " dweight")
+    _check_gn_sums(got[2], ref[2], (scale.abs() * mp).sum(0), what + " dbias")
+    if e is not None:
+        _check_gn_sums(got[3], ref[3], torch.cat([w.abs() * mq + b.abs() * mp, mp], 1),
+                       what + " demb")
+    return ferr, berr, mean, rstd
+
+
+def group_norm_site_numbers(gen, flush, card):
+    """The GroupNorm kernels at every site shape of the ADM cell's step
+    (bf16, batch ADM_BATCH, 256 px): at each (C, side, scale-shift, SiLU)
+    the forward and backward on their planned paths, checked against the
+    plain twin (``_check_gn_site``), then timed alone beside the bytes
+    bound (forward: x read, the output written; backward: x and g read, dx
+    written), the plain twin and the library yardstick (ATen's
+    ``F.group_norm`` on the bf16 activation with bf16 γ and β, ``addcmul``
+    where the site scales, and ``F.silu``; its backward is autograd's
+    through them, timed alone on a recorded forward).  Logs a line a shape
+    and one step's totals; returns them, forward and backward apart, with
+    the 0.5-2 MiB slabs' share of bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from cat_tpu_torch.ops import group_norm as gn
+
+    dev = torch.device("cuda")
+    calls = _adm_gn_calls()
+    per = {}  # (direction, C, side, ss, silu) -> numbers
+    for c, side, ss, silu in sorted({key[1:] for key in calls}):
+        x = (torch.randn(ADM_BATCH, c, side, side, generator=gen, device=dev) * 2 + 1).bfloat16()
+        g = torch.randn(x.shape, generator=gen, device=dev).bfloat16()
+        w = torch.rand(c, generator=gen, device=dev) + 0.5
+        b = torch.randn(c, generator=gen, device=dev)
+        e = ((torch.randn(ADM_BATCH, 2 * c, generator=gen, device=dev) * 0.5).bfloat16()
+             if ss else None)
+        cpg, hw = c // 32, side * side
+        fplan, bplan = (gn.group_norm_plan(cpg, hw, 2, a) for a in (1, 2))
+        ferr, berr, mean, rstd = _check_gn_site(
+            x, g, w, b, e, silu, f"group_norm_act {tuple(x.shape)} ss={int(ss)} silu={int(silu)}")
+        fms = timed(lambda: gn.forward_cuda(x, 32, w, b, 1e-5, e, silu), flush=flush)
+        bms = timed(lambda: gn.backward_cuda(x, g, 32, mean, rstd, w, b, e, silu), flush=flush)
+        fplain = timed(lambda: gn.group_norm_act_plain(x, 32, w, b, 1e-5, e, silu), flush=flush,
+                       iters=5)
+        bplain = timed(lambda: gn.group_norm_act_backward_plain(x, g, 32, w, b, 1e-5, e, silu),
+                       flush=flush, iters=5)
+        wl, bl = w.bfloat16(), b.bfloat16()
+        leaves = [t.detach().requires_grad_(True) for t in (x, wl, bl) + ((e,) if ss else ())]
+
+        def library():
+            out = F.group_norm(leaves[0], 32, leaves[1], leaves[2], 1e-5)
+            if ss:
+                scale, shift = leaves[3][..., None, None].chunk(2, 1)
+                out = torch.addcmul(shift, out, 1 + scale)
+            return F.silu(out) if silu else out
+
+        with torch.no_grad():
+            lfwd = timed(library, flush=flush, iters=10)
+        recorded = library()  # the graph autograd's backward walks, outside the timing
+        lbwd = timed(lambda: torch.autograd.grad(recorded, leaves, g, retain_graph=True),
+                     flush=flush, iters=10)
+        del recorded
+        nbytes = x.numel() * x.element_size()
+        for direction, ms, plain, lib, nb, err, plan in (
+                ("forward", fms, fplain, lfwd, 2 * nbytes, ferr, fplan),
+                ("backward", bms, bplain, lbwd, 3 * nbytes, berr, bplan)):
+            per[(direction, c, side, ss, silu)] = {
+                "ms": ms, "plain_ms": plain, "library_ms": lib,
+                "bytes_ms": 1e3 * nb / HBM_BYTES_PER_S, "err": err,
+                "slab_kib": cpg * hw * 2 / 1024, "plan": plan._asdict()}
+        pf, pb = per[("forward", c, side, ss, silu)], per[("backward", c, side, ss, silu)]
+        log(f"group_norm site {tuple(x.shape)} ss={int(ss)} silu={int(silu)} slab "
+            f"{pf['slab_kib']:.0f} KiB: forward {fms:.4f} ms ({100 * pf['bytes_ms'] / fms:.1f}% "
+            f"of bound; {fplan.path} k={fplan.k}), plain {fplain:.4f} ms, library {lfwd:.4f} ms, "
+            f"max|err| {ferr:.3g}; backward {bms:.4f} ms ({100 * pb['bytes_ms'] / bms:.1f}% of "
+            f"bound; {bplan.path} k={bplan.k}), plain twin {bplain:.4f} ms, library "
+            f"{lbwd:.4f} ms, max|err| of dx {berr:.3g}; calls a step "
+            f"{calls[('forward', c, side, ss, silu)]} forward, "
+            f"{calls[('backward', c, side, ss, silu)]} backward [{card}]")
+        del x, g, e, mean, rstd, leaves
+    out = {}
+    for direction in ("forward", "backward"):
+        tot = {"calls": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
+               "ops_ms": 0.0, "bound_ms": 0.0, "err": 0.0, "big_ms": 0.0, "big_bytes_ms": 0.0}
+        for key, n in calls.items():
+            if key[0] != direction or not n:
+                continue
+            p = per[key]
+            tot["calls"] += n
+            for k in ("ms", "plain_ms", "library_ms", "bytes_ms"):
+                tot[k] += n * p[k]
+            tot["err"] = max(tot["err"], p["err"])
+            if 512 <= p["slab_kib"] <= 2048:
+                tot["big_ms"] += n * p["ms"]
+                tot["big_bytes_ms"] += n * p["bytes_ms"]
+        tot["bound_ms"] = tot["bytes_ms"]
+        tot["shapes"] = [{"C": k[1], "side": k[2], "scale_shift": k[3], "silu": k[4],
+                          "calls": n, **per[k]} for k, n in sorted(calls.items())
+                         if k[0] == direction and n]
+        log(f"group_norm {direction} bf16, every ADM site: {tot['calls']} calls a step, kernel "
+            f"{tot['ms']:.3f} ms ({100 * tot['bytes_ms'] / tot['ms']:.1f}% of bound; 0.5-2 MiB "
+            f"slabs {100 * tot['big_bytes_ms'] / tot['big_ms']:.1f}%), plain "
+            f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, bound "
+            f"{tot['bound_ms']:.3f} ms [{card}]")
+        out[direction] = tot
+    return out
+
+
+ADM_STEPS = 2  # counted steps of the ADM cell's program, after its own first steps
+
+
+def adm_group_norm_step(card):
+    """The ADM cell's program as the benchmark drives it (``benchmark/
+    families/adm_ka.py``'s ``Cell``: ``GenericDistiller.train_step`` at the
+    cell's widths, 256 px, batch ADM_BATCH, bf16, after the cell's own three
+    check steps), ADM_STEPS steps with the GroupNorm counters set to 0
+    just before them: fails unless each step launched the forward once a
+    site in both nets and the backward once a student site.  Returns the
+    counts a step, by path, and the steps' wall milliseconds."""
+    import torch
+
+    from benchmark.families import adm_ka
+    from cat_tpu_torch.models.adm import ADMConfig, group_norm_sites
+    from cat_tpu_torch.ops import group_norm as gn
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "benchmark", "configs", "adm256_palette.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(root, "benchmark", "traffic", "ddpm_bf16_b16.json")) as f:
+        traffic = json.load(f)
+    if traffic["batch"] != ADM_BATCH:
+        fail(f"the ADM cell's batch is {traffic['batch']}, chip_smoke assumes {ADM_BATCH}")
+    cell = adm_ka.Cell(config, traffic, 2 ** 31 + 23, torch.device("cuda"))
+    torch.cuda.synchronize()
+    gn.launches, gn.bwd_launches = 0, 0
+    gn.path_launches = dict.fromkeys(gn.path_launches, 0)
+    t0 = time.perf_counter()
+    for k in range(ADM_STEPS):
+        metrics = cell.step(k)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / ADM_STEPS
+    sites = [len(group_norm_sites(ADMConfig(**{k: tuple(v) if isinstance(v, list) else v
+                                               for k, v in spec.items()})))
+             for spec in (cell.teacher, cell.student)]
+    counts = {"forward": gn.launches / ADM_STEPS, "backward": gn.bwd_launches / ADM_STEPS,
+              "forward_by_path": {k: v / ADM_STEPS for k, v in gn.path_launches.items()}}
+    finite = all(math.isfinite(float(v)) for v in metrics.values())
+    del cell, metrics
+    torch.cuda.empty_cache()
+    if counts["forward"] != sum(sites) or counts["backward"] != sites[1] or not finite:
+        fail(f"ADM step: GroupNorm launches a step {counts} (losses finite: {finite}); "
+             f"expected {sum(sites)} forward ({sites[0]} teacher, {sites[1]} student) and "
+             f"{sites[1]} backward")
+    log(f"ADM step (the cell's program, batch {ADM_BATCH}, bf16): GroupNorm launches a step "
+        f"{counts}, {wall:.1f} ms a step by the host's clock [{card}]")
+    return {**counts, "step_ms": wall}
+
+
 def check_kernels(dev, teacher_cfg, student_cfg, card):
     """Each kernel against its plain version in bf16 and f32 at the step's
     shapes (the norm kernel's at the generators' own sites, ``fused_norm_sites``);
@@ -787,6 +1032,9 @@ def check_kernels(dev, teacher_cfg, student_cfg, card):
             fail(f"instance norm {tuple(x.shape)} {dtype}: not the two-pass path")
         log(f"instance_norm_act {tuple(x.shape)} {dtype}: two-pass path, forward and backward "
             f"within tolerance")
+    # ADM's GroupNorm chain at every site of its cell's step
+    out["group_norm_sites"] = group_norm_site_numbers(gen, flush, card)
+    out["adm_step"] = adm_group_norm_step(card)
     del l2
     return out
 
@@ -4383,9 +4631,9 @@ def main() -> None:
 
     # --- 2. kernels
     t0 = time.perf_counter()
-    cuda_build.build_all(["gram", "instance_norm", "int8_conv"])
+    cuda_build.build_all(["gram", "instance_norm", "int8_conv", "group_norm"])
     log(f"kernels built in {time.perf_counter() - t0:.1f} s (nvcc, in parallel)")
-    for name in ("gram", "instance_norm", "int8_conv"):
+    for name in ("gram", "instance_norm", "int8_conv", "group_norm"):
         with open(f"{cuda_build._lib_path(name)}.log") as f:
             for line in f:
                 if "registers" in line or "spill" in line:
@@ -4581,6 +4829,19 @@ def main() -> None:
                            f"{BATCH}, bf16, each shape timed alone (phase 2); launches: phase 5's "
                            f"{n_f} steps"),
                      "layers": k["layers"]})
+    # ADM's GroupNorm chain at every site of its cell (phase 2); launches: a
+    # step of the cell's program in phase 2, by the counters
+    for direction, name in (("forward", "group_norm_act"),
+                            ("backward", "group_norm_act backward")):
+        k = kern["group_norm_sites"][direction]
+        rows.append({**row(f"{name} (bfloat16, every ADM site)", "cat_tpu_torch/csrc/group_norm.cu",
+                           "none (ADM's GroupNorm is XLA's in the JAX package)",
+                           kern["adm_step"][direction], k,
+                           f"one step's {k['calls']} calls at the ADM cell's sites at batch "
+                           f"{ADM_BATCH}, bf16, each shape timed alone (phase 2); launches: a "
+                           f"step of the cell's program, counted over phase 2's {ADM_STEPS}"),
+                     "big_slabs_pct_of_bound": 100 * k["big_bytes_ms"] / k["big_ms"],
+                     "shapes": k["shapes"]})
     for v, dname in zip(verb, ("float32", "bfloat16")):
         k = verb_kern[v["label"]]
         rows.append({**row(f"gram (distill verb, {dname})", *gram_src, v["gram_launches"], k,

@@ -28,6 +28,10 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+# the compute dtypes by name (``train/common.py::Precision`` places the casts)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def import_stdlib_profile() -> None:
     """Import the standard library's ``profile`` module, which TorchDynamo
     reaches through ``cProfile`` (``torch.utils.checkpoint``,

@@ -18,12 +18,9 @@ Each phase of the step runs inside a ``utils/trace.py::span``:
 ``step.student_fwd``, ``step.g_loss_bwd`` (recon, the distill terms,
 ``autograd.grad``) and ``step.adam``.
 
-Mixed precision follows the JAX package: float32 masters; parameters and
-inputs cast to the compute dtype for the forwards (``down``; the
-parameters in one flat cast, ``train/common.py::cast_flat``, but those a
-net names in its ``float32_params()``, which stay float32 masters, as
-ADM's norms); outputs cast to float32 for the losses (``up``); KA takes
-the taps in the compute dtype, the mse path in float32.  The device is explicit (CUDA unless
+Mixed precision is ``train/common.py::Precision``'s: the parameters cast
+flat but for those a net names in its ``float32_params()``, which stay
+float32 masters, as ADM's norms.  The device is explicit (CUDA unless
 ``device="cpu"``), and so is the adaptors' generator (``seed``).
 """
 
@@ -33,19 +30,15 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
 from cat_tpu_torch import resolve_device
-from cat_tpu_torch.distill.inception_distiller import Adaptor
-from cat_tpu_torch.distill.ka import ka
+from cat_tpu_torch.distill.terms import adaptors, check_hparams, distill_terms
 from cat_tpu_torch.models.losses import recon_loss
-from cat_tpu_torch.train.common import cast_flat, cast_floats
+from cat_tpu_torch.train.common import Precision
 from cat_tpu_torch.train.optim import Adam
 from cat_tpu_torch.utils.trace import span
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -77,19 +70,14 @@ class GenericDistiller:
     def __init__(self, teacher: nn.Module, student: nn.Module,
                  teacher_tap_widths: Dict[str, int], student_tap_widths: Dict[str, int],
                  hp: GenericDistillHParams, device=None):
-        if hp.distill_loss_type not in ("ka", "mse"):
-            raise NotImplementedError(hp.distill_loss_type)
-        if hp.compute_dtype not in _DTYPES:
-            raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
+        check_hparams(hp)
+        self.prec = Precision(hp.compute_dtype, hp.distill_loss_type)
         self.device = resolve_device(device)
         self.teacher = teacher.requires_grad_(False).to(self.device).eval()
         self.student = student.to(self.device)
         self.t_widths, self.s_widths = teacher_tap_widths, student_tap_widths
         self.hp = hp
-        self.cdt = _DTYPES[hp.compute_dtype]
         self.netA: Optional[nn.ModuleDict] = None
-        self.keep = {net: frozenset(getattr(net, "float32_params", tuple)())
-                     for net in (self.teacher, self.student)}
 
     def init_state(self, seed: int = 0) -> Tuple[GenericState, Dict[str, torch.Tensor]]:
         """The train state over the student's current weights, with fresh
@@ -98,64 +86,37 @@ class GenericDistiller:
         a_params: Dict[str, torch.Tensor] = {}
         if self.hp.distill_loss_type == "mse":
             gen = torch.Generator().manual_seed(seed)
-            self.netA = nn.ModuleDict({
-                f"A{i}": Adaptor(self.s_widths[name], self.t_widths[name], gen)
-                for i, name in enumerate(self.hp.mapping_layers)}).to(self.device)
+            self.netA = adaptors([(self.s_widths[name], self.t_widths[name])
+                                  for name in self.hp.mapping_layers], gen).to(self.device)
             a_params = dict(self.netA.named_parameters())
         params = dict(self.student.named_parameters())
         opt = Adam([*params.values(), *a_params.values()], self.hp.beta1, self.hp.beta2)
         return GenericState(0, params, a_params, opt), dict(self.teacher.named_parameters())
-
-    def _distill_loss(self, a_params, s_acts, t_acts):
-        total = torch.zeros((), device=self.device)
-        parts = {}
-        for i, name in enumerate(self.hp.mapping_layers):
-            s, t = s_acts[name], t_acts[name]
-            if self.hp.distill_loss_type == "ka":
-                li = -ka(s, t)
-            else:
-                mapped = F.conv2d(s, a_params[f"A{i}.weight"], a_params[f"A{i}.bias"])
-                li = (mapped - t).square().mean()
-            parts[f"Specific_loss/distill{i}"] = li
-            total = total + li
-        return total, parts
 
     def train_step(self, state: GenericState, teacher_params: Dict[str, torch.Tensor],
                    inputs: Tuple[torch.Tensor, ...],
                    lr: float) -> Tuple[GenericState, Dict[str, torch.Tensor]]:
         """One step; updates the student and adaptors in place and returns
         the state with the step's losses (0-d tensors)."""
-        hp = self.hp
+        hp, prec = self.hp, self.prec
         taps = hp.mapping_layers
-        mixed = self.cdt != torch.float32
-
-        def down(t):
-            return cast_floats(t, self.cdt) if mixed else t
-
-        def down_params(params, net):
-            return cast_flat(params, self.cdt, self.keep[net]) if mixed else params
-
-        def up(t):
-            return cast_floats(t, torch.float32) if mixed else t
-
-        up_acts = (lambda t: t) if hp.distill_loss_type == "ka" else up
         dev = self.device
         with span("step.teacher_fwd", dev):
-            inputs = tuple(down(x) for x in inputs)
+            inputs = tuple(prec.inputs(x) for x in inputs)
             with torch.no_grad():
                 t_out, t_acts = functional_call(self.teacher,
-                                                down_params(teacher_params, self.teacher),
+                                                prec.params(teacher_params, self.teacher),
                                                 inputs, {"taps": taps})
-            t_out, t_acts = up(t_out), up_acts(t_acts)
+            t_out, t_acts = prec.outputs(t_out), prec.taps(t_acts)
 
         with span("step.student_fwd", dev):
-            s_out, s_acts = functional_call(self.student,
-                                            down_params(state.params, self.student), inputs,
-                                            {"taps": taps})
-            s_out, s_acts = up(s_out), up_acts(s_acts)
+            s_out, s_acts = functional_call(self.student, prec.params(state.params, self.student),
+                                            inputs, {"taps": taps})
+            s_out, s_acts = prec.outputs(s_out), prec.taps(s_acts)
         with span("step.g_loss_bwd", dev):
             l_rec = recon_loss(s_out, t_out, hp.recon_loss_type) * hp.lambda_recon
-            l_dis, parts = self._distill_loss(state.adaptors, s_acts, t_acts)
+            l_dis, parts = distill_terms(hp.distill_loss_type, taps, state.adaptors, s_acts,
+                                         t_acts, dev)
             l_dis = l_dis * hp.lambda_distill
             grads = torch.autograd.grad(l_rec + l_dis,
                                         [*state.params.values(), *state.adaptors.values()],

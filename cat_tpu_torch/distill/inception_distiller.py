@@ -29,11 +29,8 @@ forwards.  The G loss's D forward, the penalty's and a remat recompute run
 under ``ops/nn.py::frozen_stats``; the teacher normalises with its own
 running statistics.
 
-Mixed precision follows the JAX placement, not ``torch.autocast``: float32
-masters; parameters and inputs cast to the compute dtype inside the forward
-(``down``), so autograd brings float32 gradients back; norm statistics in
-float32; network outputs cast to float32 for the losses (``up``).  KA takes
-the taps in the compute dtype; the mse path takes them in float32.
+Mixed precision is ``train/common.py::Precision``'s (float32 masters, the
+parameters cast flat inside the forward); norm statistics are float32.
 
 The step's phases run inside ``utils/trace.py::span``s (``step.teacher_fwd``,
 ``step.student_fwd``, ``step.d_loss_bwd``, ``step.adam``, ``step.g_loss_bwd``,
@@ -50,30 +47,25 @@ Entry points run on CUDA unless ``device="cpu"`` is passed.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
 from cat_tpu_torch import resolve_device
 from cat_tpu_torch.core.config import InceptionGeneratorConfig, NLayerDiscriminatorConfig
-from cat_tpu_torch.distill.ka import ka
+from cat_tpu_torch.distill.terms import adaptors, check_hparams, distill_terms
 from cat_tpu_torch.models.discriminators import NLayerDiscriminator, check_task_discriminator
 from cat_tpu_torch.models.generator import DEFAULT_MAPPING_LAYERS, InceptionGenerator
 from cat_tpu_torch.models.losses import gan_loss, gradient_penalty, recon_loss
 from cat_tpu_torch.ops.nn import frozen_stats
-from cat_tpu_torch.ops.quant import TEACHER_DTYPES, teacher_forward
-from cat_tpu_torch.parallel import spatial
-from cat_tpu_torch.train.common import (GANTrainState, NetState, average_grads, cast_floats,
-                                        checkpointed, global_metrics)
-from cat_tpu_torch.train.optim import Adam
+from cat_tpu_torch.ops.quant import teacher_forward
+from cat_tpu_torch.train import common
+from cat_tpu_torch.train.common import (GANTrainState, Precision, average_grads, checkpointed,
+                                        ema_extra, global_metrics, net_state, update_ema)
 from cat_tpu_torch.utils.trace import span
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclass(frozen=True)
@@ -97,29 +89,6 @@ class DistillHParams:
     ema_decay: float = 0.0  # student-weight EMA (--moving_average_decay); 0 = off
 
 
-def _check_ported(hp: DistillHParams) -> None:
-    if hp.teacher_compute_dtype not in TEACHER_DTYPES:
-        raise ValueError(f"teacher_compute_dtype must be one of {TEACHER_DTYPES}")
-    if hp.distill_loss_type not in ("ka", "mse"):
-        raise NotImplementedError(hp.distill_loss_type)
-    if hp.compute_dtype not in _DTYPES:
-        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
-
-
-class Adaptor(nn.Conv2d):
-    """1x1 conv with bias from the student's bottleneck width to the
-    teacher's.  Initialised as flax's ``nn.Conv`` default: LeCun normal
-    (truncated at two standard deviations) kernel, zero bias."""
-
-    def __init__(self, cin: int, cout: int, generator: Optional[torch.Generator] = None):
-        super().__init__(cin, cout, 1)
-        # a unit normal truncated to [-2, 2] has std 0.8796
-        std = math.sqrt(1.0 / cin) / 0.87962566103423978
-        with torch.no_grad():
-            nn.init.trunc_normal_(self.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
-            self.bias.zero_()
-
-
 class InceptionDistiller:
     def __init__(
         self,
@@ -129,7 +98,8 @@ class InceptionDistiller:
         hp: DistillHParams = DistillHParams(),
         device=None,
     ):
-        _check_ported(hp)
+        check_hparams(hp)
+        self.prec = Precision(hp.compute_dtype, hp.distill_loss_type)
         check_task_discriminator(disc_cfg)
         self.device = resolve_device(device)
         self.teacher_cfg = teacher_cfg
@@ -144,7 +114,6 @@ class InceptionDistiller:
             disc_cfg = NLayerDiscriminatorConfig(input_nc=d_in, ndf=64)
         self.disc_cfg = disc_cfg
         self.hp = hp
-        self.cdt = _DTYPES[hp.compute_dtype]
         self.netG_teacher: Optional[InceptionGenerator] = None
         self.netG_student: Optional[InceptionGenerator] = None
         self.netD: Optional[NLayerDiscriminator] = None
@@ -187,45 +156,18 @@ class InceptionDistiller:
 
         a_params: Dict[str, torch.Tensor] = {}
         if self.hp.distill_loss_type == "mse":
-            sb, tb = self.student_cfg.bottleneck, self.teacher_cfg.bottleneck
-            self.netA = nn.ModuleDict({
-                f"A{i}": Adaptor(sb, tb, gen) for i in range(len(self.hp.mapping_layers))
-            }).to(self.device)
+            widths = [(self.student_cfg.bottleneck, self.teacher_cfg.bottleneck)] * len(
+                self.hp.mapping_layers)
+            self.netA = adaptors(widths, gen).to(self.device)
             a_params = dict(self.netA.named_parameters())
-
-        g_params = dict(self.netG_student.named_parameters())
-        d_params = dict(self.netD.named_parameters())
-        extra = {}
-        if self.hp.ema_decay > 0:
-            extra["ema_G"] = {k: v.detach().clone() for k, v in g_params.items()}
+        g = net_state(self.netG_student, self.hp.beta1, extra=a_params.values())
         state = GANTrainState(
-            step=0,
-            # one Adam over {G, A}, as the JAX package's G parameter group
-            g=NetState(g_params, Adam([*g_params.values(), *a_params.values()], self.hp.beta1),
-                       dict(self.netG_student.named_buffers())),
-            d=NetState(d_params, Adam(d_params.values(), self.hp.beta1),
-                       dict(self.netD.named_buffers())),
+            step=0, g=g, d=net_state(self.netD, self.hp.beta1),
             rng=torch.Generator(device=self.device).manual_seed(seed),
-            adaptors=a_params,
-            extra=extra,
-        )
+            adaptors=a_params, extra=ema_extra(g.params, self.hp.ema_decay))
         return state, dict(self.netG_teacher.named_parameters())
 
     # ------------------------------------------------------------------- step
-
-    def _distill_loss(self, a_params, s_acts, t_acts):
-        losses = {}
-        total = torch.zeros((), device=self.device)
-        for i, name in enumerate(self.hp.mapping_layers):
-            s, t = s_acts[name], t_acts[name]
-            if self.hp.distill_loss_type == "ka":
-                li = -ka(s, t)
-            else:
-                mapped = F.conv2d(s, a_params[f"A{i}.weight"], a_params[f"A{i}.bias"])
-                li = spatial.mean((mapped - t).square())
-            losses[f"Specific_loss/distill{i}"] = li
-            total = total + li
-        return total, losses
 
     def train_step(
         self,
@@ -236,18 +178,7 @@ class InceptionDistiller:
     ) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
         """One D-then-G step; updates ``state``'s parameters and optimisers in
         place and returns it with the step's losses (0-d tensors)."""
-        hp = self.hp
-        mixed = self.cdt != torch.float32
-
-        def down(t):  # params / inputs -> compute dtype
-            return cast_floats(t, self.cdt) if mixed else t
-
-        def up(t):  # network outputs -> float32 for the losses
-            return cast_floats(t, torch.float32) if mixed else t
-
-        # KA takes the taps in the compute dtype; the adaptors in float32
-        up_acts = (lambda t: t) if hp.distill_loss_type == "ka" else up
-
+        hp, prec = self.hp, self.prec
         real_B = batch.get("B", batch["A"])
         taps = hp.mapping_layers
         aligned = hp.dataset_mode == "aligned"
@@ -255,11 +186,11 @@ class InceptionDistiller:
 
         # --- teacher forward: frozen, eval mode ---
         with span("step.teacher_fwd", dev):
-            real_A = down(batch["A"])
+            real_A = prec.inputs(batch["A"])
             (t_fake, t_acts), self._act_scales = teacher_forward(
-                self._teacher_fn, down(teacher_params), real_A, hp.teacher_compute_dtype,
-                self._act_scales)
-            t_fake, t_acts = up(t_fake), up_acts(t_acts)
+                self._teacher_fn, prec.params(teacher_params, self.netG_teacher), real_A,
+                hp.teacher_compute_dtype, self._act_scales)
+            t_fake, t_acts = prec.outputs(t_fake), prec.taps(t_acts)
 
         # --- student forward once, graph kept; it alone moves the student's
         # running statistics ---
@@ -267,10 +198,10 @@ class InceptionDistiller:
 
         def s_forward():
             fake, acts = functional_call(
-                self.netG_student, down(s_params), (real_A,),
+                self.netG_student, prec.params(s_params, self.netG_student), (real_A,),
                 {"train": True, "taps": taps, "generator": state.rng},
             )
-            return up(fake), up_acts(acts)
+            return prec.outputs(fake), prec.taps(acts)
 
         with span("step.student_fwd", dev):
             if hp.remat:
@@ -282,16 +213,16 @@ class InceptionDistiller:
         d_params = state.d.params
 
         def d_apply(params, x):
-            return up(functional_call(self.netD, params, (x,), {"train": True}))
+            return prec.outputs(functional_call(self.netD, params, (x,), {"train": True}))
 
         with span("step.d_loss_bwd", dev):
-            fake_d = down(s_fake.detach())
+            fake_d = prec.inputs(s_fake.detach())
             if aligned:
                 fake_in = torch.cat([real_A, fake_d], 1)
-                real_in = torch.cat([real_A, down(real_B)], 1)
+                real_in = torch.cat([real_A, prec.inputs(real_B)], 1)
             else:
-                fake_in, real_in = fake_d, down(real_B)
-            d_down = down(d_params)
+                fake_in, real_in = fake_d, prec.inputs(real_B)
+            d_down = prec.params(d_params, self.netD)
             # the fake, then the real forward move D's running statistics
             l_d_fake = gan_loss(d_apply(d_down, fake_in), False, hp.gan_mode, True)
             l_d_real = gan_loss(d_apply(d_down, real_in), True, hp.gan_mode, True)
@@ -310,14 +241,15 @@ class InceptionDistiller:
         # --- generator + adaptor update through the updated D (no gradient into D) ---
         with span("step.g_loss_bwd", dev):
             recon_target = real_B if aligned else t_fake
-            d_in = torch.cat([real_A, down(s_fake)], 1) if aligned else down(s_fake)
-            d_frozen = down({k: v.detach() for k, v in d_params.items()})
+            d_in = torch.cat([real_A, prec.inputs(s_fake)], 1) if aligned else prec.inputs(s_fake)
+            d_frozen = prec.params({k: v.detach() for k, v in d_params.items()}, self.netD)
             with frozen_stats(self.netD):
                 pred = functional_call(self.netD, d_frozen, (d_in,), {"train": True})
-            l_g_gan = gan_loss(up(pred), True, hp.gan_mode, False) * hp.lambda_gan
+            l_g_gan = gan_loss(prec.outputs(pred), True, hp.gan_mode, False) * hp.lambda_gan
             l_g_rec = recon_loss(s_fake, recon_target, hp.recon_loss_type) * hp.lambda_recon
             if hp.lambda_distill > 0:
-                l_g_dis, dis_parts = self._distill_loss(state.adaptors, s_acts, t_acts)
+                l_g_dis, dis_parts = distill_terms(hp.distill_loss_type, taps, state.adaptors,
+                                                   s_acts, t_acts, dev)
                 l_g_dis = l_g_dis * hp.lambda_distill
             else:
                 l_g_dis, dis_parts = torch.zeros((), device=self.device), {}
@@ -329,12 +261,7 @@ class InceptionDistiller:
             state.rng.set_state(rng_now)  # a remat recompute rewound it
         with span("step.adam", dev):
             state.g.opt.step(average_grads(g_grads), lr)
-            if hp.ema_decay > 0:
-                ema = list(state.extra["ema_G"].values())
-                with torch.no_grad():
-                    torch._foreach_mul_(ema, hp.ema_decay)
-                    torch._foreach_add_(ema, torch._foreach_mul(list(s_params.values()),
-                                                                1.0 - hp.ema_decay))
+            update_ema(state, hp.ema_decay)
 
         state.step += 1
         metrics = {
@@ -354,9 +281,8 @@ class InceptionDistiller:
     # -------------------------------------------------------------- inference
 
     def student_eval_params(self, state: GANTrainState) -> Dict[str, torch.Tensor]:
-        """The EMA weights when ``ema_decay`` > 0, else the trained weights:
-        what evaluation and deployment use."""
-        return state.extra.get("ema_G", state.g.params)
+        """``train/common.py::student_eval_params``."""
+        return common.student_eval_params(state)
 
     @torch.no_grad()
     def generate_student(self, state: GANTrainState, x: torch.Tensor) -> torch.Tensor:

@@ -43,9 +43,9 @@ The step's phases run inside ``utils/trace.py::span``s (``step.teacher_fwd``,
 ``step.student_fwd``, ``step.g_loss_bwd``, ``step.adam``, ``step.d_loss_bwd``,
 ``step.adam``), which do nothing unless a profiler is recording.
 
-Mixed precision follows the JAX placement, as ``train/spade_model.py``
-does: float32 masters, parameters and inputs cast to ``compute_dtype``
-inside the forwards, norm statistics, losses and both taps in float32.
+Mixed precision is ``train/common.py::Precision``'s, as in
+``train/spade_model.py``; norm statistics, losses and both taps (under KA
+too) are float32.
 Entry points run on CUDA unless ``device="cpu"`` is passed.
 """
 
@@ -60,22 +60,19 @@ from torch.func import functional_call
 
 from cat_tpu_torch import resolve_device
 from cat_tpu_torch.core.spade_config import MultiscaleDiscriminatorConfig, SPADEGeneratorConfig
-from cat_tpu_torch.distill.inception_distiller import Adaptor
-from cat_tpu_torch.distill.ka import ka
+from cat_tpu_torch.distill.terms import adaptors, check_hparams, distill_terms
 from cat_tpu_torch.models.losses import gan_loss, gradient_penalty
 from cat_tpu_torch.models.spade import MultiscaleDiscriminator, SPADEGenerator
 from cat_tpu_torch.models.vgg import VGG19Features, vgg_loss
 from cat_tpu_torch.ops.nn import frozen_stats
-from cat_tpu_torch.ops.quant import TEACHER_DTYPES, teacher_forward
-from cat_tpu_torch.parallel import spatial
-from cat_tpu_torch.train.common import (GANTrainState, NetState, average_grads, cast_floats,
-                                        checkpointed, global_metrics)
-from cat_tpu_torch.train.optim import Adam
+from cat_tpu_torch.ops.quant import teacher_forward
+from cat_tpu_torch.train import common
+from cat_tpu_torch.train.common import (GANTrainState, Precision, average_grads, checkpointed,
+                                        ema_extra, global_metrics, net_state, update_ema)
 from cat_tpu_torch.train.spade_model import (d_input, discriminate, feature_matching_loss,
                                               preprocess_input)
 from cat_tpu_torch.utils.trace import span
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 DEFAULT_SPADE_MAPPING_LAYERS = ("head_0", "G_middle_1", "up_1")
 
 # the jax.checkpoint_policies names a bare name can select -> the aten ops
@@ -144,15 +141,6 @@ class SPADEDistillHParams:
     teacher_compute_dtype: str = ""  # '' follows compute_dtype; int8 | int8_static (ops/quant.py)
 
 
-def _check_ported(hp: SPADEDistillHParams) -> None:
-    if hp.teacher_compute_dtype not in TEACHER_DTYPES:
-        raise ValueError(f"teacher_compute_dtype must be one of {TEACHER_DTYPES}")
-    if hp.distill_loss_type not in ("ka", "mse"):
-        raise NotImplementedError(hp.distill_loss_type)
-    if hp.compute_dtype not in _DTYPES:
-        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}")
-
-
 def _tap_width(cfg: SPADEGeneratorConfig, name: str) -> int:
     for bname, bcfg in zip(cfg.block_names, cfg.blocks):
         if bname == name:
@@ -169,14 +157,14 @@ class SPADEDistiller:
         """``vgg``: the perceptual loss's network (None: no VGG loss);
         ``input_nc``/``contain_dontcare``: how raw label batches become
         semantics (by default the label ids fill all but the edge channel)."""
-        _check_ported(hp)
+        check_hparams(hp)
+        self.prec = Precision(hp.compute_dtype)  # both taps float32, under KA too
         self.policy = remat_policy(hp.remat_policy) if hp.remat else None
         self.device = resolve_device(device)
         self.teacher_cfg, self.student_cfg = teacher_cfg, student_cfg
         self.disc_cfg = disc_cfg or MultiscaleDiscriminatorConfig(
             input_nc=teacher_cfg.semantic_nc + teacher_cfg.output_nc)
         self.hp = hp
-        self.cdt = _DTYPES[hp.compute_dtype]
         self.vgg = None if vgg is None else vgg.to(self.device)
         self.label_nc = input_nc or teacher_cfg.semantic_nc - 1
         self.contain_dontcare = contain_dontcare
@@ -229,25 +217,15 @@ class SPADEDistiller:
             netD.load_state_dict(disc_state_dict)
         self.netD = netD.to(self.device)
 
-        self.netA = nn.ModuleDict({
-            f"A{i}": Adaptor(_tap_width(self.student_cfg, name),
-                             _tap_width(self.teacher_cfg, name), gen)
-            for i, name in enumerate(hp.mapping_layers)}).to(self.device)
+        widths = [(_tap_width(self.student_cfg, name), _tap_width(self.teacher_cfg, name))
+                  for name in hp.mapping_layers]
+        self.netA = adaptors(widths, gen).to(self.device)
         a_params = dict(self.netA.named_parameters())
-        g_params = dict(self.netG_student.named_parameters())
-        d_params = dict(self.netD.named_parameters())
-        extra = {}
-        if hp.ema_decay > 0:
-            extra["ema_G"] = {k: v.detach().clone() for k, v in g_params.items()}
+        g = net_state(self.netG_student, hp.beta1, hp.beta2, a_params.values())
         state = GANTrainState(
-            step=0,
-            # one Adam over {G, A}, as the JAX package's G parameter group
-            g=NetState(g_params, Adam([*g_params.values(), *a_params.values()], hp.beta1,
-                                      hp.beta2), dict(self.netG_student.named_buffers())),
-            d=NetState(d_params, Adam(d_params.values(), hp.beta1, hp.beta2),
-                       dict(self.netD.named_buffers())),
+            step=0, g=g, d=net_state(self.netD, hp.beta1, hp.beta2),
             rng=torch.Generator(device=self.device).manual_seed(seed),
-            adaptors=a_params, extra=extra)
+            adaptors=a_params, extra=ema_extra(g.params, hp.ema_decay))
         return state, dict(self.netG_teacher.named_parameters())
 
     # ------------------------------------------------------------------- step
@@ -260,36 +238,12 @@ class SPADEDistiller:
         return preprocess_input(batch["label"], batch.get("instance"), self.label_nc,
                                 self.contain_dontcare)
 
-    def _distill_loss(self, a_params, s_acts, t_acts):
-        total = torch.zeros((), device=self.device)
-        parts = {}
-        for i, name in enumerate(self.hp.mapping_layers):
-            s, t = s_acts[name], t_acts[name]
-            if self.hp.distill_loss_type == "ka":
-                li = -ka(s, t)
-            else:
-                mapped = spatial.conv2d_fn(s, a_params[f"A{i}.weight"], a_params[f"A{i}.bias"])
-                li = spatial.mean((mapped - t).square())
-            parts[f"Specific_loss/distill{i}"] = li
-            total = total + li
-        return total, parts
-
     def train_step(self, state: GANTrainState, teacher_params: Dict[str, torch.Tensor],
                    batch: Dict[str, torch.Tensor],
                    lr: float) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
         """One G-then-D step; updates ``state`` in place and returns it with
         the step's losses (0-d tensors)."""
-        hp = self.hp
-        mixed = self.cdt != torch.float32
-
-        def down(t):  # parameters / inputs -> compute dtype
-            return cast_floats(t, self.cdt) if mixed else t
-
-        def up(t):  # network outputs -> float32 for the losses
-            if isinstance(t, list):
-                return [up(x) for x in t]
-            return cast_floats(t, torch.float32) if mixed else t
-
+        hp, prec = self.hp, self.prec
         real_B = batch["image"]
         lr_g, lr_d = lr * self.lr_mults[0], lr * self.lr_mults[1]
         taps = hp.mapping_layers
@@ -297,19 +251,20 @@ class SPADEDistiller:
 
         # --- the teacher: frozen, eval mode ---
         with span("step.teacher_fwd", dev):
-            sem = down(self.semantics(batch))
+            sem = prec.inputs(self.semantics(batch))
             (_, t_acts), self._act_scales = teacher_forward(
-                self._teacher_fn, down(teacher_params), sem, hp.teacher_compute_dtype,
-                self._act_scales)
-            t_acts = up(t_acts)
+                self._teacher_fn, prec.params(teacher_params, self.netG_teacher), sem,
+                hp.teacher_compute_dtype, self._act_scales)
+            t_acts = prec.outputs(t_acts)
 
         # --- G update against the old D ---
         g_params = state.g.params
 
         def s_forward():
-            fake, acts = functional_call(self.netG_student, down(g_params), (sem,),
+            fake, acts = functional_call(self.netG_student,
+                                         prec.params(g_params, self.netG_student), (sem,),
                                          {"train": True, "taps": taps})
-            return up(fake), up(acts)
+            return prec.outputs(fake), prec.outputs(acts)
 
         with span("step.student_fwd", dev):
             if hp.remat and self.policy != "all":
@@ -320,8 +275,9 @@ class SPADEDistiller:
         with span("step.g_loss_bwd", dev):
             d_frozen = {k: v.detach() for k, v in state.d.params.items()}
             with frozen_stats(self.netD):
-                pred_fake, pred_real = discriminate(self.netD, d_frozen, up(sem),
-                                                    up(down(fake)), up(down(real_B)))
+                pred_fake, pred_real = discriminate(
+                    self.netD, d_frozen, prec.outputs(sem), prec.outputs(prec.inputs(fake)),
+                    prec.outputs(prec.inputs(real_B)))
             l_gan = gan_loss(pred_fake, True, hp.gan_mode, False) * hp.lambda_gan
             l_feat = feature_matching_loss(pred_fake, pred_real) * hp.lambda_feat
             if self.vgg is not None and hp.lambda_vgg > 0:
@@ -329,7 +285,8 @@ class SPADEDistiller:
             else:
                 l_vgg = torch.zeros((), device=self.device)
             if hp.lambda_distill > 0:
-                l_dis, parts = self._distill_loss(state.adaptors, s_acts, t_acts)
+                l_dis, parts = distill_terms(hp.distill_loss_type, taps, state.adaptors, s_acts,
+                                             t_acts, dev)
                 l_dis = l_dis * hp.lambda_distill
             else:
                 l_dis, parts = torch.zeros((), device=self.device), {}
@@ -346,32 +303,30 @@ class SPADEDistiller:
         # mode, its statistics writes discarded ---
         with span("step.d_loss_bwd", dev):
             with torch.no_grad(), frozen_stats(self.netG_student):
-                fake = functional_call(self.netG_student, down(g_params), (sem,),
+                fake = functional_call(self.netG_student,
+                                       prec.params(g_params, self.netG_student), (sem,),
                                        {"train": True})
-            d_down = down(state.d.params)
+            d_down = prec.params(state.d.params, self.netD)
             d_loss = torch.zeros((), device=self.device)
             if hp.gan_mode == "wgangp":
                 # the penalty's forwards read D's u of before the step: taken
                 # before the one forward that writes it
                 def d_apply(x):
-                    return up(functional_call(self.netD, d_down, (x,), {"train": True}))
+                    return prec.outputs(functional_call(self.netD, d_down, (x,),
+                                                        {"train": True}))
 
                 with frozen_stats(self.netD):
-                    d_loss, _ = gradient_penalty(d_apply, d_input(sem, down(real_B)),
+                    d_loss, _ = gradient_penalty(d_apply, d_input(sem, prec.inputs(real_B)),
                                                  d_input(sem, fake), generator=state.rng)
-            pred_fake, pred_real = discriminate(self.netD, d_down, sem, fake, down(real_B))
-            l_d_fake = gan_loss(up(pred_fake), False, hp.gan_mode, True)
-            l_d_real = gan_loss(up(pred_real), True, hp.gan_mode, True)
+            pred_fake, pred_real = discriminate(self.netD, d_down, sem, fake,
+                                                prec.inputs(real_B))
+            l_d_fake = gan_loss(prec.outputs(pred_fake), False, hp.gan_mode, True)
+            l_d_real = gan_loss(prec.outputs(pred_real), True, hp.gan_mode, True)
             d_grads = torch.autograd.grad(l_d_fake + l_d_real + d_loss,
                                           list(state.d.params.values()))
         with span("step.adam", dev):
             state.d.opt.step(average_grads(d_grads), lr_d)
-            if hp.ema_decay > 0:
-                ema = list(state.extra["ema_G"].values())
-                with torch.no_grad():
-                    torch._foreach_mul_(ema, hp.ema_decay)
-                    torch._foreach_add_(ema, torch._foreach_mul(list(g_params.values()),
-                                                                1.0 - hp.ema_decay))
+            update_ema(state, hp.ema_decay)
 
         state.step += 1
         metrics = {"G_loss/gan": l_gan, "G_loss/feat": l_feat, "G_loss/vgg": l_vgg,
@@ -386,9 +341,8 @@ class SPADEDistiller:
     # -------------------------------------------------------------- inference
 
     def student_eval_params(self, state: GANTrainState) -> Dict[str, torch.Tensor]:
-        """The EMA weights when ``ema_decay`` > 0, else the trained weights:
-        what evaluation and deployment use."""
-        return state.extra.get("ema_G", state.g.params)
+        """``train/common.py::student_eval_params``."""
+        return common.student_eval_params(state)
 
     @torch.no_grad()
     def generate_student(self, state: GANTrainState, sem: torch.Tensor) -> torch.Tensor:

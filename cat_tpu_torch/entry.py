@@ -60,7 +60,7 @@ from cat_tpu_torch.compress.profiling import profile_generator
 from cat_tpu_torch.compress.shrink import PruneBounds, shrink_generator
 from cat_tpu_torch.core.config import config_to_json
 from cat_tpu_torch.parallel import collectives, mesh, multihost
-from cat_tpu_torch.train.common import load_train_state_dict, train_state_dict
+from cat_tpu_torch.train.common import load_train_state_dict, student_eval_params, train_state_dict
 from cat_tpu_torch.train.trainer import Trainer
 from cat_tpu_torch.utils import checkpoint as ckpt
 from cat_tpu_torch.utils import jax_import
@@ -446,24 +446,10 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
     evaluate_fn = combine_evaluators(**{"": evs}) if evs else None
 
     def save_fn(state, tag):
-        # net_G holds what evaluation and deployment use: the EMA weights
-        # with --moving_average_decay (the raw weights then go to net_G_raw),
-        # else the trained weights
-        eval_params = dist.student_eval_params(state)
-        ckpt.save_net(save_dir, tag, "G", {**eval_params, **state.g.stats}, student_cfg)
-        if eval_params is not state.g.params:
-            ckpt.save_net(save_dir, tag, "G_raw", {**state.g.params, **state.g.stats},
-                          student_cfg)
-        else:
-            ckpt.remove_stale(save_dir, tag, "net_G_raw.pth")
-            ckpt.remove_stale(save_dir, tag, "net_G_raw.json")
         ckpt.save_net(save_dir, tag, "D", {**state.d.params, **state.d.stats}, disc_cfg)
         if state.adaptors:
             ckpt.save_net(save_dir, tag, "A", state.adaptors)
-        if opt.save_full_state:
-            ckpt.save_train_state(save_dir, tag, train_state_dict(state))
-        else:
-            ckpt.remove_stale(save_dir, tag, "state.pth")
+        _save_student(opt, save_dir, tag, state, student_cfg)
 
     def step_fn(state, batch, lr):
         state, metrics = dist.train_step(state, teacher_params, batch, lr)
@@ -473,6 +459,24 @@ def setup_distill_inception(opt, device=None, loader=None) -> DistillRun:
     trainer = _trainer(opt, step_fn, loader, evaluate_fn, save_fn, logger, device, save_dir,
                        primary)
     return DistillRun(trainer, state, dist, teacher_params, student_cfg, loader, logger)
+
+
+def _save_student(opt, save_dir: str, tag, state, student_cfg) -> None:
+    """A distilled student's checkpoint: net_G holds what evaluation and
+    deployment use, the EMA weights with --moving_average_decay (the raw
+    weights then go to net_G_raw), else the trained weights; state.pth with
+    --save_full_state."""
+    eval_params = student_eval_params(state)
+    ckpt.save_net(save_dir, tag, "G", {**eval_params, **state.g.stats}, student_cfg)
+    if eval_params is not state.g.params:
+        ckpt.save_net(save_dir, tag, "G_raw", {**state.g.params, **state.g.stats}, student_cfg)
+    else:
+        ckpt.remove_stale(save_dir, tag, "net_G_raw.pth")
+        ckpt.remove_stale(save_dir, tag, "net_G_raw.json")
+    if opt.save_full_state:
+        ckpt.save_train_state(save_dir, tag, train_state_dict(state))
+    else:
+        ckpt.remove_stale(save_dir, tag, "state.pth")
 
 
 def load_spade_checkpoint(path: str, opt=None) -> Tuple[Any, Dict[str, torch.Tensor]]:
@@ -598,20 +602,7 @@ def setup_distill_spade(opt, device=None, loader=None) -> DistillRun:
         primary=primary, process_shard=pshard)
 
     def save_fn(state, tag):
-        # net_G holds what evaluation and deployment use (the EMA weights
-        # with --moving_average_decay; the raw weights then go to net_G_raw)
-        eval_params = dist.student_eval_params(state)
-        ckpt.save_net(save_dir, tag, "G", {**eval_params, **state.g.stats}, student_cfg)
-        if eval_params is not state.g.params:
-            ckpt.save_net(save_dir, tag, "G_raw", {**state.g.params, **state.g.stats},
-                          student_cfg)
-        else:
-            ckpt.remove_stale(save_dir, tag, "net_G_raw.pth")
-            ckpt.remove_stale(save_dir, tag, "net_G_raw.json")
-        if opt.save_full_state:
-            ckpt.save_train_state(save_dir, tag, train_state_dict(state))
-        else:
-            ckpt.remove_stale(save_dir, tag, "state.pth")
+        _save_student(opt, save_dir, tag, state, student_cfg)
 
     def step_fn(state, batch, lr):
         state, metrics = dist.train_step(state, teacher_params, batch, lr)

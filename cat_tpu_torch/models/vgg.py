@@ -24,7 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from cat_tpu_torch import resolve_device
+from cat_tpu_torch import DTYPES, resolve_device
 from cat_tpu_torch.parallel import spatial
 
 # torchvision vgg19 "E" configuration: conv widths, "M" a 2x2 max pool
@@ -33,8 +33,6 @@ _CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M", 512, 512, 512, 512,
 _SLICE_ENDS = (1, 6, 11, 20, 29)  # the relu of conv 0, 5, 10, 19, 28: relu1_1 ... relu5_1
 
 VGG_LOSS_WEIGHTS = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 class VGG19Features(nn.Module):
@@ -106,7 +104,7 @@ def vgg_loss(model: VGG19Features, x: torch.Tensor, y: torch.Tensor,
     (the reference detaches it, loss.py:196-202).  ``compute_dtype``
     ("bfloat16") runs the conv sweep in that dtype; each slice's L1 is taken
     in float32 either way."""
-    cdt = _DTYPES[compute_dtype or "float32"]
+    cdt = DTYPES[compute_dtype or "float32"]
     fx = model(x.to(cdt))
     with torch.no_grad():
         fy = model(y.detach().to(cdt))

@@ -15,7 +15,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from cat_tpu_torch import import_stdlib_profile
+from cat_tpu_torch import DTYPES, import_stdlib_profile
 from cat_tpu_torch.ops.nn import frozen_stats
 from cat_tpu_torch.ops.spectral import SpectralConv2d
 from cat_tpu_torch.parallel import collectives
@@ -24,11 +24,13 @@ from cat_tpu_torch.utils.image_pool import ImagePool
 
 
 def cast_floats(tree: Any, dtype: torch.dtype) -> Any:
-    """Cast a float tensor, or the float tensors of a (nested) dict, to a
-    compute dtype.  The casts are part of the autograd graph, so gradients
-    come back to float32 masters in float32."""
+    """Cast a float tensor, or the float tensors of a (nested) dict or
+    list, to a compute dtype.  The casts are part of the autograd graph, so
+    gradients come back to float32 masters in float32."""
     if isinstance(tree, dict):
         return {k: cast_floats(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_floats(v, dtype) for v in tree]
     return tree.to(dtype) if tree.is_floating_point() else tree
 
 
@@ -63,6 +65,44 @@ def cast_flat(params: Dict[str, torch.Tensor], dtype: torch.dtype,
     return {k: out[k] for k in params}
 
 
+class Precision:
+    """A step's mixed precision, placed as in the JAX package rather than
+    by ``torch.autocast``: float32 masters; parameters (``params``) and
+    inputs (``inputs``) cast to the compute dtype inside the forward, so
+    autograd brings float32 gradients back; network outputs cast to
+    float32 for the losses (``outputs``); taps (``taps``) kept in the
+    compute dtype for KA and cast to float32 for the mse adaptors.  Under
+    float32 nothing is cast."""
+
+    def __init__(self, name: str, distill_loss_type: str = "ka"):
+        if name not in DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(DTYPES)}")
+        self.dtype = DTYPES[name]
+        self.mixed = self.dtype != torch.float32
+        self.ka = distill_loss_type == "ka"
+        self._keep: Dict[torch.nn.Module, frozenset] = {}
+
+    def params(self, params: Dict[str, torch.Tensor],
+               net: torch.nn.Module) -> Dict[str, torch.Tensor]:
+        """``net``'s parameters in the compute dtype, in one flat cast
+        (``cast_flat``) but for those ``net.float32_params()`` names, which
+        stay float32 masters (ADM's norms)."""
+        if not self.mixed:
+            return params
+        if net not in self._keep:
+            self._keep[net] = frozenset(getattr(net, "float32_params", tuple)())
+        return cast_flat(params, self.dtype, self._keep[net])
+
+    def inputs(self, tree: Any) -> Any:
+        return cast_floats(tree, self.dtype) if self.mixed else tree
+
+    def outputs(self, tree: Any) -> Any:
+        return cast_floats(tree, torch.float32) if self.mixed else tree
+
+    def taps(self, acts: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return acts if self.ka else self.outputs(acts)
+
+
 @dataclass
 class NetState:
     """Parameters (name -> float32 tensor), their optimiser, and the
@@ -86,11 +126,36 @@ class GANTrainState:
     pools: Dict[str, ImagePool] = field(default_factory=dict)  # CycleGAN: fake_A, fake_B
 
 
-def net_state(net: torch.nn.Module, beta1: float) -> NetState:
-    """A network's parameters, an Adam over them, and its running
-    statistics, all the module's own tensors."""
+def net_state(net: torch.nn.Module, beta1: float, beta2: float = 0.999,
+              extra: Sequence[torch.Tensor] = ()) -> NetState:
+    """A network's parameters, an Adam over them (and after them over
+    ``extra``, the adaptors of the JAX package's {G, A} group), and its
+    running statistics, all the module's own tensors."""
     params = dict(net.named_parameters())
-    return NetState(params, Adam(params.values(), beta1), dict(net.named_buffers()))
+    return NetState(params, Adam([*params.values(), *extra], beta1, beta2),
+                    dict(net.named_buffers()))
+
+
+def ema_extra(params: Dict[str, torch.Tensor], decay: float) -> Dict[str, Any]:
+    """``GANTrainState.extra``: under an EMA (``decay`` > 0) ``ema_G``, a
+    copy of the student's ``params``; else empty."""
+    return {"ema_G": {k: v.detach().clone() for k, v in params.items()}} if decay > 0 else {}
+
+
+@torch.no_grad()
+def update_ema(state: GANTrainState, decay: float) -> None:
+    """ema_G <- decay * ema_G + (1 - decay) * G, after a G step; nothing
+    without an EMA."""
+    if decay > 0:
+        ema = list(state.extra["ema_G"].values())
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, torch._foreach_mul(list(state.g.params.values()), 1.0 - decay))
+
+
+def student_eval_params(state: GANTrainState) -> Dict[str, torch.Tensor]:
+    """The EMA weights under an EMA, else the trained weights: what
+    evaluation and deployment use."""
+    return state.extra.get("ema_G", state.g.params)
 
 
 _BUCKET_BYTES = 64 << 20  # a flattened all-reduce's size

@@ -48,11 +48,8 @@ from cat_tpu_torch.models.spade import MultiscaleDiscriminator, SPADEGenerator
 from cat_tpu_torch.models.vgg import VGG19Features, vgg_loss
 from cat_tpu_torch.ops.nn import frozen_stats
 from cat_tpu_torch.parallel import collectives, spatial
-from cat_tpu_torch.train.common import (GANTrainState, NetState, average_grads, cast_floats,
-                                        checkpointed, global_metrics)
-from cat_tpu_torch.train.optim import Adam
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+from cat_tpu_torch.train.common import (GANTrainState, Precision, average_grads, checkpointed,
+                                        global_metrics, net_state)
 
 # ---------------------------------------------------------------------------
 # input preprocessing (reference spade_model.preprocess_input:142-161)
@@ -165,7 +162,7 @@ class SPADETask:
         self.disc_cfg = disc_cfg or MultiscaleDiscriminatorConfig(
             input_nc=gen_cfg.semantic_nc + gen_cfg.output_nc)
         self.hp = hp
-        self.cdt = _DTYPES[hp.compute_dtype]
+        self.prec = Precision(hp.compute_dtype)
         self.vgg = None if vgg is None else vgg.to(self.device)
         self.label_nc = input_nc or gen_cfg.semantic_nc
         self.contain_dontcare = contain_dontcare
@@ -189,13 +186,8 @@ class SPADETask:
             netG.load_state_dict(g_state_dict)
         netD = MultiscaleDiscriminator(self.disc_cfg, hp.init_type, hp.init_gain, generator=gen)
         self.netG, self.netD = netG.to(self.device), netD.to(self.device)
-
-        def ns(net):
-            params = dict(net.named_parameters())
-            return NetState(params, Adam(params.values(), hp.beta1, hp.beta2),
-                            dict(net.named_buffers()))
-
-        return GANTrainState(step=0, g=ns(self.netG), d=ns(self.netD),
+        return GANTrainState(step=0, g=net_state(self.netG, hp.beta1, hp.beta2),
+                             d=net_state(self.netD, hp.beta1, hp.beta2),
                              rng=torch.Generator(device=self.device).manual_seed(seed))
 
     def semantics(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -207,29 +199,21 @@ class SPADETask:
                    lr: float) -> Tuple[GANTrainState, Dict[str, torch.Tensor]]:
         """One G-then-D step; updates ``state`` in place and returns it with
         the step's losses (0-d tensors)."""
-        hp = self.hp
-        mixed = self.cdt != torch.float32
-
-        def down(t):
-            return cast_floats(t, self.cdt) if mixed else t
-
-        def up(t):
-            if isinstance(t, list):
-                return [up(x) for x in t]
-            return t.float() if mixed else t
-
-        sem, real_B = down(self.semantics(batch)), batch["image"]
+        hp, prec = self.hp, self.prec
+        sem, real_B = prec.inputs(self.semantics(batch)), batch["image"]
         lr_g, lr_d = lr * self.lr_mults[0], lr * self.lr_mults[1]
 
         # --- G update against the old D ---
         def g_forward():
-            return up(functional_call(self.netG, down(state.g.params), (sem,), {"train": True}))
+            return prec.outputs(functional_call(self.netG, prec.params(state.g.params, self.netG),
+                                                (sem,), {"train": True}))
 
         fake = checkpointed(g_forward, self.netG, state.rng) if hp.remat else g_forward()
         d_frozen = {k: v.detach() for k, v in state.d.params.items()}
         with frozen_stats(self.netD):
-            pred_fake, pred_real = discriminate(self.netD, d_frozen, up(sem), up(down(fake)),
-                                                      up(down(real_B)))
+            pred_fake, pred_real = discriminate(self.netD, d_frozen, prec.outputs(sem),
+                                                prec.outputs(prec.inputs(fake)),
+                                                prec.outputs(prec.inputs(real_B)))
         l_gan = gan_loss(pred_fake, True, hp.gan_mode, False) * hp.lambda_gan
         l_feat = feature_matching_loss(pred_fake, pred_real) * hp.lambda_feat
         if self.vgg is not None and hp.lambda_vgg > 0:
@@ -243,11 +227,12 @@ class SPADETask:
 
         # --- D update: the fake regenerated by the updated G, no gradient ---
         with torch.no_grad(), frozen_stats(self.netG):
-            fake = functional_call(self.netG, down(state.g.params), (sem,), {"train": True})
-        pred_fake, pred_real = discriminate(self.netD, down(state.d.params), sem, fake,
-                                            down(real_B))
-        l_d_fake = gan_loss(up(pred_fake), False, hp.gan_mode, True)
-        l_d_real = gan_loss(up(pred_real), True, hp.gan_mode, True)
+            fake = functional_call(self.netG, prec.params(state.g.params, self.netG), (sem,),
+                                   {"train": True})
+        pred_fake, pred_real = discriminate(self.netD, prec.params(state.d.params, self.netD),
+                                            sem, fake, prec.inputs(real_B))
+        l_d_fake = gan_loss(prec.outputs(pred_fake), False, hp.gan_mode, True)
+        l_d_real = gan_loss(prec.outputs(pred_real), True, hp.gan_mode, True)
         d_grads = torch.autograd.grad(l_d_fake + l_d_real, list(state.d.params.values()))
         state.d.opt.step(average_grads(d_grads), lr_d)
 

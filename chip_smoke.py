@@ -4427,15 +4427,15 @@ def gaugan_teacher_convs(dev, card, dist):
     cfg = dist.netG_teacher.cfg
     sh, sw = cfg.latent_size()
     up = 2 ** {"normal": 5, "more": 6, "most": 7}[cfg.num_upsampling_layers]
-    params = cast_floats(dict(dist.netG_teacher.named_parameters()), dist.cdt)
-    sem = torch.zeros(1, cfg.semantic_nc, sh * up, sw * up, device=dev, dtype=dist.cdt)
+    params = cast_floats(dict(dist.netG_teacher.named_parameters()), dist.prec.dtype)
+    sem = torch.zeros(1, cfg.semantic_nc, sh * up, sw * up, device=dev, dtype=dist.prec.dtype)
     convs, n_convs = record_convs(dist._teacher_fn, params, sem)
     if dist._act_scales is not None and n_convs != len(dist._act_scales):
         fail(f"14 (c): the GauGAN teacher runs {n_convs} convs, {len(dist._act_scales)} "
              "calibrated scales")
     log(f"14 (c): the GauGAN teacher runs {n_convs} convs, {len(convs)} distinct, over "
         f"{sh * up}x{sw * up} semantics")
-    tot = int8_conv_numbers(dev, card, convs, GAUGAN_BATCH, str(dist.cdt).split(".")[1],
+    tot = int8_conv_numbers(dev, card, convs, GAUGAN_BATCH, str(dist.prec.dtype).split(".")[1],
                             ("grouped",), "the GauGAN teacher")
     return tot, n_convs
 

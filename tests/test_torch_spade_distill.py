@@ -230,6 +230,29 @@ def test_spade_distiller_writes_state_only_where_the_jax_distiller_does(rng, spe
             torch.testing.assert_close(net.get_buffer(k), v, rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("loss", ["ka", "mse"])
+def test_bf16_steps_keep_float32_masters(rng, loss):
+    """Two steps at ``compute_dtype`` bfloat16 (the parameters cast flat,
+    with VGG in bf16 and an EMA): finite losses, every master, adaptor and
+    EMA weight float32, and the student moved."""
+    from cat_tpu_torch.models.spade import SPADEGenerator
+
+    tcfg, scfg, dcfg = (to_port(c) for c in _cfgs())
+    hp = tsd.SPADEDistillHParams(distill_loss_type=loss, compute_dtype="bfloat16",
+                                 vgg_compute_dtype="bfloat16", ema_decay=0.9)
+    dist = tsd.SPADEDistiller(tcfg, scfg, dcfg, hp, vgg=tvgg.VGG19Features(), input_nc=3,
+                              contain_dontcare=True, device="cpu")
+    teacher = SPADEGenerator(tcfg, generator=torch.Generator().manual_seed(1))
+    state, tparams = dist.init_state(teacher.state_dict(), seed=2)
+    before = {k: v.clone() for k, v in state.g.params.items()}
+    for _ in range(2):
+        state, m = dist.train_step(state, tparams, _batch(rng)[1], LR)
+        assert all(bool(torch.isfinite(v)) for v in m.values()), m
+    for tree in (state.g.params, state.d.params, state.adaptors, state.extra["ema_G"]):
+        assert all(v.dtype == torch.float32 for v in tree.values())
+    assert any(not torch.equal(v, before[k]) for k, v in state.g.params.items())
+
+
 # ---------------------------------------------------------------------------
 # --remat_policy: selective rematerialisation of the student forward
 # ---------------------------------------------------------------------------

@@ -217,6 +217,61 @@ def test_bf16_step_keeps_float32_masters(rng):
     assert all(p.dtype == torch.float32 for p in state.d.params.values())
 
 
+def _flat_cast_nets():
+    """(net, input) of each GAN network the distillers cast under bf16, at
+    toy widths."""
+    from cat_tpu_torch.core import spade_config as sc
+    from cat_tpu_torch.models.discriminators import NLayerDiscriminator
+    from cat_tpu_torch.models.spade import MultiscaleDiscriminator, SPADEGenerator
+
+    gen = torch.Generator().manual_seed(3)
+    spade = dict(semantic_nc=5, channels_reduction_factor=8, kernel_sizes=(3,),
+                 num_upsampling_layers="normal", crop_size=64, aspect_ratio=2.0)
+    x = torch.randn(2, 3, SIZE, SIZE, generator=gen)
+    sem = torch.randn(2, 5, 32, 64, generator=gen)
+    return {
+        "inception": lambda: (InceptionGenerator(to_port(_gen_cfg(5)), generator=gen), x),
+        "inception_fused": lambda: (InceptionGenerator(to_port(_gen_cfg(5)), fused_norms=True,
+                                                       generator=gen), x),
+        "spade": lambda: (SPADEGenerator(sc.SPADEGeneratorConfig.make(ngf=6, **spade),
+                                         generator=gen), sem),
+        "nlayer": lambda: (NLayerDiscriminator(tcfg.NLayerDiscriminatorConfig(ndf=5),
+                                               generator=gen), x),
+        "multiscale": lambda: (MultiscaleDiscriminator(sc.MultiscaleDiscriminatorConfig(
+            input_nc=5, ndf=5, n_layers=3, num_D=2), generator=gen), sem),
+    }
+
+
+@pytest.mark.parametrize("net", ["inception", "inception_fused", "spade", "nlayer",
+                                 "multiscale"])
+def test_flat_cast_equals_the_per_tensor_cast(net):
+    """``cast_flat`` of a GAN network's parameters with nothing kept (how
+    ``Precision`` casts them under bf16): every piece equal to its own bf16
+    cast, and the float32 gradients back through it equal to those back
+    through one cast a tensor."""
+    from cat_tpu_torch.train.common import cast_flat, cast_floats
+
+    module, x = _flat_cast_nets()[net]()
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in module.named_parameters()}
+    flat = cast_flat(params, torch.bfloat16)
+    assert list(flat) == list(params)
+    for k, v in flat.items():
+        assert v.dtype == torch.bfloat16 and torch.equal(v, params[k].to(torch.bfloat16)), k
+    twin = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    per = {k: v.to(torch.bfloat16) for k, v in twin.items()}
+
+    def loss(p):
+        out = cast_floats(torch.func.functional_call(module, p, (x.bfloat16(),)),
+                          torch.float32)
+        leaves = [out] if torch.is_tensor(out) else [t for scale in out for t in scale]
+        return sum(t.square().mean() for t in leaves)
+
+    grads = [torch.autograd.grad(loss(p), list(leaves.values()))
+             for p, leaves in ((flat, params), (per, twin))]
+    assert all(a.dtype == torch.float32 and torch.equal(a, b) for a, b in zip(*grads))
+
+
 @pytest.mark.parametrize("mode", ["int8", "int8_static"])
 def test_int8_teacher_hyperparameters_build_and_check(rng, mode):
     """The int8 teachers (refused until the int8 convolutions were ported):
@@ -234,6 +289,33 @@ def test_int8_teacher_hyperparameters_build_and_check(rng, mode):
     with pytest.raises(ValueError, match="teacher_compute_dtype"):
         InceptionDistiller(to_port(_gen_cfg(8)), to_port(_gen_cfg(4)),
                            hp=DistillHParams(teacher_compute_dtype="int4"), device="cpu")
+
+
+@pytest.mark.parametrize("family", ["inception", "spade", "generic"])
+def test_distillers_refuse_unknown_dtypes_and_losses(family):
+    """Each distiller refuses, before it builds anything, a compute dtype
+    outside float32/bfloat16 (``ValueError``) and a distillation loss other
+    than ka/mse (``NotImplementedError``)."""
+    from cat_tpu_torch.core.spade_config import SPADEGeneratorConfig
+    from cat_tpu_torch.distill.generic import GenericDistiller, GenericDistillHParams
+    from cat_tpu_torch.distill.spade_distiller import SPADEDistiller, SPADEDistillHParams
+
+    def build(**kw):
+        if family == "inception":
+            return InceptionDistiller(to_port(_gen_cfg(8)), to_port(_gen_cfg(4)),
+                                      hp=DistillHParams(**kw), device="cpu")
+        if family == "spade":
+            cfg = SPADEGeneratorConfig.make(ngf=8)
+            return SPADEDistiller(cfg, cfg, hp=SPADEDistillHParams(**kw), device="cpu")
+        return GenericDistiller(torch.nn.Identity(), torch.nn.Identity(), {}, {},
+                                GenericDistillHParams(**kw), device="cpu")
+
+    with pytest.raises(ValueError, match=r"compute_dtype must be one of \['bfloat16', "
+                                         r"'float32'\]"):
+        build(compute_dtype="float16")
+    with pytest.raises(NotImplementedError, match="l1"):
+        build(distill_loss_type="l1")
+    assert build(compute_dtype="bfloat16").prec.dtype == torch.bfloat16
 
 
 def test_entry_point_needs_cuda_unless_cpu_is_asked_for():

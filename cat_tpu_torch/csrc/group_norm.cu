@@ -90,6 +90,46 @@
 //
 // Limits (checked by the Python wrapper): x (and g) contiguous, bf16 or f32;
 // γ, β float32 (C,); the scale-shift (N, 2C) contiguous in x's dtype.
+//
+// NHWC (group_norm_nhwc_*): the same function over x stored channels
+// innermost (a channels_last (N, C, H, W) tensor, or (N, C, T) stored as
+// (N, T, C)), so that ADM's UNet runs channels-last end to end and cuDNN's
+// NHWC convolutions need no transposes.  Sample n is an (H·W, C) matrix; a
+// group is C/G neighbouring columns at every pixel, C values apart, not one
+// slab.  The design:
+//   - the unit of work is a sample and a run of whole groups: all C
+//     channels where they are at most 256 16-byte vectors (every ADM site in
+//     bf16), so a CTA's pixels are one contiguous run of memory, read and
+//     written in whole lines, and a group of 4 channels (8 bytes) costs no
+//     more than one of 64.  (Units of 16-128 bytes a pixel, tried first,
+//     read each DRAM page partly and were 10-40% slower at 128² and 256².)
+//   - thread t of 256 keeps one vector column j = t mod (C/V) and walks
+//     pixels t / (C/V), + 256/(C/V), ...: its channels, so its γ, β,
+//     scale-shift, mean and rstd, stay in registers for the whole pass;
+//     each walk loads its next chunk of pixels while it computes the last;
+//   - "cta"/"cluster" (group_norm_nhwc_fwd, group_norm_nhwc_bwd): a sample
+//     of at most 8 CTAs' 64 KiB (a CTA a 16 KiB of x forward, 32 KiB
+//     backward, as measured) is staged once by 1-D bulk copies on up to four
+//     mbarriers, a CTA a contiguous run of pixels; forward, each CTA centres
+//     its groups exactly over its pixels (Σx, then Σ(x - mean)², from shared
+//     memory) and the cluster's CTAs, of equal counts, merge their (mean, M2)
+//     in rank order through distributed shared memory (their loads all in
+//     flight at once); backward, their shares of s1, s2 likewise;
+//   - "split": a larger sample is cut into k runs of pixels, one CTA each,
+//     about one wave of resident CTAs: a stats pass (group_norm_nhwc_stats:
+//     each thread's channels centred chunk by chunk, U pixels a chunk,
+//     merged by Chan's formula; then the CTA's threads a group in a fixed
+//     order, one warp a group) and an apply pass (group_norm_nhwc_apply:
+//     the k runs merged in order, then x read again and written); backward
+//     group_norm_nhwc_grads ((P, Q) a channel and run) and
+//     group_norm_nhwc_bwd_apply.  A sample of 8 MiB or more does not stay
+//     in L2 between the passes, so the forward moves 1.5x and the backward
+//     5/3x the bytes bound, at 2.3-2.5 TB/s.
+// Both backward paths write the (P, Q) of each channel and run to the same
+// (N, C, k) buffer the NCHW kernels use, so group_norm_bwd_channels sums
+// dγ, dβ and the scale-shift's gradient in order: no atomics anywhere.
+// NHWC limits (checked by the wrapper): C·itemsize a multiple of 16 bytes,
+// every pointer 16-byte aligned, a group at most 256 vectors, N·H·W < 2^31.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -764,7 +804,7 @@ group_norm_act_bwd_apply(const T* __restrict__ x, const T* __restrict__ g,
 // `smem` bytes of dynamic shared memory.
 template <typename... Params, typename... Args>
 cudaError_t launch_staged(void (*kernel)(Params...), long long grid, int k, size_t smem,
-                          cudaStream_t stream, Args... args) {
+                          int threads, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err == cudaSuccess && k > kPortable)
@@ -772,7 +812,7 @@ cudaError_t launch_staged(void (*kernel)(Params...), long long grid, int k, size
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(grid));
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -808,8 +848,9 @@ int fwd_launch(const void* x, const void* gamma, const void* beta, const void* e
   }
   const long long grid = static_cast<long long>(N) * (C / cpg) * k;
   return static_cast<int>(launch_staged(group_norm_act_fwd<T>, grid, k,
-                                        static_cast<size_t>(slice) * sizeof(T), st, xp, gp, bp,
-                                        ep, yp, mp, rp, C, cpg, HW, k, slice, chunk, eps, silu));
+                                        static_cast<size_t>(slice) * sizeof(T), kThreads, st, xp,
+                                        gp, bp, ep, yp, mp, rp, C, cpg, HW, k, slice, chunk, eps,
+                                        silu));
 }
 
 template <typename T>
@@ -839,13 +880,878 @@ int bwd_launch(const void* x, const void* g, const void* mean, const void* rstd,
     const long long grid = static_cast<long long>(N) * (C / cpg) * k;
     const size_t smem = 2 * static_cast<size_t>(slice) * sizeof(T)  // x and g
                         + static_cast<size_t>(slice) * sizeof(T) / 16 * sizeof(float2);
-    err = launch_staged(group_norm_act_bwd<T>, grid, k, smem, st, xp, gp, mp, rp, wp, bp, ep, dp,
-                        pp, C, cpg, HW, k, slice, chunk, pieces, silu);
+    err = launch_staged(group_norm_act_bwd<T>, grid, k, smem, kThreads, st, xp, gp, mp, rp, wp, bp,
+                        ep, dp, pp, C, cpg, HW, k, slice, chunk, pieces, silu);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   group_norm_bwd_channels<T><<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       pp, wp, bp, ep, static_cast<T*>(demb), static_cast<float*>(dgamma),
       static_cast<float*>(dbeta), N, C, pieces);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// NHWC: a unit is sample n and channels [c0, c0 + wc), a CTA a run of its
+// pixels; thread t keeps vector column j of the unit (see the file's notes)
+// ---------------------------------------------------------------------------
+
+constexpr int kNhwcThreads = 256;
+constexpr int kNhwcWarps = kNhwcThreads / 32;
+constexpr int kMaxGroups = 256;   // groups of a unit
+constexpr int kMaxCluster = 8;    // CTAs of a staged unit (ops/group_norm.py plans at most 8)
+constexpr int kNhwcChunks = 4;    // bulk copies of a staged CTA's pixels, one mbarrier each
+constexpr int kMaxUnitVecs = 256; // 16-byte vectors of a unit's pixel: one a thread
+constexpr int kMaxParts = 2048;   // a split unit's groups times its runs
+
+// The CTA's share: sample n, the unit's first channel c0, its rank among the
+// unit's k CTAs, and the pixels [r0, r0 + rows) of the sample it takes.
+struct Unit {
+  long long n;
+  int c0, rank, r0, rows;
+};
+
+__device__ __forceinline__ Unit unit_of(int C, int wc, int k, int HW, int rows) {
+  const long long unit = blockIdx.x / k;
+  const int nb = C / wc;
+  Unit u;
+  u.n = unit / nb;
+  u.c0 = static_cast<int>(unit % nb) * wc;
+  u.rank = static_cast<int>(blockIdx.x % k);
+  u.r0 = u.rank * rows;
+  u.rows = min(rows, HW - u.r0);
+  return u;
+}
+
+// Thread t's vector column j, its first pixel r and the pixels nr apart it
+// walks; `on` is false for the last 256 mod (wc/V) threads.
+struct Lane {
+  int j, r, nr;
+  bool on;
+};
+
+__device__ __forceinline__ Lane lane_of(int wc, int V) {
+  const int vr = wc / V;
+  Lane l;
+  l.j = threadIdx.x % vr;
+  l.r = threadIdx.x / vr;
+  l.nr = kNhwcThreads / vr;
+  l.on = l.r < l.nr;
+  return l;
+}
+
+// The raw coefficients of the thread's V channels from c0 on: γ, β, and
+// the timestep's scale and shift (with emb); coefs() forms channel_coef's
+// (a, b) from them.  The staged kernels load them while their copies fly.
+template <int V>
+struct RawCoefs {
+  float g[V], b[V], s[V], t[V];
+};
+
+template <int V, typename T>
+__device__ __forceinline__ void load_coefs(RawCoefs<V>& w, const float* gamma, const float* beta,
+                                           const T* emb, long long n, int C, int c0) {
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    w.g[q] = gamma[c0 + q];
+    w.b[q] = beta[c0 + q];
+    if (emb != nullptr) {
+      w.s[q] = to_f(emb[n * 2 * C + c0 + q]);
+      w.t[q] = to_f(emb[n * 2 * C + C + c0 + q]);
+    }
+  }
+}
+
+template <int V>
+__device__ __forceinline__ float2 coefs(const RawCoefs<V>& w, int q, float r, bool has_emb) {
+  float a = r * w.g[q], b = w.b[q];
+  if (has_emb) {
+    const float sc = 1.f + w.s[q];
+    a *= sc;
+    b = b * sc + w.t[q];
+  }
+  return make_float2(a, b);
+}
+
+// 16 bytes at p, raw; and as V floats (bf16 two at a time).
+__device__ __forceinline__ uint4 ld16(const void* p) { return *reinterpret_cast<const uint4*>(p); }
+
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& r, float (&v)[16 / sizeof(T)]) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+  if (sizeof(T) == 4) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = __uint_as_float(w[k]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[2 * k] = __uint_as_float(w[k] << 16);
+      v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  }
+}
+
+// The raw 16 bytes of the thread's pixels base, base + nr, ... (U of them,
+// those below `rows`) of each of the n arrays p[] (pixels `stride` values
+// apart): the walkers below load a chunk's while they compute the last.
+template <typename T, int U, int kN>
+__device__ __forceinline__ void load_chunk(const T* const (&p)[kN], long long stride, int base,
+                                           int rows, int nr, uint4 (&raw)[kN][U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (base + u * nr < rows)
+#pragma unroll
+      for (int i = 0; i < kN; ++i) raw[i][u] = ld16(p[i] + (base + u * nr) * stride);
+}
+
+// Moments of each of the thread's V channels over its pixels r, r + nr, ...
+// below `rows` (p: its column at pixel 0, pixels `stride` values apart), U
+// pixels a chunk: the chunk's mean and centred M2, merged by Chan's formula.
+// Returns the thread's count of pixels.
+template <typename T, int U>
+__device__ __forceinline__ float thread_moments(const T* p, long long stride, int r, int rows,
+                                                int nr, float (&mean)[16 / sizeof(T)],
+                                                float (&m2)[16 / sizeof(T)]) {
+  constexpr int V = 16 / sizeof(T);
+  const T* const src[1] = {p};
+  float cnt = 0.f;
+#pragma unroll
+  for (int q = 0; q < V; ++q) mean[q] = m2[q] = 0.f;
+  uint4 next[1][U];
+  load_chunk<T, U, 1>(src, stride, r, rows, nr, next);
+  for (int base = r; base < rows; base += U * nr) {
+    uint4 cur[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) cur[u] = next[0][u];
+    load_chunk<T, U, 1>(src, stride, base + U * nr, rows, nr, next);  // in flight meanwhile
+    float v[U][V];
+    int nv = 0;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (base + u * nr < rows) {
+        unpack<T>(cur[u], v[u]);
+        ++nv;
+      }
+    const float inv = 1.f / static_cast<float>(nv);
+    const float w = static_cast<float>(nv) / (cnt + static_cast<float>(nv));
+#pragma unroll
+    for (int q = 0; q < V; ++q) {
+      float s = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (u < nv) s += v[u][q];
+      const float cm = s * inv;
+      float c2 = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (u < nv) {
+          const float d = v[u][q] - cm;
+          c2 = fmaf(d, d, c2);
+        }
+      const float d = cm - mean[q];
+      mean[q] = fmaf(d, w, mean[q]);
+      m2[q] += c2 + d * d * cnt * w;
+    }
+    cnt += static_cast<float>(nv);
+  }
+  return cnt;
+}
+
+// Moments of lane 0's and its peers' values, merged down a shuffle tree in a
+// fixed order; lane 0 holds the warp's.
+__device__ __forceinline__ Moments warp_merge(Moments m) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const Moments other = {__shfl_down_sync(0xffffffffu, m.n, o),
+                           __shfl_down_sync(0xffffffffu, m.mean, o),
+                           __shfl_down_sync(0xffffffffu, m.m2, o)};
+    if (lane + o < 32) m = merge(m, other);
+  }
+  return m;
+}
+
+// The CTA's moments of each group of the unit, out[gl] (gl < wc/cpg), from
+// its threads' per-channel ones: entries ent[r·wc + channel] for thread rows
+// r < nr, cnts[r] values each; one warp a group merges its (row, channel)
+// entries lane by lane in order, then down the shuffle tree.
+template <int V>
+__device__ void cta_group_moments(float2* ent, float* cnts, const Lane& l, int wc, int cpg,
+                                  float cnt, const float (&mean)[V], const float (&m2)[V],
+                                  Moments* out) {
+  if (l.on) {
+#pragma unroll
+    for (int q = 0; q < V; ++q) ent[l.r * wc + l.j * V + q] = make_float2(mean[q], m2[q]);
+    if (l.j == 0) cnts[l.r] = cnt;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, ng = wc / cpg, ne = l.nr * cpg;
+  const Div dv = make_div(static_cast<uint32_t>(cpg));
+  for (int gl = warp; gl < ng; gl += kNhwcWarps) {
+    Moments m = {0.f, 0.f, 0.f};
+    for (int e = lane; e < ne; e += 32) {
+      const int r = static_cast<int>(divide(static_cast<uint32_t>(e), dv));
+      const float2 p = ent[r * wc + gl * cpg + (e - r * cpg)];
+      m = merge(m, {cnts[r], p.x, p.y});
+    }
+    m = warp_merge(m);
+    if (lane == 0) out[gl] = m;
+  }
+  __syncthreads();
+}
+
+// Σ x (kSq false) or Σ (x - m)² (kSq true) of each of the thread's channels
+// over its pixels r, r + nr, ... below `rows`, U a chunk; with `bars`, the
+// pixels' bulk copies (`chunk` pixels each) are waited for as they are
+// reached (`waited` counts the chunks already waited for).
+template <typename T, int U, bool kSq>
+__device__ __forceinline__ void thread_sums(const T* p, long long stride, int r, int rows, int nr,
+                                            const float (&m)[16 / sizeof(T)],
+                                            float (&s)[16 / sizeof(T)], const uint64_t* bars,
+                                            int chunk, int& waited) {
+  constexpr int V = 16 / sizeof(T);
+#pragma unroll
+  for (int q = 0; q < V; ++q) s[q] = 0.f;
+  for (int base = r; base < rows; base += U * nr) {
+    if (bars != nullptr)
+      for (const int need = min(base + (U - 1) * nr, rows - 1) / chunk; waited <= need; ++waited)
+        mbar_wait(smem_u32(&bars[waited]), 0);
+    float v[U][V];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (base + u * nr < rows) load16(p + (base + u * nr) * stride, v[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (base + u * nr < rows)
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          if (kSq) {
+            const float d = v[u][q] - m[q];
+            s[q] = fmaf(d, d, s[q]);
+          } else {
+            s[q] += v[u][q];
+          }
+        }
+  }
+}
+
+// Σ of the threads' per-channel values over each group of the unit, out[gl]:
+// the values through ent[r·wc + channel], one warp a group summing its
+// (row, channel) entries lane by lane, then down a xor tree.
+template <int V>
+__device__ void cta_group_sums(float* ent, const Lane& l, int wc, int cpg, const float (&v)[V],
+                               float* out) {
+  if (l.on)
+#pragma unroll
+    for (int q = 0; q < V; ++q) ent[l.r * wc + l.j * V + q] = v[q];
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, ng = wc / cpg, ne = l.nr * cpg;
+  const Div dv = make_div(static_cast<uint32_t>(cpg));
+  for (int gl = warp; gl < ng; gl += kNhwcWarps) {
+    float s = 0.f;
+    for (int e = lane; e < ne; e += 32) {
+      const int r = static_cast<int>(divide(static_cast<uint32_t>(e), dv));
+      s += ent[r * wc + gl * cpg + (e - r * cpg)];
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) out[gl] = s;
+  }
+  __syncthreads();
+}
+
+// The thread's per-channel (mean, a, b) of u = (x - mean)·a + b (rstd in a
+// when `fold`), from the unit's (mean, rstd) a group.
+template <int V, typename T>
+__device__ __forceinline__ void thread_coefs(const float2* stat, const float* gamma,
+                                             const float* beta, const T* emb, const Unit& u,
+                                             const Lane& l, int C, int cpg, bool fold,
+                                             float (&mu)[V], float (&rs)[V], float (&a)[V],
+                                             float (&b)[V]) {
+  RawCoefs<V> w;
+  load_coefs<V>(w, gamma, beta, emb, u.n, C, u.c0 + l.j * V);
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    const float2 st = stat[(l.j * V + q) / cpg];
+    const float2 cf = coefs<V>(w, q, fold ? st.y : 1.f, emb != nullptr);
+    mu[q] = st.x;
+    rs[q] = st.y;
+    a[q] = cf.x;
+    b[q] = cf.y;
+  }
+}
+
+// out = act((x - μ)·a + b) for the thread's pixels, U a chunk, from src
+// (pixels sstride values apart) to dst (dstride apart).
+template <typename T, int U>
+__device__ __forceinline__ void apply_rows(const T* src, long long sstride, T* dst,
+                                           long long dstride, int r, int rows, int nr,
+                                           const float (&mu)[16 / sizeof(T)],
+                                           const float (&a)[16 / sizeof(T)],
+                                           const float (&b)[16 / sizeof(T)], int silu) {
+  constexpr int V = 16 / sizeof(T);
+  const T* const in[1] = {src};
+  uint4 next[1][U];
+  load_chunk<T, U, 1>(in, sstride, r, rows, nr, next);
+  for (int base = r; base < rows; base += U * nr) {
+    uint4 cur[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) cur[u] = next[0][u];
+    load_chunk<T, U, 1>(in, sstride, base + U * nr, rows, nr, next);  // in flight meanwhile
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int row = base + u * nr;
+      if (row < rows) {
+        float v[V];
+        unpack<T>(cur[u], v);
+#pragma unroll
+        for (int q = 0; q < V; ++q) v[q] = act(fmaf(v[q] - mu[q], a[q], b[q]), silu);
+        store16(dst + row * dstride, v);
+      }
+    }
+  }
+}
+
+// P = Σ du and Q = Σ du·x̂ of each of the thread's channels over its pixels
+// (du = g·act'(x̂·a + b), x̂ = (x - μ)·rstd), U a chunk; with `bars`, the
+// pixels' bulk copies (`chunk` pixels each) are waited for as they are
+// reached (`waited` counts the chunks already waited for).
+template <typename T, int U>
+__device__ __forceinline__ void thread_grads(const T* xp, const T* gp, long long stride, int r,
+                                             int rows, int nr, const float (&mu)[16 / sizeof(T)],
+                                             const float (&rs)[16 / sizeof(T)],
+                                             const float (&a)[16 / sizeof(T)],
+                                             const float (&b)[16 / sizeof(T)], int silu,
+                                             float (&P)[16 / sizeof(T)],
+                                             float (&Q)[16 / sizeof(T)], const uint64_t* bars,
+                                             int chunk, int& waited) {
+  constexpr int V = 16 / sizeof(T);
+  const T* const in[2] = {xp, gp};
+  // the copies holding pixels up to `base`'s chunk's last have landed
+  auto land = [&](int base) {
+    if (bars != nullptr && base < rows)
+      for (const int need = min(base + (U - 1) * nr, rows - 1) / chunk; waited <= need; ++waited)
+        mbar_wait(smem_u32(&bars[waited]), 0);
+  };
+#pragma unroll
+  for (int q = 0; q < V; ++q) P[q] = Q[q] = 0.f;
+  uint4 next[2][U];
+  land(r);
+  load_chunk<T, U, 2>(in, stride, r, rows, nr, next);
+  for (int base = r; base < rows; base += U * nr) {
+    uint4 cur[2][U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      cur[0][u] = next[0][u];
+      cur[1][u] = next[1][u];
+    }
+    land(base + U * nr);
+    load_chunk<T, U, 2>(in, stride, base + U * nr, rows, nr, next);  // in flight meanwhile
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (base + u * nr < rows) {
+        float xv[V], gv[V];
+        unpack<T>(cur[0][u], xv);
+        unpack<T>(cur[1][u], gv);
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          const float xh = (xv[q] - mu[q]) * rs[q];
+          const float du = gv[q] * act_grad(fmaf(xh, a[q], b[q]), silu);
+          P[q] += du;
+          Q[q] = fmaf(du, xh, Q[q]);
+        }
+      }
+  }
+}
+
+// dx = rstd·a·du + d1·x̂ + d0 for the thread's pixels, U a chunk (x and g
+// from xp, gp `sstride` apart; dx to dst `dstride` apart).
+template <typename T, int U>
+__device__ __forceinline__ void dx_rows(const T* xp, const T* gp, long long sstride, T* dst,
+                                        long long dstride, int r, int rows, int nr,
+                                        const float (&mu)[16 / sizeof(T)],
+                                        const float (&rs)[16 / sizeof(T)],
+                                        const float (&a)[16 / sizeof(T)],
+                                        const float (&b)[16 / sizeof(T)],
+                                        const float (&d0)[16 / sizeof(T)],
+                                        const float (&d1)[16 / sizeof(T)], int silu) {
+  constexpr int V = 16 / sizeof(T);
+  const T* const in[2] = {xp, gp};
+  uint4 next[2][U];
+  load_chunk<T, U, 2>(in, sstride, r, rows, nr, next);
+  for (int base = r; base < rows; base += U * nr) {
+    uint4 cur[2][U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      cur[0][u] = next[0][u];
+      cur[1][u] = next[1][u];
+    }
+    load_chunk<T, U, 2>(in, sstride, base + U * nr, rows, nr, next);  // in flight meanwhile
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int row = base + u * nr;
+      if (row < rows) {
+        float xv[V], gv[V];
+        unpack<T>(cur[0][u], xv);
+        unpack<T>(cur[1][u], gv);
+#pragma unroll
+        for (int q = 0; q < V; ++q) {
+          const float xh = (xv[q] - mu[q]) * rs[q];
+          const float du = gv[q] * act_grad(fmaf(xh, a[q], b[q]), silu);
+          xv[q] = fmaf(rs[q] * a[q], du, fmaf(d1[q], xh, d0[q]));
+        }
+        store16(dst + row * dstride, xv);
+      }
+    }
+  }
+}
+
+// The (P, Q) of each of the unit's channels over the CTA's pixels, from the
+// threads' own (summed over thread rows in order), to parts[(n·C + c)·k +
+// rank] and, given, chan[].
+template <int V>
+__device__ void cta_channel_sums(float2* ent, float2* chan, float2* __restrict__ parts,
+                                 const Unit& u, const Lane& l, int C, int wc, int k,
+                                 const float (&P)[V], const float (&Q)[V]) {
+  if (l.on)
+#pragma unroll
+    for (int q = 0; q < V; ++q) ent[l.r * wc + l.j * V + q] = make_float2(P[q], Q[q]);
+  __syncthreads();
+  for (int cu = threadIdx.x; cu < wc; cu += kNhwcThreads) {
+    float2 s = make_float2(0.f, 0.f);
+    for (int r = 0; r < l.nr; ++r) {
+      s.x += ent[r * wc + cu].x;
+      s.y += ent[r * wc + cu].y;
+    }
+    if (chan != nullptr) chan[cu] = s;
+    parts[(u.n * C + u.c0 + cu) * k + u.rank] = s;
+  }
+  __syncthreads();
+}
+
+// The first 128-byte boundary at or after p (the launch adds 128 bytes).
+__device__ __forceinline__ unsigned char* align128(unsigned char* p) {
+  return p + ((128 - (smem_u32(p) & 127)) & 127);
+}
+
+// Thread 0: init the chunks' mbarriers and issue, for each of kArrays
+// tensors, the bulk copies of the CTA's `rows` pixels of a whole sample
+// (wc = C, so contiguous), `chunk` pixels a copy, array i landing at smem +
+// i·rows·C.  Returns the number of chunks.
+template <typename T, int kArrays>
+__device__ __forceinline__ int stage_rows(const T* const (&src)[kArrays], uint64_t* bars, T* smem,
+                                          const Unit& u, int HW, int C, int rows, int chunk) {
+  const int nch = (rows + chunk - 1) / chunk;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < nch; ++i) mbar_init(smem_u32(&bars[i]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < nch; ++i) {
+      const int r = i * chunk;
+      const uint32_t bytes = static_cast<uint32_t>(min(chunk, rows - r)) * C * sizeof(T);
+      const uint32_t bar = smem_u32(&bars[i]);
+      mbar_expect_tx(bar, kArrays * bytes);
+#pragma unroll
+      for (int a = 0; a < kArrays; ++a)
+        bulk_load(smem_u32(smem + (static_cast<long long>(a) * rows + r) * C),
+                  src[a] + (u.n * HW + u.r0 + r) * C, bytes, bar);
+    }
+  }
+  __syncthreads();  // the barriers are initialised before anyone waits on them
+  return nch;
+}
+
+// Forward, staged: the whole of sample n (wc = C) over a cluster of k CTAs
+// (k may be 1), read once.  Each CTA's groups are centred exactly over its
+// pixels (Σx, then Σ(x - mean)² over shared memory); the cluster's CTAs,
+// of equal counts, merge their (mean, M2) in rank order.
+template <typename T>
+__global__ void __launch_bounds__(kNhwcThreads, 2)
+group_norm_nhwc_fwd(const T* __restrict__ x, const float* __restrict__ gamma,
+                    const float* __restrict__ beta, const T* __restrict__ emb,
+                    T* __restrict__ y, float* __restrict__ mean_out,
+                    float* __restrict__ rstd_out, int C, int cpg, int HW, int k, int rows,
+                    int chunk, float eps, int silu) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(align128(smem_raw));
+  __shared__ __align__(8) uint64_t bars[kNhwcChunks];
+  __shared__ float ent[kNhwcThreads * V];
+  __shared__ float gsum[2][kMaxGroups];  // the CTA's Σx, Σ(x - mean)² a group
+  __shared__ float2 part[kMaxGroups];    // the CTA's (mean, M2) a group, read by its peers
+  __shared__ float2 stat[kMaxGroups];    // the sample's (mean, rstd) a group
+  const Unit u = unit_of(C, C, k, HW, rows);
+  const Lane l = lane_of(C, V);
+  const T* const srcs[1] = {x};
+  const int nch = stage_rows<T, 1>(srcs, bars, xs, u, HW, C, rows, chunk);
+  RawCoefs<V> w;
+  load_coefs<V>(w, gamma, beta, emb, u.n, C, l.j * V);
+
+  const int G = C / cpg;
+  const float cnt = static_cast<float>(rows) * static_cast<float>(cpg);
+  const float M = static_cast<float>(cpg) * static_cast<float>(HW);
+  const T* xp = xs + l.j * V;
+  float v[V], mu[V];
+  int waited = 0;
+  if (l.on) thread_sums<T, 4, false>(xp, C, l.r, rows, l.nr, mu, v, bars, chunk, waited);
+  for (; waited < nch; ++waited) mbar_wait(smem_u32(&bars[waited]), 0);  // every copy landed
+  cta_group_sums<V>(ent, l, C, cpg, v, gsum[0]);
+#pragma unroll
+  for (int q = 0; q < V; ++q) mu[q] = gsum[0][(l.j * V + q) / cpg] / cnt;
+  if (l.on) thread_sums<T, 4, true>(xp, C, l.r, rows, l.nr, mu, v, nullptr, chunk, waited);
+  cta_group_sums<V>(ent, l, C, cpg, v, gsum[1]);
+  for (int g = threadIdx.x; g < G; g += kNhwcThreads)
+    part[g] = make_float2(gsum[0][g] / cnt, gsum[1][g]);
+  if (k > 1) {
+    cluster_arrive();
+    cluster_wait();  // every peer's moments are written
+    cg::cluster_group cluster = cg::this_cluster();
+    for (int g = threadIdx.x; g < G; g += kNhwcThreads) {
+      float2 p[kMaxCluster];
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r < k) p[r] = *cluster.map_shared_rank(&part[g], r);  // all in flight at once
+      float mean = 0.f, m2 = 0.f, dd = 0.f;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r < k) mean += p[r].x;
+      mean /= static_cast<float>(k);
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r < k) {
+          const float d = p[r].x - mean;
+          m2 += p[r].y;
+          dd = fmaf(d, d, dd);
+        }
+      stat[g] = make_float2(mean, rsqrtf(fmaf(cnt, dd, m2) / M + eps));
+    }
+    cluster_arrive();  // done reading the peers; the matching wait is before exit
+  } else {
+    __syncthreads();  // part is written
+    for (int g = threadIdx.x; g < G; g += kNhwcThreads)
+      stat[g] = make_float2(part[g].x, rsqrtf(part[g].y / M + eps));
+  }
+  __syncthreads();
+  if (u.rank == 0)
+    for (int g = threadIdx.x; g < G; g += kNhwcThreads) {
+      mean_out[u.n * G + g] = stat[g].x;
+      rstd_out[u.n * G + g] = stat[g].y;
+    }
+  float a[V], bb[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    const float2 st = stat[(l.j * V + q) / cpg];
+    const float2 cf = coefs<V>(w, q, st.y, emb != nullptr);
+    mu[q] = st.x;
+    a[q] = cf.x;
+    bb[q] = cf.y;
+  }
+  if (l.on)
+    apply_rows<T, 4>(xp, C, y + (u.n * HW + u.r0) * C + l.j * V, C, l.r, rows, l.nr, mu, a, bb,
+                     silu);
+  if (k > 1) cluster_wait();  // the peers have read this CTA's moments
+}
+
+// Forward, split, pass 1: the (mean, M2) of each group of the unit over the
+// CTA's pixels, to parts[(n·G + g)·k + rank].
+template <typename T>
+__global__ void __launch_bounds__(kNhwcThreads, 2)
+group_norm_nhwc_stats(const T* __restrict__ x, float2* __restrict__ parts, int C, int cpg,
+                      int HW, int wc, int k, int rows) {
+  constexpr int V = 16 / sizeof(T);
+  __shared__ float2 ent[kNhwcThreads * V];
+  __shared__ float cnts[kNhwcThreads];
+  __shared__ Moments part[kMaxGroups];
+  const Unit u = unit_of(C, wc, k, HW, rows);
+  const Lane l = lane_of(wc, V);
+  float mean[V], m2[V];
+  const T* xp = x + (u.n * HW + u.r0) * C + u.c0 + l.j * V;
+  const float cnt = l.on ? thread_moments<T, 4>(xp, C, l.r, u.rows, l.nr, mean, m2) : 0.f;
+  cta_group_moments<V>(ent, cnts, l, wc, cpg, cnt, mean, m2, part);
+  const int ng = wc / cpg, G = C / cpg;
+  for (int gl = threadIdx.x; gl < ng; gl += kNhwcThreads)
+    parts[(u.n * G + u.c0 / cpg + gl) * k + u.rank] = make_float2(part[gl].mean, part[gl].m2);
+}
+
+// Forward, split, pass 2: each group's k parts merged in order, then the
+// CTA's pixels read again and written.
+template <typename T>
+__global__ void __launch_bounds__(kNhwcThreads, 2)
+group_norm_nhwc_apply(const T* __restrict__ x, const float2* __restrict__ parts,
+                      const float* __restrict__ gamma, const float* __restrict__ beta,
+                      const T* __restrict__ emb, T* __restrict__ y, float* __restrict__ mean_out,
+                      float* __restrict__ rstd_out, int C, int cpg, int HW, int wc, int k, int rows,
+                      float eps, int silu) {
+  constexpr int V = 16 / sizeof(T);
+  __shared__ float2 stat[kMaxGroups];
+  __shared__ float2 got[kMaxParts];  // the unit's parts, loaded all at once
+  const Unit u = unit_of(C, wc, k, HW, rows);
+  const Lane l = lane_of(wc, V);
+  const int ng = wc / cpg, G = C / cpg;
+  const float M = static_cast<float>(cpg) * static_cast<float>(HW);
+  const long long first = (u.n * G + u.c0 / cpg) * k;  // the unit's groups' parts are adjacent
+  for (int i = threadIdx.x; i < ng * k; i += kNhwcThreads) got[i] = parts[first + i];
+  __syncthreads();
+  for (int gl = threadIdx.x; gl < ng; gl += kNhwcThreads) {
+    const long long g = u.n * G + u.c0 / cpg + gl;
+    Moments t = {0.f, 0.f, 0.f};
+    for (int s = 0; s < k; ++s) {
+      const float2 p = got[gl * k + s];
+      t = merge(t, {static_cast<float>(min(rows, HW - s * rows) * cpg), p.x, p.y});
+    }
+    stat[gl] = make_float2(t.mean, rsqrtf(t.m2 / M + eps));
+    if (u.rank == 0) {
+      mean_out[g] = stat[gl].x;
+      rstd_out[g] = stat[gl].y;
+    }
+  }
+  __syncthreads();
+  float mu[V], rs[V], a[V], b[V];
+  thread_coefs<V>(stat, gamma, beta, emb, u, l, C, cpg, true, mu, rs, a, b);
+  const long long off = (u.n * HW + u.r0) * C + u.c0 + l.j * V;
+  if (l.on) apply_rows<T, 4>(x + off, C, y + off, C, l.r, u.rows, l.nr, mu, a, b, silu);
+}
+
+// Backward, staged: x and g of the whole of sample n (wc = C) over a
+// cluster of k CTAs, read once.
+template <typename T>
+__global__ void __launch_bounds__(kNhwcThreads, 2)
+group_norm_nhwc_bwd(const T* __restrict__ x, const T* __restrict__ g,
+                    const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
+                    const float* __restrict__ gamma, const float* __restrict__ beta,
+                    const T* __restrict__ emb, T* __restrict__ dx, float2* __restrict__ parts,
+                    int C, int cpg, int HW, int k, int rows, int chunk, int silu) {
+  constexpr int V = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* xs = reinterpret_cast<T*>(align128(smem_raw));
+  const T* gs = xs + static_cast<long long>(rows) * C;
+  float2* chan = reinterpret_cast<float2*>(xs + 2ll * rows * C);  // (P, Q) a channel
+  float* ach = reinterpret_cast<float*>(chan + C);                // a = γ·(1 + scale) a channel
+  __shared__ __align__(8) uint64_t bars[kNhwcChunks];
+  __shared__ float2 ent[kNhwcThreads * V];
+  __shared__ float2 part[kMaxGroups];  // this CTA's (Σ a·P, Σ a·Q) a group, read by its peers
+  __shared__ float2 stat[kMaxGroups];  // the sample's (s1, s2) a group
+  const Unit u = unit_of(C, C, k, HW, rows);
+  const Lane l = lane_of(C, V);
+  const int G = C / cpg;
+  const T* const srcs[2] = {x, g};
+  const int nch = stage_rows<T, 2>(srcs, bars, xs, u, HW, C, rows, chunk);
+  RawCoefs<V> w;
+  load_coefs<V>(w, gamma, beta, emb, u.n, C, l.j * V);
+  float mu[V], rs[V], a[V], bb[V], P[V], Q[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    const long long gi = u.n * G + (l.j * V + q) / cpg;
+    mu[q] = mean_in[gi];
+    rs[q] = rstd_in[gi];
+    const float2 cf = coefs<V>(w, q, 1.f, emb != nullptr);
+    a[q] = cf.x;
+    bb[q] = cf.y;
+  }
+  if (l.on && l.r == 0)
+#pragma unroll
+    for (int q = 0; q < V; ++q) ach[l.j * V + q] = a[q];
+
+  const T *xp = xs + l.j * V, *gp = gs + l.j * V;
+  int waited = 0;
+  if (l.on)
+    thread_grads<T, 2>(xp, gp, C, l.r, rows, l.nr, mu, rs, a, bb, silu, P, Q, bars, chunk,
+                       waited);
+  for (; waited < nch; ++waited) mbar_wait(smem_u32(&bars[waited]), 0);  // every copy landed
+  cta_channel_sums<V>(ent, chan, parts, u, l, C, C, k, P, Q);  // its barriers cover ach
+  for (int gi = threadIdx.x; gi < G; gi += kNhwcThreads) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = gi * cpg; i < (gi + 1) * cpg; ++i) {
+      s1 += ach[i] * chan[i].x;
+      s2 += ach[i] * chan[i].y;
+    }
+    part[gi] = make_float2(s1, s2);
+  }
+  if (k > 1) {
+    cluster_arrive();
+    cluster_wait();  // every peer's share is written
+    cg::cluster_group cluster = cg::this_cluster();
+    for (int gi = threadIdx.x; gi < G; gi += kNhwcThreads) {
+      float2 p[kMaxCluster];
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r < k) p[r] = *cluster.map_shared_rank(&part[gi], r);  // all in flight at once
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r < k) {
+          s1 += p[r].x;
+          s2 += p[r].y;
+        }
+      stat[gi] = make_float2(s1, s2);
+    }
+    cluster_arrive();  // done reading the peers; the matching wait is before exit
+  } else {
+    __syncthreads();  // part is written
+    for (int gi = threadIdx.x; gi < G; gi += kNhwcThreads) stat[gi] = part[gi];
+  }
+  __syncthreads();
+  const float M = static_cast<float>(cpg) * static_cast<float>(HW);
+  float d0[V], d1[V];
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    const float2 st = stat[(l.j * V + q) / cpg];
+    d0[q] = -rs[q] * st.x / M;
+    d1[q] = -rs[q] * st.y / M;
+  }
+  if (l.on)
+    dx_rows<T, 2>(xp, gp, C, dx + (u.n * HW + u.r0) * C + l.j * V, C, l.r, rows, l.nr, mu, rs, a,
+                  bb, d0, d1, silu);
+  if (k > 1) cluster_wait();  // the peers have read this CTA's share
+}
+
+// Backward, split, pass 1: the (P, Q) of each channel of the unit over the
+// CTA's pixels, to parts[(n·C + c)·k + rank].
+template <typename T>
+__global__ void __launch_bounds__(kNhwcThreads, 2)
+group_norm_nhwc_grads(const T* __restrict__ x, const T* __restrict__ g,
+                      const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
+                      const float* __restrict__ gamma, const float* __restrict__ beta,
+                      const T* __restrict__ emb, float2* __restrict__ parts, int C, int cpg, int HW,
+                      int wc, int k, int rows, int silu) {
+  constexpr int V = 16 / sizeof(T);
+  __shared__ float2 ent[kNhwcThreads * V];
+  __shared__ float2 stat[kMaxGroups];
+  const Unit u = unit_of(C, wc, k, HW, rows);
+  const Lane l = lane_of(wc, V);
+  const int ng = wc / cpg, G = C / cpg;
+  for (int gl = threadIdx.x; gl < ng; gl += kNhwcThreads) {
+    const long long gi = u.n * G + u.c0 / cpg + gl;
+    stat[gl] = make_float2(mean_in[gi], rstd_in[gi]);
+  }
+  __syncthreads();
+  float mu[V], rs[V], a[V], b[V], P[V], Q[V];
+  thread_coefs<V>(stat, gamma, beta, emb, u, l, C, cpg, false, mu, rs, a, b);
+  const long long off = (u.n * HW + u.r0) * C + u.c0 + l.j * V;
+  int waited = 0;
+  if (l.on)
+    thread_grads<T, 2>(x + off, g + off, C, l.r, u.rows, l.nr, mu, rs, a, b, silu, P, Q, nullptr,
+                       1, waited);
+  cta_channel_sums<V>(ent, nullptr, parts, u, l, C, wc, k, P, Q);
+}
+
+// Backward, split, pass 2: each group's s1, s2 from its channels' k parts
+// (in order), then dx over the CTA's pixels.
+template <typename T>
+__global__ void __launch_bounds__(kNhwcThreads, 2)
+group_norm_nhwc_bwd_apply(const T* __restrict__ x, const T* __restrict__ g,
+                          const float* __restrict__ mean_in, const float* __restrict__ rstd_in,
+                          const float* __restrict__ gamma, const float* __restrict__ beta,
+                          const T* __restrict__ emb, const float2* __restrict__ parts,
+                          T* __restrict__ dx, int C, int cpg, int HW, int wc, int k, int rows,
+                          int silu) {
+  constexpr int V = 16 / sizeof(T);
+  __shared__ float2 stat[kMaxGroups];  // (mean, rstd) a group
+  __shared__ float2 sums[kMaxGroups];  // (s1, s2) a group
+  __shared__ float2 apq[kMaxUnitVecs * V];  // (a·P, a·Q) a channel
+  const Unit u = unit_of(C, wc, k, HW, rows);
+  const Lane l = lane_of(wc, V);
+  const int ng = wc / cpg, G = C / cpg;
+  for (int cu = threadIdx.x; cu < wc; cu += kNhwcThreads) {  // a thread a channel, in parallel
+    const int c = u.c0 + cu;
+    float P = 0.f, Q = 0.f;
+    for (int s = 0; s < k; ++s) {
+      const float2 pq = parts[(u.n * C + c) * k + s];
+      P += pq.x;
+      Q += pq.y;
+    }
+    const float ac = channel_coef(1.f, gamma, beta, emb, u.n, C, c).x;
+    apq[cu] = make_float2(ac * P, ac * Q);
+  }
+  __syncthreads();
+  for (int gl = threadIdx.x; gl < ng; gl += kNhwcThreads) {
+    const long long gi = u.n * G + u.c0 / cpg + gl;
+    stat[gl] = make_float2(mean_in[gi], rstd_in[gi]);
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = gl * cpg; i < (gl + 1) * cpg; ++i) {
+      s1 += apq[i].x;
+      s2 += apq[i].y;
+    }
+    sums[gl] = make_float2(s1, s2);
+  }
+  __syncthreads();
+  float mu[V], rs[V], a[V], b[V], d0[V], d1[V];
+  thread_coefs<V>(stat, gamma, beta, emb, u, l, C, cpg, false, mu, rs, a, b);
+  const float M = static_cast<float>(cpg) * static_cast<float>(HW);
+#pragma unroll
+  for (int q = 0; q < V; ++q) {
+    const float2 s = sums[(l.j * V + q) / cpg];
+    d0[q] = -rs[q] * s.x / M;
+    d1[q] = -rs[q] * s.y / M;
+  }
+  const long long off = (u.n * HW + u.r0) * C + u.c0 + l.j * V;
+  if (l.on)
+    dx_rows<T, 2>(x + off, g + off, C, dx + off, C, l.r, u.rows, l.nr, mu, rs, a, b, d0, d1,
+                  silu);
+}
+
+// The NHWC forward on its plan: chunk > 0 staged (wc = C, a cluster when
+// k > 1, k·rows = H·W); chunk == 0 the split path.
+template <typename T>
+int nhwc_fwd_launch(const void* x, const void* gamma, const void* beta, const void* emb, void* y,
+                    void* mean, void* rstd, void* parts, int N, int C, int cpg, int HW, float eps,
+                    int silu, int wc, int k, int rows, int chunk, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T *xp = static_cast<const T*>(x), *ep = static_cast<const T*>(emb);
+  const float *gp = static_cast<const float*>(gamma), *bp = static_cast<const float*>(beta);
+  T* yp = static_cast<T*>(y);
+  float *mp = static_cast<float*>(mean), *rp = static_cast<float*>(rstd);
+  const long long grid = static_cast<long long>(N) * (C / wc) * k;
+  if (chunk == 0) {  // split
+    float2* pp = static_cast<float2*>(parts);
+    group_norm_nhwc_stats<T><<<static_cast<unsigned>(grid), kNhwcThreads, 0, st>>>(
+        xp, pp, C, cpg, HW, wc, k, rows);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    group_norm_nhwc_apply<T><<<static_cast<unsigned>(grid), kNhwcThreads, 0, st>>>(
+        xp, pp, gp, bp, ep, yp, mp, rp, C, cpg, HW, wc, k, rows, eps, silu);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (k > kMaxCluster) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_staged(group_norm_nhwc_fwd<T>, grid, k,
+                                        static_cast<size_t>(rows) * C * sizeof(T) + 128,
+                                        kNhwcThreads, st, xp, gp, bp, ep, yp, mp, rp, C, cpg, HW,
+                                        k, rows, chunk, eps, silu));
+}
+
+// The NHWC backward on its plan (as the forward's), then the channel sums.
+template <typename T>
+int nhwc_bwd_launch(const void* x, const void* g, const void* mean, const void* rstd,
+                    const void* gamma, const void* beta, const void* emb, void* dx, void* parts,
+                    void* dgamma, void* dbeta, void* demb, int N, int C, int cpg, int HW, int silu,
+                    int wc, int k, int rows, int chunk, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const T *xp = static_cast<const T*>(x), *gp = static_cast<const T*>(g);
+  const T* ep = static_cast<const T*>(emb);
+  const float *mp = static_cast<const float*>(mean), *rp = static_cast<const float*>(rstd);
+  const float *wp = static_cast<const float*>(gamma), *bp = static_cast<const float*>(beta);
+  T* dp = static_cast<T*>(dx);
+  float2* pp = static_cast<float2*>(parts);
+  const long long grid = static_cast<long long>(N) * (C / wc) * k;
+  cudaError_t err;
+  if (chunk == 0) {  // split
+    group_norm_nhwc_grads<T><<<static_cast<unsigned>(grid), kNhwcThreads, 0, st>>>(
+        xp, gp, mp, rp, wp, bp, ep, pp, C, cpg, HW, wc, k, rows, silu);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    group_norm_nhwc_bwd_apply<T><<<static_cast<unsigned>(grid), kNhwcThreads, 0, st>>>(
+        xp, gp, mp, rp, wp, bp, ep, pp, dp, C, cpg, HW, wc, k, rows, silu);
+    err = cudaGetLastError();
+  } else if (k > kMaxCluster) {
+    err = cudaErrorInvalidValue;
+  } else {
+    const size_t smem = 2 * static_cast<size_t>(rows) * C * sizeof(T)  // x and g
+                        + static_cast<size_t>(C) * (sizeof(float2) + sizeof(float)) + 128;
+    err = launch_staged(group_norm_nhwc_bwd<T>, grid, k, smem, kNhwcThreads, st, xp, gp, mp, rp,
+                        wp, bp, ep, dp, pp, C, cpg, HW, k, rows, chunk, silu);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  group_norm_bwd_channels<T><<<(C + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      pp, wp, bp, ep, static_cast<T*>(demb), static_cast<float*>(dgamma),
+      static_cast<float*>(dbeta), N, C, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -898,6 +1804,48 @@ int cat_group_norm_bwd_f32(const void* x, const void* g, const void* mean, const
                            long long chunk, int pieces, int vec, void* stream) {
   return bwd_launch<float>(x, g, mean, rstd, gamma, beta, emb, dx, parts, dgamma, dbeta, demb, N,
                            C, cpg, HW, silu, k, slice, chunk, pieces, vec, stream);
+}
+
+// NHWC (x, g, dx, y channels innermost: (N, H·W, C) in memory).  The forward
+// and backward as above, on the plan of ops/group_norm.py::
+// group_norm_nhwc_plan: units of wc channels, k CTAs a unit of `rows`
+// pixels each; chunk > 0: staged (wc = C) by bulk copies of `chunk` pixels
+// (a cluster when k > 1, k·rows = H·W); chunk == 0: the split path, whose
+// forward parts are (N·G·k, 2) float32 scratch.  The backward's parts:
+// (N·C·k, 2).
+int cat_group_norm_nhwc_fwd_bf16(const void* x, const void* gamma, const void* beta,
+                                 const void* emb, void* y, void* mean, void* rstd, void* parts,
+                                 int N, int C, int cpg, int HW, float eps, int silu, int wc, int k,
+                                 int rows, int chunk, void* stream) {
+  return nhwc_fwd_launch<__nv_bfloat16>(x, gamma, beta, emb, y, mean, rstd, parts, N, C, cpg, HW,
+                                        eps, silu, wc, k, rows, chunk, stream);
+}
+
+int cat_group_norm_nhwc_fwd_f32(const void* x, const void* gamma, const void* beta,
+                                const void* emb, void* y, void* mean, void* rstd, void* parts,
+                                int N, int C, int cpg, int HW, float eps, int silu, int wc, int k,
+                                int rows, int chunk, void* stream) {
+  return nhwc_fwd_launch<float>(x, gamma, beta, emb, y, mean, rstd, parts, N, C, cpg, HW, eps,
+                                silu, wc, k, rows, chunk, stream);
+}
+
+int cat_group_norm_nhwc_bwd_bf16(const void* x, const void* g, const void* mean,
+                                 const void* rstd, const void* gamma, const void* beta,
+                                 const void* emb, void* dx, void* parts, void* dgamma,
+                                 void* dbeta, void* demb, int N, int C, int cpg, int HW, int silu,
+                                 int wc, int k, int rows, int chunk, void* stream) {
+  return nhwc_bwd_launch<__nv_bfloat16>(x, g, mean, rstd, gamma, beta, emb, dx, parts, dgamma,
+                                        dbeta, demb, N, C, cpg, HW, silu, wc, k, rows, chunk,
+                                        stream);
+}
+
+int cat_group_norm_nhwc_bwd_f32(const void* x, const void* g, const void* mean,
+                                const void* rstd, const void* gamma, const void* beta,
+                                const void* emb, void* dx, void* parts, void* dgamma,
+                                void* dbeta, void* demb, int N, int C, int cpg, int HW, int silu,
+                                int wc, int k, int rows, int chunk, void* stream) {
+  return nhwc_bwd_launch<float>(x, g, mean, rstd, gamma, beta, emb, dx, parts, dgamma, dbeta,
+                                demb, N, C, cpg, HW, silu, wc, k, rows, chunk, stream);
 }
 
 }  // extern "C"

@@ -22,7 +22,9 @@ It computes only the gradients autograd asks for: in the distillation step
 Y is the teacher's activation, whose gradient nobody reads.
 
 KA is invariant to the order of the feature axis, so flattening NCHW
-activations gives the same value as the JAX package's NHWC flatten.
+activations gives the same value as the JAX package's NHWC flatten, and a
+tap is flattened in its memory order (``_flatten``: a view, pixel by pixel
+for a channels-last tap), its gradient returned in the tap's own layout.
 
 Over several ranks KA is that of the GLOBAL batch, as in the JAX package,
 whose distillers compute the single-device function of a batch-sharded
@@ -278,8 +280,25 @@ def gram_pair(x: torch.Tensor, y: torch.Tensor):
     return gram(x), gram(y)
 
 
+def _channels_last(x: torch.Tensor) -> bool:
+    return (x.dim() == 4 and not x.is_contiguous()
+            and x.is_contiguous(memory_format=torch.channels_last))
+
+
 def _flatten(x: torch.Tensor) -> torch.Tensor:
+    """x as (B, features) in its memory order: a view of a channels-last (B,
+    C, H, W) tap (features pixel by pixel), else ``reshape``."""
+    if _channels_last(x):
+        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
     return x.reshape(x.shape[0], -1)
+
+
+def _unflatten(m: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(B, features) m back in x's shape and layout, ``_flatten``'s inverse."""
+    if _channels_last(x):
+        b, c, h, w = x.shape
+        return m.reshape(b, h, w, c).permute(0, 3, 1, 2)
+    return m.reshape(x.shape)
 
 
 class _KA(torch.autograd.Function):
@@ -313,10 +332,10 @@ class _KA(torch.autograd.Function):
         dx = dy = None
         if ctx.needs_input_grad[0]:
             mx = (gy - (s / nx) * gx) * inv
-            dx = ((2.0 * g) * (mx @ _flatten(x).float())).reshape(x.shape).to(x.dtype)
+            dx = _unflatten((2.0 * g) * (mx @ _flatten(x).float()), x).to(x.dtype)
         if ctx.needs_input_grad[1]:
             my = (gx - (s / ny) * gy) * inv
-            dy = ((2.0 * g) * (my @ _flatten(y).float())).reshape(y.shape).to(y.dtype)
+            dy = _unflatten((2.0 * g) * (my @ _flatten(y).float()), y).to(y.dtype)
         return dx, dy
 
 

@@ -24,9 +24,18 @@ The layers are ADM's, with ``resblock_updown`` and ``use_scale_shift_norm``:
   card: ``ops/group_norm.py``);
 * attention: ``x + proj(attn(qkv(GN(x))))``, 1x1 qkv and proj, heads of
   ``num_head_channels``, q, k and v split per head in the legacy QKV layout
-  (qkv read as (B·heads, 3·d, T)), scale 1/√d;
+  (qkv read as (B·heads, 3·d, T)), scale 1/√d; qkv and proj run as
+  products over C on the (B, T, C) view of the channels-last activation
+  (their Conv1d weights viewed (3C, C) and (C, C));
 * timestep: ``[cos, sin]`` of t at frequencies exp(-ln(1e4)·i/half) in
   float32 from the integer t, then Linear(mc, 4mc), SiLU, Linear(4mc, 4mc).
+
+Activations are channels-last: the forward takes and returns (N, C, H, W)
+tensors and taps of those shapes, but converts its input to
+``torch.channels_last`` once, at the stem, and every later layer keeps that
+layout (cuDNN's NHWC convolutions, the NHWC GroupNorm kernels, pooling,
+nearest upsampling, the skip concatenations and the adds), so no layer
+transposes an activation.
 
 Every conv, linear and attention computes in the parameters' dtype (bf16
 under a bf16 ``GenericDistiller``); only the GroupNorm chain (statistics,
@@ -201,7 +210,8 @@ class ResBlock(nn.Module):
 
 
 class AttentionBlock(nn.Module):
-    """Self-attention over the pixels, ADM's legacy QKV layout."""
+    """Self-attention over the pixels, ADM's legacy QKV layout, on the (B,
+    T, C) view of a channels-last input (its output channels-last too)."""
 
     def __init__(self, channels: int, heads: int):
         super().__init__()
@@ -214,15 +224,16 @@ class AttentionBlock(nn.Module):
         with region("adm.attention"):
             b, c, hh, ww = x.shape
             t = hh * ww
-            xf = x.reshape(b, c, t)
-            qkv = self.qkv(self.norm(xf))
+            xt = x.permute(0, 2, 3, 1).reshape(b, t, c)  # a view of a channels-last x
+            h = self.norm(xt.transpose(1, 2)).transpose(1, 2)  # the norm's (B, C, T) view
+            qkv = F.linear(h, self.qkv.weight.view(3 * c, c), self.qkv.bias)  # (B, T, 3C)
             d = c // self.heads
-            # (B·heads, 3d, T) per head [q; k; v], as tokens-major (B, heads, T, 3d)
-            qkv = qkv.reshape(b, self.heads, 3 * d, t).transpose(2, 3).contiguous()
-            q, k, v = qkv.split(d, dim=-1)
+            # each head's channels [q; k; v] (the legacy layout), tokens-major: (B, heads, T, 3d)
+            q, k, v = qkv.view(b, t, self.heads, 3 * d).transpose(1, 2).split(d, dim=-1)
             a = F.scaled_dot_product_attention(q, k, v, scale=1.0 / math.sqrt(d))
-            a = a.transpose(2, 3).reshape(b, c, t)
-            return (xf + self.proj_out(a)).reshape(b, c, hh, ww)
+            a = a.transpose(1, 2).reshape(b, t, c)
+            out = xt + F.linear(a, self.proj_out.weight.view(c, c), self.proj_out.bias)
+            return out.view(b, hh, ww, c).permute(0, 3, 1, 2)
 
 
 class _Block(nn.ModuleList):
@@ -281,7 +292,8 @@ class ADMUNet(nn.Module):
                 acts[name] = h
             return h
 
-        hs = [keep("input_blocks.0", self.input_blocks[0][0](x.to(dt)))]
+        x = x.to(dt, memory_format=torch.channels_last)  # the one layout change
+        hs = [keep("input_blocks.0", self.input_blocks[0][0](x))]
         for i, block in enumerate(self.input_blocks[1:], 1):
             hs.append(keep(f"input_blocks.{i}", block(hs[-1], silu_emb)))
         h = keep("middle_block", self.middle_block(hs[-1], silu_emb))

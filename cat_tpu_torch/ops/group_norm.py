@@ -15,10 +15,16 @@ other.  For x of shape (N, C, ...) and ``groups`` G:
         place), or u = y without ``emb``;
     out = SiLU(u) with ``silu``, else u; rounded once to x's dtype.
 
-``group_norm_plan`` picks the kernel's path by shape: the slab of a group
-staged whole in one CTA (``"cta"``), split over a thread-block cluster
-(``"cluster"``), or two passes over device memory with one CTA a piece of a
-channel (``"split"``).
+The kernels follow x's layout, which the op observes: a contiguous (N, C,
+...) x takes the NCHW kernels, an x stored channels innermost (a
+``channels_last`` tensor, or an (N, C, T) view of an (N, T, C) tensor) the
+NHWC kernels, with the output, the gradient and dx in that layout; any
+other layout raises (no copy to another).  ``group_norm_plan`` picks the
+NCHW kernel's path by shape: the slab of a group staged whole in one CTA
+(``"cta"``), split over a thread-block cluster (``"cluster"``), or two
+passes over device memory with one CTA a piece of a channel (``"split"``).
+``group_norm_nhwc_plan`` picks the NHWC kernels' unit (a sample and a run
+of whole groups) and the same three paths for it.
 """
 
 from __future__ import annotations
@@ -38,6 +44,8 @@ from cat_tpu_torch.utils import cuda_build
 launches = 0
 path_launches = {"cta": 0, "cluster": 0, "split": 0}
 bwd_launches = 0
+# launches of the forward and the backward together, by x's layout
+layout_launches = {"nchw": 0, "nhwc": 0}
 
 _SLICE_BYTES = 64 << 10  # the most a CTA stages: three CTAs of 512 threads an SM
 _MAX_CLUSTER = 16  # the most a (non-portable) cluster takes on an H100
@@ -113,6 +121,79 @@ def _chunked(path, k, slice_, pieces, itemsize, arrays, vec) -> GroupNormPlan:
 
 def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
+
+
+_NHWC_SLICE = 64 << 10  # bytes of each array a staged CTA holds at most
+# A staged sample takes a CTA for each 16 KiB of x, at most 8 forward and 4
+# backward; a split one H·W / `run` runs of pixels, within [fewest, most]
+# (16 runs a sample over ADM's batch of 16 fill the card about once).
+# Measured on an H100 at ADM's sites against 1-16 CTAs a staged sample and
+# 4-48 runs a split one.
+_NHWC_STAGED_BYTES = 16 << 10
+_NHWC_MAX_CLUSTER = {1: 8, 2: 4}
+_NHWC_SPLIT = {1: (32, 1, 16), 2: (512, 4, 16)}  # (run, fewest, most)
+_NHWC_MAX_VECS = 256  # 16-byte vectors of a unit's pixel: one a thread
+_NHWC_MAX_GROUPS = 256  # groups of a unit: the kernels' arrays
+_NHWC_MAX_PARTS = 2048  # a split unit's groups times its runs: the forward's array
+
+
+class NhwcPlan(NamedTuple):
+    """How the NHWC kernels take x: ``path`` ("cta", "cluster" or
+    "split"); units of ``wc`` channels (whole groups, whole 16-byte
+    vectors; all C where they fit) of one sample; ``k`` CTAs a unit (a
+    cluster when k > 1 on a staged path; the split path's runs of pixels),
+    each of ``rows`` pixels (the last run may be shorter); ``chunk``:
+    pixels of a bulk copy on a staged path, 0 on the split path."""
+    path: str
+    wc: int
+    k: int
+    rows: int
+    chunk: int
+
+
+@functools.lru_cache(maxsize=None)
+def group_norm_nhwc_plan(n: int, c: int, cpg: int, hw: int, itemsize: int,
+                         arrays: int = 1) -> NhwcPlan:
+    """The plan for an (N, H·W, C) x of ``itemsize`` bytes in groups of
+    ``cpg`` channels, ``arrays`` tensors read together (1: the forward's x;
+    2: the backward's x and g).  A unit is a sample's pixels over all C
+    channels where C is at most 256 vectors (so a CTA's pixels are one
+    contiguous run of memory, read in whole lines).  A sample is staged by
+    bulk copies over a cluster of a CTA a 16 KiB of it, at most 8 (4
+    backward), that split its pixels evenly into at most 64 KiB of each
+    array; anything else takes the split path in H·W/32 runs of pixels,
+    1-16 of them (backward H·W/512, 4-16).  Raises where C is not whole
+    16-byte vectors or a group is wider than 256 vectors."""
+    vec = 16 // itemsize
+    if c % vec:
+        raise ValueError(f"the NHWC kernels need C a multiple of {vec} for {itemsize}-byte "
+                         f"values, got {c}")
+    wc = _unit_width(c, cpg, vec)
+    sample = hw * c * itemsize
+    if wc == c:
+        most = _NHWC_MAX_CLUSTER[arrays]
+        want = min(most, max(1, sample // _NHWC_STAGED_BYTES))
+        k = next((k for k in range(want, most + 1) if hw % k == 0), 0)
+        if k and sample // k <= _NHWC_SLICE:
+            rows = hw // k
+            chunks = max(1, min(4, sample // k // (8 << 10)))  # bulk copies of >= 8 KiB
+            return NhwcPlan("cta" if k == 1 else "cluster", c, k, rows, -(-rows // chunks))
+    run, fewest, most = _NHWC_SPLIT[arrays]
+    k = min(most, max(fewest, hw // run), hw, _NHWC_MAX_PARTS // (wc // cpg))
+    rows = -(-hw // k)
+    return NhwcPlan("split", wc, -(-hw // rows), rows, 0)
+
+
+def _unit_width(c: int, cpg: int, vec: int) -> int:
+    """The most channels of whole groups and whole vectors, dividing C, of
+    at most 256 vectors and 256 groups; raises where there are none."""
+    step = cpg * vec // math.gcd(cpg, vec)
+    fits = [m for m in range(step, c + 1, step) if c % m == 0 and m <= _NHWC_MAX_VECS * vec
+            and m // cpg <= _NHWC_MAX_GROUPS]
+    if not fits:
+        raise ValueError(f"the NHWC kernels take units of at most {_NHWC_MAX_VECS} vectors; "
+                         f"{cpg} channels a group in {vec}-value vectors need more")
+    return fits[-1]
 
 
 # ---------------------------------------------------------------------------
@@ -198,19 +279,58 @@ def _lib():
         for fn in (lib.cat_group_norm_bwd_bf16, lib.cat_group_norm_bwd_f32):
             fn.argtypes = [p] * 12 + [i, i, i, ll, i] + plan
             fn.restype = i
+        nhwc = [i, i, i, i, p]  # wc, k, rows, chunk, stream
+        for fn in (lib.cat_group_norm_nhwc_fwd_bf16, lib.cat_group_norm_nhwc_fwd_f32):
+            fn.argtypes = [p] * 8 + [i, i, i, i, f, i] + nhwc
+            fn.restype = i
+        for fn in (lib.cat_group_norm_nhwc_bwd_bf16, lib.cat_group_norm_nhwc_bwd_f32):
+            fn.argtypes = [p] * 12 + [i, i, i, i, i] + nhwc
+            fn.restype = i
         lib._typed = True
     return lib
 
 
-def _check(x: torch.Tensor, groups: int, weight, bias, emb, what: str) -> None:
-    """Raise unless x is a contiguous (N, C, ...) bf16/f32 CUDA tensor with
-    C a multiple of ``groups``, γ and β contiguous float32 (C,) tensors and
-    ``emb`` None or a contiguous (N, 2C) tensor of x's dtype, all on x's
-    device."""
+def layout(x: torch.Tensor) -> Optional[str]:
+    """x's layout as the kernels take it: "nchw" (contiguous), "nhwc"
+    (channels innermost: ``x.movedim(1, -1)`` contiguous), else None.  A
+    tensor that is both (one value a channel) is "nchw"."""
+    if x.is_contiguous():
+        return "nchw"
+    if x.dim() == 4:  # PyTorch's own check is the cheapest on the host
+        return "nhwc" if x.is_contiguous(memory_format=torch.channels_last) else None
+    shape, stride = x.shape, x.stride()
+    if x.dim() < 3 or stride[1] != 1:
+        return None
+    want = shape[1]  # dense in (N, *spatial, C) order: what movedim(1, -1) makes contiguous
+    for d in range(x.dim() - 1, 1, -1):
+        if shape[d] != 1 and stride[d] != want:
+            return None
+        want *= shape[d]
+    return "nhwc" if shape[0] == 1 or stride[0] == want else None
+
+
+def _in_layout(t: torch.Tensor, lay: str) -> torch.Tensor:
+    """t in the layout ``lay`` (no copy where it already is)."""
+    return t.contiguous() if lay == "nchw" else t.movedim(1, -1).contiguous().movedim(-1, 1)
+
+
+def _check(x: torch.Tensor, groups: int, weight, bias, emb, what: str) -> str:
+    """Raise unless x is an (N, C, ...) bf16/f32 CUDA tensor, contiguous or
+    stored channels innermost (then with whole 16-byte vectors of channels
+    from a 16-byte-aligned address, and N·H·W < 2^31), with C a multiple of
+    ``groups``, γ and β contiguous float32 (C,) tensors and ``emb`` None or
+    a contiguous (N, 2C) tensor of x's dtype, all on x's device; returns
+    x's layout."""
     if x.device.type != "cuda":
         raise ValueError(f"{what} needs a CUDA tensor, got {x.device}")
-    if x.dim() < 2 or not x.is_contiguous():
-        raise ValueError(f"{what} needs a contiguous (N, C, ...) tensor")
+    lay = layout(x) if x.dim() >= 2 else None
+    if lay is None:
+        raise ValueError(f"{what} needs an (N, C, ...) tensor, contiguous or stored channels "
+                         f"innermost")
+    if lay == "nhwc" and (x.shape[1] * x.element_size() % 16 or x.data_ptr() % 16
+                          or x.numel() // x.shape[1] >= 2 ** 31):
+        raise ValueError(f"{what} on channels innermost needs C·itemsize a multiple of 16 "
+                         f"bytes, a 16-byte-aligned tensor and N·H·W < 2^31")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"{what} takes bf16 or f32, got {x.dtype}")
     n, c = x.shape[:2]
@@ -224,6 +344,7 @@ def _check(x: torch.Tensor, groups: int, weight, bias, emb, what: str) -> None:
                             or not emb.is_contiguous() or emb.device != x.device):
         raise ValueError(f"the scale-shift must be a contiguous ({n}, {2 * c}) tensor of "
                          f"{x.dtype} on {x.device}")
+    return lay
 
 
 def _vec(x: torch.Tensor, *others: torch.Tensor) -> int:
@@ -239,18 +360,31 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def forward_cuda(x: torch.Tensor, groups: int, weight: torch.Tensor, bias: torch.Tensor,
                  eps: float = 1e-5, emb: Optional[torch.Tensor] = None, silu: bool = False):
-    """Launch the forward on the path ``group_norm_plan`` picks; returns the
-    output and each group's float32 mean and rstd, (N, G) each.  Raises on
+    """Launch the forward for x's layout, on the path ``group_norm_plan``
+    (NCHW) or ``group_norm_nhwc_plan`` picks; returns the output, in x's
+    layout, and each group's float32 mean and rstd, (N, G) each.  Raises on
     anything the kernels do not take."""
-    global launches
-    _check(x, groups, weight, bias, emb, "group_norm_act forward")
+    lay = _check(x, groups, weight, bias, emb, "group_norm_act forward")
     n, c = x.shape[:2]
     hw, cpg = math.prod(x.shape[2:]), c // groups
-    y = torch.empty_like(x)
+    y = torch.empty_like(x)  # x's strides
     mean = torch.empty((n, groups), dtype=torch.float32, device=x.device)
     rstd = torch.empty_like(mean)
     if x.numel() == 0:
         return y, mean, rstd
+    if lay == "nhwc":
+        plan = group_norm_nhwc_plan(n, c, cpg, hw, x.element_size(), 1)
+        parts = (torch.empty((n * groups * plan.k, 2), dtype=torch.float32, device=x.device)
+                 if plan.path == "split" else None)
+        lib = _lib()
+        fn = (lib.cat_group_norm_nhwc_fwd_bf16 if x.dtype == torch.bfloat16
+              else lib.cat_group_norm_nhwc_fwd_f32)
+        with torch.cuda.device(x.device):
+            rc = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), _ptr(emb), y.data_ptr(),
+                    mean.data_ptr(), rstd.data_ptr(), _ptr(parts), n, c, cpg, hw, float(eps),
+                    int(silu), plan.wc, plan.k, plan.rows, plan.chunk,
+                    torch.cuda.current_stream(x.device).cuda_stream)
+        return _launched(rc, "group_norm_act forward", lay, plan.path, y, mean, rstd)
     vec = _vec(x, y)
     plan = group_norm_plan(cpg, hw, x.element_size(), 1, bool(vec))
     parts = (torch.empty((n * c * plan.pieces, 2), dtype=torch.float32, device=x.device)
@@ -262,30 +396,41 @@ def forward_cuda(x: torch.Tensor, groups: int, weight: torch.Tensor, bias: torch
                 mean.data_ptr(), rstd.data_ptr(), _ptr(parts), n, c, cpg, hw, float(eps),
                 int(silu), plan.k, plan.slice, plan.chunk, plan.pieces, vec,
                 torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(rc, "group_norm_act forward")
-    launches += 1
-    path_launches[plan.path] += 1
-    return y, mean, rstd
+    return _launched(rc, "group_norm_act forward", lay, plan.path, y, mean, rstd)
+
+
+def _launched(rc: int, what: str, lay: str, path: Optional[str], *out):
+    """Raise on a failed launch, else count it (forward: ``path`` given)
+    and return ``out``."""
+    global launches, bwd_launches
+    cuda_build.check(rc, what)
+    layout_launches[lay] += 1
+    if path is None:
+        bwd_launches += 1
+    else:
+        launches += 1
+        path_launches[path] += 1
+    return out
 
 
 def backward_cuda(x: torch.Tensor, g: torch.Tensor, groups: int, mean: torch.Tensor,
                   rstd: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   emb: Optional[torch.Tensor] = None, silu: bool = False):
-    """Launch the backward (on ``group_norm_plan``'s path for x and g
-    together) with the forward's mean and rstd; returns (dx, dweight,
-    dbias, demb), demb None without ``emb``.  Raises on anything the kernels
-    do not take."""
-    global bwd_launches
-    _check(x, groups, weight, bias, emb, "group_norm_act backward")
-    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or not g.is_contiguous():
-        raise ValueError("the upstream gradient must be a contiguous tensor of x's shape, "
-                         "dtype and device")
+    """Launch the backward for x's layout (on the plan's path for x and g
+    together; g in x's layout) with the forward's mean and rstd; returns
+    (dx, dweight, dbias, demb), dx in x's layout, demb None without
+    ``emb``.  Raises on anything the kernels do not take."""
+    lay = _check(x, groups, weight, bias, emb, "group_norm_act backward")
+    if (g.shape != x.shape or g.dtype != x.dtype or g.device != x.device or layout(g) != lay
+            or (lay == "nhwc" and g.data_ptr() % 16)):
+        raise ValueError("the upstream gradient must be a tensor of x's shape, dtype, device "
+                         "and layout (16-byte aligned channels innermost)")
     n, c = x.shape[:2]
     for name, t in (("mean", mean), ("rstd", rstd)):
         if t.dtype != torch.float32 or t.shape != (n, groups) or not t.is_contiguous():
             raise ValueError(f"{name} must be the forward's contiguous float32 ({n}, {groups})")
     hw, cpg = math.prod(x.shape[2:]), c // groups
-    dx = torch.empty_like(x)
+    dx = torch.empty_like(x)  # x's strides
     if x.numel() == 0:
         return (dx, torch.zeros_like(weight), torch.zeros_like(bias),
                 None if emb is None else torch.zeros_like(emb))
@@ -293,6 +438,19 @@ def backward_cuda(x: torch.Tensor, g: torch.Tensor, groups: int, mean: torch.Ten
     dweight = torch.empty(c, dtype=torch.float32, device=x.device)
     dbias = torch.empty_like(dweight)
     demb = None if emb is None else torch.empty_like(emb)
+    if lay == "nhwc":
+        plan = group_norm_nhwc_plan(n, c, cpg, hw, x.element_size(), 2)
+        parts = torch.empty((n * c * plan.k, 2), dtype=torch.float32, device=x.device)
+        lib = _lib()
+        fn = (lib.cat_group_norm_nhwc_bwd_bf16 if x.dtype == torch.bfloat16
+              else lib.cat_group_norm_nhwc_bwd_f32)
+        with torch.cuda.device(x.device):
+            rc = fn(x.data_ptr(), g.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                    weight.data_ptr(), bias.data_ptr(), _ptr(emb), dx.data_ptr(),
+                    parts.data_ptr(), dweight.data_ptr(), dbias.data_ptr(), _ptr(demb), n, c,
+                    cpg, hw, int(silu), plan.wc, plan.k, plan.rows, plan.chunk,
+                    torch.cuda.current_stream(x.device).cuda_stream)
+        return _launched(rc, "group_norm_act backward", lay, None, dx, dweight, dbias, demb)
     vec = _vec(x, g, dx)
     plan = group_norm_plan(cpg, hw, x.element_size(), 2, bool(vec))
     parts = torch.empty((n * c * plan.pieces, 2), dtype=torch.float32, device=x.device)
@@ -303,9 +461,7 @@ def backward_cuda(x: torch.Tensor, g: torch.Tensor, groups: int, mean: torch.Ten
                 bias.data_ptr(), _ptr(emb), dx.data_ptr(), parts.data_ptr(), dweight.data_ptr(),
                 dbias.data_ptr(), _ptr(demb), n, c, cpg, hw, int(silu), plan.k, plan.slice,
                 plan.chunk, plan.pieces, vec, torch.cuda.current_stream(x.device).cuda_stream)
-    cuda_build.check(rc, "group_norm_act backward")
-    bwd_launches += 1
-    return dx, dweight, dbias, demb
+    return _launched(rc, "group_norm_act backward", lay, None, dx, dweight, dbias, demb)
 
 
 class _GroupNormAct(torch.autograd.Function):
@@ -322,9 +478,9 @@ class _GroupNormAct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, weight, bias, emb, *stats = ctx.saved_tensors
-        if stats:
-            dx, dw, db, de = backward_cuda(x, g.to(x.dtype).contiguous(), ctx.groups, *stats,
-                                           weight, bias, emb, ctx.silu)
+        if stats:  # the gradient in x's layout (no copy where it already is)
+            dx, dw, db, de = backward_cuda(x, _in_layout(g.to(x.dtype), layout(x)), ctx.groups,
+                                           *stats, weight, bias, emb, ctx.silu)
         else:
             dx, dw, db, de = group_norm_act_backward_plain(x, g, ctx.groups, weight, bias,
                                                            ctx.eps, emb, ctx.silu)

@@ -39,10 +39,13 @@ Phases, in order; any failure exits non-zero before the result line:
      forward and backward, batch 16, 256 px, bf16): each shape checked
      against the plain twin (y, dx, dγ, dβ and the scale-shift's gradient
      within tolerance), then timed beside the bytes bound, the twin and
-     ATen's ``F.group_norm`` + ``addcmul`` + ``F.silu`` on bf16; one step's
-     totals; then two steps of the ADM cell's program (batch 16, bf16)
-     launch the forward once a site of both nets and the backward once a
-     student site, by the counters;
+     ATen's ``F.group_norm`` + ``addcmul`` + ``F.silu`` on bf16, in the
+     channels-last UNet's layouts on the NHWC kernels and beside the NCHW
+     kernels at the same sites; one step's totals; then two steps of the
+     ADM cell's program (batch 16, bf16) launch the forward once a site of
+     both nets and the backward once a student site, all on the NHWC
+     kernels, by the counters, and a profiled step runs no cuDNN
+     transpose;
   3. reference: one float32 KA-distillation step at a tiny size on the card
      (kernels) and on the CPU (plain versions), losses compared, at batch 2
      and at batch 130 (4 launches of the float32 pair kernel; the norm
@@ -802,18 +805,29 @@ def _check_gn_site(x, g, w, b, e, silu, what):
     return ferr, berr, mean, rstd
 
 
+def _nhwc(t):
+    """t stored channels innermost, as the channels-last UNet holds its
+    activations: channels_last for (N, C, H, W), an (N, C, T) view of an
+    (N, T, C) tensor for (N, C, T)."""
+    return t.movedim(1, -1).contiguous().movedim(-1, 1)
+
+
 def group_norm_site_numbers(gen, flush, card):
     """The GroupNorm kernels at every site shape of the ADM cell's step
-    (bf16, batch ADM_BATCH, 256 px): at each (C, side, scale-shift, SiLU)
-    the forward and backward on their planned paths, checked against the
-    plain twin (``_check_gn_site``), then timed alone beside the bytes
-    bound (forward: x read, the output written; backward: x and g read, dx
-    written), the plain twin and the library yardstick (ATen's
-    ``F.group_norm`` on the bf16 activation with bf16 γ and β, ``addcmul``
-    where the site scales, and ``F.silu``; its backward is autograd's
-    through them, timed alone on a recorded forward).  Logs a line a shape
-    and one step's totals; returns them, forward and backward apart, with
-    the 0.5-2 MiB slabs' share of bound."""
+    (bf16, batch ADM_BATCH, 256 px), in the layout the channels-last UNet
+    hands them (channels_last; the attention norm's (N, C, T) view stored
+    (N, T, C)): at each (C, side, scale-shift, SiLU) the NHWC forward and
+    backward on their planned paths, checked against the plain twin
+    (``_check_gn_site``; fails unless the layout counter read "nhwc"), then
+    timed alone beside the bytes bound (forward: x read, the output
+    written; backward: x and g read, dx written), the NCHW kernels at the
+    same site on a contiguous copy (checked too), the plain twin and the
+    library yardstick (ATen's ``F.group_norm`` on the bf16 activation in the
+    same layout with bf16 γ and β, ``addcmul`` where the site scales, and
+    ``F.silu``; its backward is autograd's through them, timed alone on a
+    recorded forward).  Logs a line a shape and one step's totals; returns
+    them, forward and backward apart, with the 0.5-2 MiB slabs' share of
+    bound."""
     import torch
     import torch.nn.functional as F
 
@@ -823,29 +837,40 @@ def group_norm_site_numbers(gen, flush, card):
     calls = _adm_gn_calls()
     per = {}  # (direction, C, side, ss, silu) -> numbers
     for c, side, ss, silu in sorted({key[1:] for key in calls}):
-        x = (torch.randn(ADM_BATCH, c, side, side, generator=gen, device=dev) * 2 + 1).bfloat16()
-        g = torch.randn(x.shape, generator=gen, device=dev).bfloat16()
+        attention = not (ss or silu)
+        shape = (ADM_BATCH, c, side * side) if attention else (ADM_BATCH, c, side, side)
+        xc = (torch.randn(shape, generator=gen, device=dev) * 2 + 1).bfloat16()
+        gc = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        x, g = _nhwc(xc), _nhwc(gc)
         w = torch.rand(c, generator=gen, device=dev) + 0.5
         b = torch.randn(c, generator=gen, device=dev)
         e = ((torch.randn(ADM_BATCH, 2 * c, generator=gen, device=dev) * 0.5).bfloat16()
              if ss else None)
         cpg, hw = c // 32, side * side
-        fplan, bplan = (gn.group_norm_plan(cpg, hw, 2, a) for a in (1, 2))
-        ferr, berr, mean, rstd = _check_gn_site(
-            x, g, w, b, e, silu, f"group_norm_act {tuple(x.shape)} ss={int(ss)} silu={int(silu)}")
+        fplan, bplan = (gn.group_norm_nhwc_plan(ADM_BATCH, c, cpg, hw, 2, a) for a in (1, 2))
+        what = f"group_norm_act {tuple(x.shape)} ss={int(ss)} silu={int(silu)}"
+        before = dict(gn.layout_launches)
+        ferr, berr, mean, rstd = _check_gn_site(x, g, w, b, e, silu, what + " NHWC")
+        if gn.layout_launches["nhwc"] != before["nhwc"] + 2:
+            fail(f"{what}: channels innermost did not take the NHWC kernels")
+        _check_gn_site(xc, gc, w, b, e, silu, what + " NCHW")
         fms = timed(lambda: gn.forward_cuda(x, 32, w, b, 1e-5, e, silu), flush=flush)
         bms = timed(lambda: gn.backward_cuda(x, g, 32, mean, rstd, w, b, e, silu), flush=flush)
+        nchw_f = timed(lambda: gn.forward_cuda(xc, 32, w, b, 1e-5, e, silu), flush=flush)
+        nchw_b = timed(lambda: gn.backward_cuda(xc, gc, 32, mean, rstd, w, b, e, silu),
+                       flush=flush)
         fplain = timed(lambda: gn.group_norm_act_plain(x, 32, w, b, 1e-5, e, silu), flush=flush,
                        iters=5)
         bplain = timed(lambda: gn.group_norm_act_backward_plain(x, g, 32, w, b, 1e-5, e, silu),
                        flush=flush, iters=5)
         wl, bl = w.bfloat16(), b.bfloat16()
         leaves = [t.detach().requires_grad_(True) for t in (x, wl, bl) + ((e,) if ss else ())]
+        spatial = [1] * (x.dim() - 2)
 
         def library():
             out = F.group_norm(leaves[0], 32, leaves[1], leaves[2], 1e-5)
             if ss:
-                scale, shift = leaves[3][..., None, None].chunk(2, 1)
+                scale, shift = leaves[3].reshape(ADM_BATCH, 2 * c, *spatial).chunk(2, 1)
                 out = torch.addcmul(shift, out, 1 + scale)
             return F.silu(out) if silu else out
 
@@ -856,33 +881,35 @@ def group_norm_site_numbers(gen, flush, card):
                      flush=flush, iters=10)
         del recorded
         nbytes = x.numel() * x.element_size()
-        for direction, ms, plain, lib, nb, err, plan in (
-                ("forward", fms, fplain, lfwd, 2 * nbytes, ferr, fplan),
-                ("backward", bms, bplain, lbwd, 3 * nbytes, berr, bplan)):
+        for direction, ms, nchw, plain, lib, nb, err, plan in (
+                ("forward", fms, nchw_f, fplain, lfwd, 2 * nbytes, ferr, fplan),
+                ("backward", bms, nchw_b, bplain, lbwd, 3 * nbytes, berr, bplan)):
             per[(direction, c, side, ss, silu)] = {
-                "ms": ms, "plain_ms": plain, "library_ms": lib,
+                "ms": ms, "nchw_ms": nchw, "plain_ms": plain, "library_ms": lib,
                 "bytes_ms": 1e3 * nb / HBM_BYTES_PER_S, "err": err,
                 "slab_kib": cpg * hw * 2 / 1024, "plan": plan._asdict()}
         pf, pb = per[("forward", c, side, ss, silu)], per[("backward", c, side, ss, silu)]
-        log(f"group_norm site {tuple(x.shape)} ss={int(ss)} silu={int(silu)} slab "
+        log(f"group_norm site {tuple(x.shape)} NHWC ss={int(ss)} silu={int(silu)} slab "
             f"{pf['slab_kib']:.0f} KiB: forward {fms:.4f} ms ({100 * pf['bytes_ms'] / fms:.1f}% "
-            f"of bound; {fplan.path} k={fplan.k}), plain {fplain:.4f} ms, library {lfwd:.4f} ms, "
-            f"max|err| {ferr:.3g}; backward {bms:.4f} ms ({100 * pb['bytes_ms'] / bms:.1f}% of "
-            f"bound; {bplan.path} k={bplan.k}), plain twin {bplain:.4f} ms, library "
-            f"{lbwd:.4f} ms, max|err| of dx {berr:.3g}; calls a step "
+            f"of bound; {fplan.path} wc={fplan.wc} k={fplan.k}), NCHW kernels {nchw_f:.4f} ms, "
+            f"plain {fplain:.4f} ms, library {lfwd:.4f} ms, max|err| {ferr:.3g}; backward "
+            f"{bms:.4f} ms ({100 * pb['bytes_ms'] / bms:.1f}% of bound; {bplan.path} "
+            f"wc={bplan.wc} k={bplan.k}), NCHW kernels {nchw_b:.4f} ms, plain twin "
+            f"{bplain:.4f} ms, library {lbwd:.4f} ms, max|err| of dx {berr:.3g}; calls a step "
             f"{calls[('forward', c, side, ss, silu)]} forward, "
             f"{calls[('backward', c, side, ss, silu)]} backward [{card}]")
-        del x, g, e, mean, rstd, leaves
+        del x, g, xc, gc, e, mean, rstd, leaves
     out = {}
     for direction in ("forward", "backward"):
-        tot = {"calls": 0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
-               "ops_ms": 0.0, "bound_ms": 0.0, "err": 0.0, "big_ms": 0.0, "big_bytes_ms": 0.0}
+        tot = {"calls": 0, "ms": 0.0, "nchw_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0, "err": 0.0, "big_ms": 0.0,
+               "big_bytes_ms": 0.0}
         for key, n in calls.items():
             if key[0] != direction or not n:
                 continue
             p = per[key]
             tot["calls"] += n
-            for k in ("ms", "plain_ms", "library_ms", "bytes_ms"):
+            for k in ("ms", "nchw_ms", "plain_ms", "library_ms", "bytes_ms"):
                 tot[k] += n * p[k]
             tot["err"] = max(tot["err"], p["err"])
             if 512 <= p["slab_kib"] <= 2048:
@@ -892,9 +919,10 @@ def group_norm_site_numbers(gen, flush, card):
         tot["shapes"] = [{"C": k[1], "side": k[2], "scale_shift": k[3], "silu": k[4],
                           "calls": n, **per[k]} for k, n in sorted(calls.items())
                          if k[0] == direction and n]
-        log(f"group_norm {direction} bf16, every ADM site: {tot['calls']} calls a step, kernel "
-            f"{tot['ms']:.3f} ms ({100 * tot['bytes_ms'] / tot['ms']:.1f}% of bound; 0.5-2 MiB "
-            f"slabs {100 * tot['big_bytes_ms'] / tot['big_ms']:.1f}%), plain "
+        log(f"group_norm {direction} bf16 NHWC, every ADM site: {tot['calls']} calls a step, "
+            f"kernel {tot['ms']:.3f} ms ({100 * tot['bytes_ms'] / tot['ms']:.1f}% of bound; "
+            f"0.5-2 MiB slabs {100 * tot['big_bytes_ms'] / tot['big_ms']:.1f}%), NCHW kernels "
+            f"{tot['nchw_ms']:.3f} ms ({100 * tot['bytes_ms'] / tot['nchw_ms']:.1f}%), plain "
             f"{tot['plain_ms']:.3f} ms, library {tot['library_ms']:.3f} ms, bound "
             f"{tot['bound_ms']:.3f} ms [{card}]")
         out[direction] = tot
@@ -910,14 +938,20 @@ def adm_group_norm_step(card):
     cell's widths, 256 px, batch ADM_BATCH, bf16, after the cell's own three
     check steps), ADM_STEPS steps with the GroupNorm counters set to 0
     just before them: fails unless each step launched the forward once a
-    site in both nets and the backward once a student site.  Returns the
-    counts a step, by path, and the steps' wall milliseconds."""
+    site in both nets and the backward once a student site, every one on
+    the NHWC kernels; then one more step under ``torch.profiler``: fails
+    unless it ran no kernel named ``nchwToNhwc`` or ``nhwcToNchw``.
+    Returns the counts a step, by path and layout, the transposes and the
+    steps' wall milliseconds."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from benchmark.families import adm_ka
+    from cat_tpu_torch import import_stdlib_profile
     from cat_tpu_torch.models.adm import ADMConfig, group_norm_sites
     from cat_tpu_torch.ops import group_norm as gn
 
+    import_stdlib_profile()  # the profiler loads TorchDynamo, which imports ``profile``
     root = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(root, "benchmark", "configs", "adm256_palette.json")) as f:
         config = json.load(f)
@@ -929,6 +963,7 @@ def adm_group_norm_step(card):
     torch.cuda.synchronize()
     gn.launches, gn.bwd_launches = 0, 0
     gn.path_launches = dict.fromkeys(gn.path_launches, 0)
+    gn.layout_launches = dict.fromkeys(gn.layout_launches, 0)
     t0 = time.perf_counter()
     for k in range(ADM_STEPS):
         metrics = cell.step(k)
@@ -938,17 +973,30 @@ def adm_group_norm_step(card):
                                                for k, v in spec.items()})))
              for spec in (cell.teacher, cell.student)]
     counts = {"forward": gn.launches / ADM_STEPS, "backward": gn.bwd_launches / ADM_STEPS,
-              "forward_by_path": {k: v / ADM_STEPS for k, v in gn.path_launches.items()}}
+              "forward_by_path": {k: v / ADM_STEPS for k, v in gn.path_launches.items()},
+              "by_layout": {k: v / ADM_STEPS for k, v in gn.layout_launches.items()}}
     finite = all(math.isfinite(float(v)) for v in metrics.values())
-    del cell, metrics
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cell.step(ADM_STEPS)
+        torch.cuda.synchronize()
+    kernels = [ev.name for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    transposes = sum(("nchwtonhwc" in n.lower() or "nhwctonchw" in n.lower()) for n in kernels)
+    del cell, metrics, prof
     torch.cuda.empty_cache()
-    if counts["forward"] != sum(sites) or counts["backward"] != sites[1] or not finite:
+    if (counts["forward"] != sum(sites) or counts["backward"] != sites[1] or not finite
+            or counts["by_layout"] != {"nchw": 0, "nhwc": sum(sites) + sites[1]}):
         fail(f"ADM step: GroupNorm launches a step {counts} (losses finite: {finite}); "
              f"expected {sum(sites)} forward ({sites[0]} teacher, {sites[1]} student) and "
-             f"{sites[1]} backward")
+             f"{sites[1]} backward, all on the NHWC kernels")
+    if transposes:
+        fail(f"ADM step: {transposes} kernels named nchwToNhwc/nhwcToNchw in a step; expected "
+             f"none with the UNet channels-last")
     log(f"ADM step (the cell's program, batch {ADM_BATCH}, bf16): GroupNorm launches a step "
-        f"{counts}, {wall:.1f} ms a step by the host's clock [{card}]")
-    return {**counts, "step_ms": wall}
+        f"{counts}; cuDNN transposes a step {transposes}; {len(kernels)} kernels in the "
+        f"profiled step; {wall:.1f} ms a step by the host's clock [{card}]")
+    return {**counts, "transposes": transposes, "profiled_kernels": len(kernels),
+            "step_ms": wall}
 
 
 def check_kernels(dev, teacher_cfg, student_cfg, card):
@@ -4834,13 +4882,18 @@ def main() -> None:
     for direction, name in (("forward", "group_norm_act"),
                             ("backward", "group_norm_act backward")):
         k = kern["group_norm_sites"][direction]
-        rows.append({**row(f"{name} (bfloat16, every ADM site)", "cat_tpu_torch/csrc/group_norm.cu",
+        rows.append({**row(f"{name} (bfloat16, every ADM site, NHWC)",
+                           "cat_tpu_torch/csrc/group_norm.cu",
                            "none (ADM's GroupNorm is XLA's in the JAX package)",
                            kern["adm_step"][direction], k,
                            f"one step's {k['calls']} calls at the ADM cell's sites at batch "
-                           f"{ADM_BATCH}, bf16, each shape timed alone (phase 2); launches: a "
-                           f"step of the cell's program, counted over phase 2's {ADM_STEPS}"),
+                           f"{ADM_BATCH}, bf16, channels innermost, each shape timed alone "
+                           f"(phase 2); launches: a step of the cell's program, counted over "
+                           f"phase 2's {ADM_STEPS}"),
+                     "nchw_kernels_ms": k["nchw_ms"],
                      "big_slabs_pct_of_bound": 100 * k["big_bytes_ms"] / k["big_ms"],
+                     "launches_by_layout": kern["adm_step"]["by_layout"],
+                     "transposes_a_step": kern["adm_step"]["transposes"],
                      "shapes": k["shapes"]})
     for v, dname in zip(verb, ("float32", "bfloat16")):
         k = verb_kern[v["label"]]

@@ -183,6 +183,52 @@ def test_bf16_step_runs_every_conv_and_linear_in_bf16(monkeypatch):
     assert all(p.dtype == torch.float32 for p in state.params.values())
 
 
+def _stored_channels_innermost(x: torch.Tensor) -> bool:
+    """channels_last-contiguous: a 4-D tensor's ``channels_last``, a 3-D
+    (N, C, T) view's storage (N, T, C)."""
+    return x.movedim(1, -1).is_contiguous()
+
+
+def test_distill_step_keeps_every_activation_channels_last(monkeypatch):
+    """A tiny bf16 ``GenericDistiller`` step: every conv2d input and every
+    GroupNorm input of both nets is channels_last-contiguous (the attention
+    norms' (N, C, T) views stored (N, T, C)), most of them not trivially
+    (more than one pixel); the taps come back channels-last with the
+    published (N, C, H, W) shapes."""
+    from cat_tpu_torch.models import adm
+
+    seen = {"conv2d": [], "group_norm": []}
+
+    def spy(kind, fn):
+        def call(x, *args, **kwargs):
+            seen[kind].append((_stored_channels_innermost(x), x[0, 0].numel() > 1))
+            return fn(x, *args, **kwargs)
+        return call
+
+    monkeypatch.setattr(F, "conv2d", spy("conv2d", F.conv2d))
+    monkeypatch.setattr(adm, "group_norm_act", spy("group_norm", adm.group_norm_act))
+    teacher, _ = _net(_spec(64), 1)
+    student, _ = _net(_spec(32), 2)
+    hp = GenericDistillHParams(mapping_layers=tuple(TINY["taps"]), compute_dtype="bfloat16",
+                               recon_loss_type="l2")
+    dist = GenericDistiller(teacher, student, {}, {}, hp, device="cpu")
+    state, tparams = dist.init_state(0)
+    dist.train_step(state, tparams, _batch(4), 1e-4)
+    convs = sum(1 for name, m in teacher.named_modules() if isinstance(m, torch.nn.Conv2d))
+    assert len(seen["conv2d"]) == 2 * convs  # both nets' forwards
+    assert len(seen["group_norm"]) == 2 * len(group_norm_sites(_config(_spec(64))))
+    for kind, calls in seen.items():
+        assert all(ok for ok, _ in calls), kind
+        assert sum(wide for _, wide in calls) > 0.8 * len(calls), kind
+    x, t = _batch(5)
+    with torch.no_grad():
+        eps, acts = teacher(x, t, taps=TINY["taps"])
+    assert eps.shape == x[:, :3].shape and _stored_channels_innermost(eps)
+    widths = teacher.cfg.tap_widths()
+    for k, a in acts.items():
+        assert a.shape[:2] == (2, widths[k]) and a.is_contiguous(memory_format=torch.channels_last)
+
+
 def test_bf16_step_keeps_the_norms_float32_and_casts_the_rest_flat():
     """Under bf16 the GroupNorms' γ and β reach ``F.group_norm`` as the
     float32 masters themselves (no cast, so an update under bf16's step is

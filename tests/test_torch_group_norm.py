@@ -132,7 +132,7 @@ def test_kernel_names_are_read_by_group_norm_ms_and_fall_in_other():
     safe) holds none of the substrings that would put it in another kernel
     group than ``other``."""
     decls = _kernel_declarations()
-    assert len(decls) == 7
+    assert len(decls) == 13  # 7 NCHW (group_norm_act_*, group_norm_piece_*, channels), 6 NHWC
     for name, params in decls:
         assert "group_norm" in name
         for t in ("__nv_bfloat16", "float"):
@@ -210,6 +210,114 @@ def test_plans_fall_back_to_the_split_path():
     _assert_kernels_take(plan, 8, 65536, 2, 1)
 
 
+def _nhwc_shapes():
+    """(C, side, arrays) of every ADM site: the teacher's forward, the
+    student's forward and backward."""
+    out = set()
+    for mc, arrays in ((256, (1,)), (128, (1, 2))):
+        for _, c, side in group_norm_sites(ADMConfig(model_channels=mc)):
+            out.update((c, side, a) for a in arrays)
+    return sorted(out)
+
+
+def _assert_nhwc_plan(plan, n, c, cpg, hw, itemsize, arrays):
+    """``plan`` is one the NHWC kernels take: units of whole groups and
+    whole 16-byte vectors dividing C, at most 256 vectors and 256 groups;
+    staged, a whole sample (wc = C) over k CTAs (at most 8 forward, 4
+    backward) of equal runs within 64 KiB of each array, in at most 4 bulk
+    copies; split, at most 16 runs covering the pixels, at most 2048 parts
+    a unit."""
+    vec = 16 // itemsize
+    assert plan.wc % cpg == 0 and plan.wc % vec == 0 and c % plan.wc == 0
+    assert plan.wc <= 256 * vec and plan.wc // cpg <= 256 and plan.k >= 1 and plan.rows >= 1
+    if plan.path == "split":
+        assert plan.chunk == 0 and (plan.k - 1) * plan.rows < hw <= plan.k * plan.rows
+        assert plan.k <= 16 and plan.k * plan.wc // cpg <= 2048
+        return
+    assert plan.path == ("cta" if plan.k == 1 else "cluster") and plan.wc == c
+    assert plan.k * plan.rows == hw and plan.k <= (8 if arrays == 1 else 4)
+    assert plan.rows * c * itemsize <= 64 << 10
+    assert 1 <= plan.chunk <= plan.rows and -(-plan.rows // plan.chunk) <= 4
+
+
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("c,side,arrays", _nhwc_shapes(),
+                         ids=lambda v: str(v))
+def test_nhwc_plans_take_every_adm_site(c, side, arrays, itemsize):
+    """At every ADM site (batch 16), the NHWC plan is one the kernels take,
+    its unit a whole sample (all C: one contiguous run of memory a CTA) up
+    to 256 vectors; samples of at most 16² stage in a cluster, bf16, but
+    the forward's 1536- and 2048-channel ones (past 64 KiB a CTA) and the
+    backward's past 512; 64² and up take the split path."""
+    cpg, hw = c // 32, side * side
+    plan = gn.group_norm_nhwc_plan(16, c, cpg, hw, itemsize, arrays)
+    _assert_nhwc_plan(plan, 16, c, cpg, hw, itemsize, arrays)
+    assert plan.wc == c if c * itemsize <= 4096 else plan.wc * itemsize <= 4096
+    if side >= 64:
+        assert plan.path == "split"
+    elif itemsize == 2 and side <= 16:
+        assert plan.path != "split" or c * side * side * 2 > (8 if arrays == 1 else 4) * 64 << 10
+
+
+@pytest.mark.parametrize("n,c,cpg,hw,itemsize,arrays,path", [
+    (2, 64, 2, 63, 2, 1, "cta"), (2, 96, 24, 1089, 2, 1, "split"), (4, 32, 1, 256, 2, 2, "cta"),
+    (1, 256, 8, 65536, 2, 1, "split"), (2, 64, 8, 100, 4, 2, "cta"), (3, 32, 1, 1, 2, 1, "cta"),
+    (16, 2048, 64, 64, 4, 1, "split"), (16, 512, 16, 4096, 4, 2, "split"),
+    (16, 512, 16, 64, 2, 1, "cluster")])
+def test_nhwc_plans_by_shape(n, c, cpg, hw, itemsize, arrays, path):
+    """Odd pixel counts (63 in one CTA; 1089, past a CTA and not split
+    evenly: the split path), one channel a group, a 256² sample, one pixel,
+    2048 float32 channels (two units of 1024: the split path): each takes a
+    path the kernels take."""
+    plan = gn.group_norm_nhwc_plan(n, c, cpg, hw, itemsize, arrays)
+    assert plan.path == path
+    _assert_nhwc_plan(plan, n, c, cpg, hw, itemsize, arrays)
+
+
+def test_nhwc_plans_refuse_what_the_kernels_do_not_take():
+    """C not whole 16-byte vectors, or a group wider than 256 vectors,
+    raises: there is no fallback."""
+    for c, cpg, itemsize in ((130, 65, 2), (36, 18, 2), (2100 * 2, 2100, 2)):
+        with pytest.raises(ValueError):
+            gn.group_norm_nhwc_plan(2, c, cpg, 64, itemsize, 1)
+
+
+def test_layout_is_read_from_the_strides():
+    """Contiguous is "nchw"; channels_last, and an (N, C, T) view of an (N,
+    T, C) tensor, "nhwc"; a tensor that is both (one pixel) "nchw"; any
+    other layout None, which the kernels refuse."""
+    x = torch.randn(2, 16, 3, 5)
+    assert gn.layout(x) == "nchw"
+    assert gn.layout(x.to(memory_format=torch.channels_last)) == "nhwc"
+    assert gn.layout(torch.randn(2, 15, 16).transpose(1, 2)) == "nhwc"
+    assert gn.layout(torch.randn(2, 16, 1, 1).to(memory_format=torch.channels_last)) == "nchw"
+    assert gn.layout(x.transpose(2, 3)) is None
+    assert gn.layout(x[:, ::2]) is None
+    cl = x.to(memory_format=torch.channels_last)
+    assert gn._in_layout(x, "nhwc").stride() == cl.stride()
+    assert gn._in_layout(cl, "nhwc").data_ptr() == cl.data_ptr()  # no copy where it already is
+    assert gn._in_layout(cl, "nchw").is_contiguous()
+
+
+@pytest.mark.parametrize("emb,silu", VARIANTS)
+def test_plain_path_keeps_values_and_layout_of_a_channels_last_input(emb, silu):
+    """On the CPU a channels_last input (and an (N, C, T) view stored as
+    (N, T, C)) gives the values and gradients of its contiguous copy."""
+    for shape, groups, make in (((2, 64, 4, 6), 32, lambda t: t.to(memory_format=torch.channels_last)),
+                                ((2, 64, 12), 8, lambda t: t.transpose(1, 2).contiguous().transpose(1, 2))):
+        x, g, w, b, e = _inputs(shape, torch.float32, emb, torch.Generator().manual_seed(13))
+        outs = []
+        for xx in (x, make(x)):
+            leaves = [t.clone().requires_grad_(True) for t in (xx, w, b, e) if t is not None]
+            leaves[0] = xx.clone().requires_grad_(True)  # clone keeps the strides
+            y = gn.group_norm_act(leaves[0], groups, leaves[1], leaves[2], 1e-5,
+                                  leaves[3] if emb else None, silu)
+            outs.append((y, *torch.autograd.grad(y, leaves, g)))
+        assert gn.layout(outs[1][0]) == gn.layout(make(x)) or x.dim() == 3
+        for a, v in zip(*outs):
+            torch.testing.assert_close(v, a, rtol=1e-5, atol=1e-6)
+
+
 def test_kernels_refuse_a_cpu_tensor():
     """The kernels' entry points raise on a CPU tensor: no fallback."""
     x, g, w, b, e = _inputs((2, 64, 4, 4), torch.float32, True, torch.Generator().manual_seed(1))
@@ -285,6 +393,12 @@ def _magnitudes(x, g, groups, w, b, e, silu):
         sg = torch.sigmoid(u)
         du = du * (sg * (1 + u * (1 - sg))).abs()
     return du.sum(-1), (du * xh.abs()).sum(-1)
+
+
+def _in_like(g, x):
+    """g (random values) of x's shape, in x's layout."""
+    g = g if g.shape == x.shape else torch.randn(x.shape, device=x.device, dtype=x.dtype)
+    return gn._in_layout(g, gn.layout(x))
 
 
 def _check_site(x, g, groups, w, b, e, silu):
@@ -387,6 +501,74 @@ def test_kernels_are_bit_reproducible(cuda, dtype, shape):
     assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
+def _nhwc(t):
+    """t stored channels innermost: channels_last for (N, C, H, W), an (N,
+    C, T) view of an (N, T, C) tensor for (N, C, T)."""
+    return t.movedim(1, -1).contiguous().movedim(-1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("site", _adm_sites(),
+                         ids=lambda s: "C{}_s{}_ss{:d}_silu{:d}".format(*s[0]))
+def test_nhwc_kernels_match_the_twin_at_every_adm_site(cuda, dtype, site):
+    """The NHWC kernels forward and backward at every site shape of the
+    cell (batch 16, 256 px), bf16 and float32, on the path each plan picks:
+    channels_last, and the attention norm's (N, C, T) view stored (N, T,
+    C); y and dx come back in x's layout and the layout counter reads
+    "nhwc" twice."""
+    (c, side, emb, silu), _ = site
+    attention = not (emb or silu)
+    shape = (16, c, side * side) if attention else (16, c, side, side)
+    x, g, w, b, e = _card_inputs(shape, dtype, emb, c + side + 1)
+    x, g = _nhwc(x), _nhwc(g)
+    before = dict(gn.layout_launches)
+    y, dx, *_ = _check_site(x, g, 32, w, b, e, silu)
+    assert gn.layout(y) == gn.layout(dx) == "nhwc"
+    assert gn.layout_launches == {"nchw": before["nchw"], "nhwc": before["nhwc"] + 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("emb,silu", VARIANTS)
+@pytest.mark.parametrize("shape,groups", [((2, 64, 7, 9), 32), ((2, 96, 33, 33), 4),
+                                          ((4, 32, 16, 16), 32), ((1, 256, 256, 256), 32),
+                                          ((2, 64, 100), 8), ((3, 32, 1, 5), 32)])
+def test_nhwc_paths_match_the_twin(cuda, dtype, emb, silu, shape, groups):
+    """The NHWC paths at shapes off ADM's: odd pixel counts (a box of 63
+    pixels; the split path on 1089), one channel a group, a 256² sample on
+    the split path, a 3-D input, a single row; each on the path its plan
+    picks, and a contiguous input of the same values on the NCHW kernels."""
+    x, g, w, b, e = _card_inputs(shape, dtype, emb, 17)
+    plan = gn.group_norm_nhwc_plan(shape[0], shape[1], shape[1] // groups, x[0, 0].numel(),
+                                   x.element_size(), 1)
+    before = dict(gn.path_launches), dict(gn.layout_launches)
+    nhwc = _check_site(_nhwc(x), _nhwc(g), groups, w, b, e, silu)
+    assert gn.path_launches[plan.path] == before[0][plan.path] + 1
+    nchw = _check_site(x, g, groups, w, b, e, silu)
+    assert gn.layout_launches == {k: v + 2 for k, v in before[1].items()}
+    for a, r in zip(nhwc[:2], nchw[:2]):  # y and dx, the two kernels to one rounding
+        _assert_close(a, r, dtype, "nhwc against nchw")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(16, 512, 256, 256), (16, 512, 64, 64), (16, 128, 64, 64),
+                                   (16, 2048, 8, 8), (16, 128, 8, 8)])
+def test_nhwc_kernels_are_bit_reproducible(cuda, dtype, shape):
+    """Two calls of the NHWC kernels give the same bits on the split path
+    (the first three shapes), a cluster of 8 forward and 4 backward (2048
+    channels at 8², bf16) and one CTA (128 channels at 8², bf16): no
+    atomics, sums in a fixed order."""
+    x, g, w, b, e = _card_inputs(shape, dtype, True, 4)
+    x, g = _nhwc(x), _nhwc(g)
+    runs = []
+    for _ in range(2):
+        y, mean, rstd = gn.forward_cuda(x, 32, w, b, 1e-5, e, True)
+        runs.append((y, mean, rstd, *gn.backward_cuda(x, g, 32, mean, rstd, w, b, e, True)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
 def _tiny_distiller(dtype):
     from benchmark.families import adm_ka
     from benchmark.families.common import seeded_weights
@@ -417,29 +599,41 @@ def _tiny_distiller(dtype):
 @pytest.mark.cuda
 def test_bf16_distill_step_runs_every_site_through_the_kernels(cuda):
     """A tiny bf16 ADM distill step launches the forward once a GroupNorm
-    site in both nets and the backward once a student site, and never
-    calls ``F.group_norm`` on a CUDA tensor."""
+    site in both nets and the backward once a student site, never calls
+    ``F.group_norm`` on a CUDA tensor, takes the NHWC kernels at every
+    site of more than one pixel (a one-pixel tensor is also contiguous:
+    the NCHW kernels), and hands every backward its gradient already in
+    x's layout (no copy)."""
     dist, (teacher, student), batch = _tiny_distiller("bfloat16")
     state, tparams = dist.init_state(0)
-    cuda_calls = []
-    orig = F.group_norm
+    cuda_calls, relaid = [], []
+    orig, orig_in_layout = F.group_norm, gn._in_layout
 
     def spy(x, *args, **kw):
         if x.is_cuda:
             cuda_calls.append(tuple(x.shape))
         return orig(x, *args, **kw)
 
-    f0, b0 = gn.launches, gn.bwd_launches
-    F.group_norm = spy
+    def in_layout(t, lay):
+        relaid.append(gn.layout(t) != lay)
+        return orig_in_layout(t, lay)
+
+    f0, b0, l0 = gn.launches, gn.bwd_launches, dict(gn.layout_launches)
+    F.group_norm, gn._in_layout = spy, in_layout
     try:
         state, metrics = dist.train_step(state, tparams, batch, 1e-4)
         torch.cuda.synchronize()
     finally:
-        F.group_norm = orig
-    sites = len(group_norm_sites(teacher.cfg)), len(group_norm_sites(student.cfg))
+        F.group_norm, gn._in_layout = orig, orig_in_layout
+    sites = [group_norm_sites(net.cfg) for net in (teacher, student)]
+    one_pixel = [sum(side == 1 for *_, side in s) for s in sites]
     assert cuda_calls == []
-    assert gn.launches - f0 == sum(sites)
-    assert gn.bwd_launches - b0 == sites[1]
+    assert gn.launches - f0 == len(sites[0]) + len(sites[1])
+    assert gn.bwd_launches - b0 == len(sites[1])
+    assert gn.layout_launches["nchw"] - l0["nchw"] == one_pixel[0] + 2 * one_pixel[1]
+    assert (gn.layout_launches["nhwc"] - l0["nhwc"]
+            == len(sites[0]) - one_pixel[0] + 2 * (len(sites[1]) - one_pixel[1]))
+    assert len(relaid) == len(sites[1]) and not any(relaid)
     assert all(torch.isfinite(torch.as_tensor(float(v))) for v in metrics.values())
 
 
@@ -452,15 +646,21 @@ def test_profiled_kernel_names_are_read_by_the_benchmark(cuda):
     import_stdlib_profile()  # the profiler loads TorchDynamo, which imports ``profile``
     x, g, w, b, e = _card_inputs((4, 256, 64, 64), torch.bfloat16, True, 9)
     leaves = [t.requires_grad_(True) for t in (x, w, b, e)]
-    gn.group_norm_act(*leaves[:1], 32, *leaves[1:3], 1e-5, leaves[3], True).backward(g)
+    big = _nhwc(torch.randn(4, 256, 128, 128, device="cuda")).bfloat16().requires_grad_(True)
+    small = _nhwc(torch.randn(4, 256, 16, 16, device="cuda")).bfloat16().requires_grad_(True)
+    for xx in (leaves[0], big, small):
+        gn.group_norm_act(xx, 32, *leaves[1:3], 1e-5, leaves[3], True).backward(_in_like(g, xx))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = gn.group_norm_act(leaves[0], 32, leaves[1], leaves[2], 1e-5, leaves[3], True)
-        out.backward(g)
+        # the NCHW kernels; the NHWC split path (128²) and staged path (16²)
+        for xx in (leaves[0], big, small):
+            out = gn.group_norm_act(xx, 32, leaves[1], leaves[2], 1e-5, leaves[3], True)
+            out.backward(_in_like(g, xx))
         torch.cuda.synchronize()
     names = {ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA}
     ours = {n for n in names if "group_norm" in n}
-    assert len(ours) >= 3, names  # forward, backward, channel sums
+    assert len(ours) >= 3 + 6, names  # NCHW forward, backward, channel sums; NHWC's six
+    assert len({n for n in ours if "nhwc" in n}) == 6, ours
     for n in ours:
         assert group_of(n) == OTHER, n
         assert any(k in n.lower() for k in group_norm_ms_per_step.NAMES)

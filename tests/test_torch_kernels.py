@@ -289,3 +289,40 @@ def test_fused_instance_norm_act_gradients_match_jax(rng, act):
     np.testing.assert_allclose(nhwc(gx), np.asarray(gj[0]), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(gs.numpy(), np.asarray(gj[1]), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(gb.numpy(), np.asarray(gj[2]), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("channels_last", [False, True])
+def test_ka_flatten_is_a_view_in_memory_order(channels_last):
+    """``_flatten`` is a view of a contiguous tap (today's ``reshape``) and
+    of a channels_last one (its pixels in memory order); ``_unflatten``
+    puts (B, F) back in the tap's shape and layout."""
+    x = torch.randn(3, 8, 4, 5)
+    if channels_last:
+        x = x.to(memory_format=torch.channels_last)
+    flat = tka._flatten(x)
+    assert flat.shape == (3, 160) and flat.is_contiguous() and flat.data_ptr() == x.data_ptr()
+    want = x.permute(0, 2, 3, 1) if channels_last else x
+    assert torch.equal(flat, want.reshape(3, -1))
+    back = tka._unflatten(flat, x)
+    assert torch.equal(back, x) and back.stride() == x.stride()
+    if not channels_last:
+        assert flat.stride() == x.reshape(3, -1).stride()
+
+
+def test_ka_and_its_gradient_agree_between_a_channels_last_tap_and_its_copy(rng):
+    """KA does not depend on the feature order: a channels_last tap and its
+    contiguous copy give the same KA and the same gradient (to float32
+    round-off: the Grams and the backward's product sum the features in
+    another order), which comes back in each tap's own layout."""
+    x = torch.from_numpy(rng.standard_normal((4, 6, 3, 5)).astype(np.float32))
+    y = torch.from_numpy(rng.standard_normal((4, 9, 3, 5)).astype(np.float32))
+    out = []
+    for fmt in (torch.contiguous_format, torch.channels_last):
+        xs = x.to(memory_format=fmt).requires_grad_(True)
+        ys = y.to(memory_format=fmt).requires_grad_(True)
+        val = tka.ka(xs, ys)
+        gx, gy = torch.autograd.grad(val, (xs, ys))
+        assert gx.is_contiguous(memory_format=fmt) and gy.is_contiguous(memory_format=fmt)
+        out.append((val, gx, gy))
+    for a, b in zip(*out):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-5 * float(a.detach().abs().max()))
